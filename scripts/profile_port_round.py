@@ -1,0 +1,140 @@
+"""Where a round of the PyTorch port spends its time on a CUDA card.
+
+    python3 scripts/profile_port_round.py [--out chiprun_out/profile.json]
+
+Runs the Fig. 2b operating point (12 clients, 128 ONUs, FCFS, load 0.8,
+seed 1) once to warm up, then once under ``torch.profiler`` and reports:
+wall time, polling cycles simulated (FCFS background pushes), kernel
+launches and host reads of device values per cycle, the device's busy
+share (summed kernel time over wall time) and the kernels that take the
+most device time. It also times one small kernel launch and one host
+read of a device value in isolation, the two costs the per-cycle loop
+is made of. The JSON summary is printed and written to ``--out``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+
+def op_point_spec():
+    from repro_torch.core.slicing import ClientProfile
+    from repro_torch.net import FLRoundWorkload, PONConfig, SweepCase, \
+        SweepSpec
+
+    t_uds = np.random.default_rng(42).uniform(1.0, 5.0, 128)
+    clients = [ClientProfile(client_id=i, t_ud=float(t_uds[i]), t_dl=0.0,
+                             m_ud_bits=26.416e6) for i in range(12)]
+    wl = FLRoundWorkload(clients=clients, model_bits=26.416e6)
+    case = SweepCase(workload=wl, load=0.8, policy="fcfs", seed=1)
+    return SweepSpec(cases=(case,), pon=PONConfig(n_onus=128))
+
+
+def _us_per(fn, n: int = 2000) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
+                                                  "profile.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_port_round: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels.ponsim import kernel as k2
+    from repro_torch.kernels.traffic import kernel as k1
+    from repro_torch.net import engine, simulate
+
+    spec = op_point_spec()
+    simulate(spec, device="cuda")                     # build + warm up
+    cycles = 0
+    push = engine._BgQueues.push
+
+    def counted_push(self, k, bits):
+        nonlocal cycles
+        cycles += 1
+        return push(self, k, bits)
+
+    engine._BgQueues.push = counted_push
+    k1.launches = k2.launches = 0
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = simulate(spec, device="cuda")[0]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        engine._BgQueues.push = push
+    events = prof.key_averages()
+    by_name = {e.key: e for e in events}
+
+    def count(name):
+        return by_name[name].count if name in by_name else 0
+
+    # device-side events only (kernels and copies): an operator's own
+    # row repeats the device time of the kernels it launched
+    kernels = sorted(((e.self_device_time_total, e.key, e.count)
+                      for e in events if e.device_type == DeviceType.CUDA),
+                     reverse=True)
+    busy_us = sum(t for t, _, _ in kernels)
+    x = torch.zeros(16, device="cuda")
+    summary = {
+        "device": torch.cuda.get_device_name(0),
+        "smi": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip(),
+        "sync_time": res.sync_time,
+        "wall_s_profiled": wall,
+        "cycles": cycles,
+        "us_per_cycle_profiled": wall / cycles * 1e6,
+        "kernel_launches": count("cudaLaunchKernel"),
+        "launches_per_cycle": count("cudaLaunchKernel") / cycles,
+        "host_reads": count("aten::_local_scalar_dense"),
+        "host_reads_per_cycle": count("aten::_local_scalar_dense") / cycles,
+        "device_busy_share_profiled": busy_us * 1e-6 / wall,
+        "k1_launches": k1.launches,
+        "k2_launches": k2.launches,
+        "top_device_us": [[name, t, n] for t, name, n in kernels[:10]],
+        "launch_us": _us_per(lambda: x.add_(1.0)),
+        "launch_and_host_read_us": _us_per(lambda: bool(x.add_(1.0).any())),
+    }
+    t0 = time.perf_counter()
+    simulate(spec, device="cuda")
+    torch.cuda.synchronize()
+    summary["wall_s_unprofiled"] = time.perf_counter() - t0
+    summary["us_per_cycle_unprofiled"] = (summary["wall_s_unprofiled"]
+                                          / cycles * 1e6)
+    # the same device work over the wall time of the run without the
+    # profiler's host overhead
+    summary["device_busy_share_unprofiled"] = (
+        busy_us * 1e-6 / summary["wall_s_unprofiled"])
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(summary, f, indent=1)
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,36 @@
+"""PON network substrate on PyTorch: traffic, the batched round engine
+and its sweep facade. Build a :class:`SweepSpec` and run it with
+:func:`simulate` (``device="cuda"`` by default)."""
+from repro_torch.net.api import SweepSpec, simulate
+from repro_torch.net.convert import from_reference
+from repro_torch.net.engine import SweepCase, simulate_round_sweep
+from repro_torch.net.multi_pon import (
+    MultiPonTopology,
+    cps_waterfill,
+    pon_bg_rates,
+)
+from repro_torch.net.sim import FLRoundWorkload, PONConfig, RoundResult
+from repro_torch.net.traffic import (
+    PACKET_BITS,
+    CounterStream,
+    background_rate_for_load,
+    burst_lambda,
+)
+
+__all__ = [
+    "SweepSpec",
+    "simulate",
+    "SweepCase",
+    "PONConfig",
+    "FLRoundWorkload",
+    "RoundResult",
+    "MultiPonTopology",
+    "cps_waterfill",
+    "pon_bg_rates",
+    "simulate_round_sweep",
+    "from_reference",
+    "PACKET_BITS",
+    "CounterStream",
+    "background_rate_for_load",
+    "burst_lambda",
+]

@@ -1,0 +1,1123 @@
+"""Batched PON round engine on PyTorch tensors.
+
+The port of ``repro.net.engine``: one polling cycle is a handful of
+tensor operations over all ONUs at once, with a batch axis over sweep
+cases and, under a ``MultiPonTopology``, over each case's wavelength
+segments (rows are flattened ``(case, pon)`` pairs over per-PON ONU
+columns, coupled each cycle by the CPS waterfill).
+
+* Queue state is float64 on ``device``; the per-cycle loop
+  (:func:`_run_phase`) runs there. Setup and result assembly (layout,
+  slice and slot schedule, the ``RoundResult`` dicts) stay on the host
+  in numpy, as in the reference.
+* The FCFS DBA's "assured background oldest-first, then best-effort FL
+  oldest-first" is the waterfill grant (Hopper kernel K2 on a card);
+  background arrivals come from the counter-based sampler (kernel K1).
+* Every sum whose order can change a bit is taken in the reference's
+  order: waterfill prefixes sequentially inside K2, slot prefixes and
+  multi-client ONU sums column by column. Row totals of grants go
+  through ``torch.sum``: they add multiples of one ulp of the cycle
+  capacity that stay below it, which is exact in any order.
+* The clock ``t`` is a host float advanced by ``t += cyc``, exactly as
+  the reference, so completion times carry the same rounding.
+* The loop's branches (clients left, a hard waterfill row, FL grants
+  given, a partially drained background queue) read the device, one
+  host sync each; client readiness, deadlines, outages and slot
+  activity are decided from host copies with no sync.
+
+Public API: ``SweepCase`` + ``simulate_round_sweep``; prefer building a
+``repro_torch.net.SweepSpec`` and calling ``simulate(spec)``. Multi-tenant
+jobs, ``collector`` instrumentation, timelines and the fused device
+phase (``backend="jit"``) are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import warnings
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch._device import (
+    DEFAULT_DEVICE,
+    FLOAT,
+    resolve_device,
+    seq_cumsum,
+)
+from repro_torch.core.scheduler import schedule_slots, slots_to_arrays
+from repro_torch.core.slicing import ClientProfile, SliceSpec, compute_slice
+from repro_torch.kernels.ponsim.ops import waterfill_grants
+from repro_torch.kernels.ponsim.ref import hard_rows
+from repro_torch.kernels.traffic.ops import (
+    make_stream_key,
+    sample_arrival_bits,
+)
+from repro_torch.net.multi_pon import (
+    MultiPonTopology,
+    cps_waterfill,
+    pon_bg_rates,
+)
+from repro_torch.net.traffic import PACKET_BITS, burst_lambda
+
+CAP_EPS = 1e-9       # the DBAs' "capacity exhausted" threshold
+SEG_EPS = 1.0        # segments under 1 bit are compacted
+EPS_BITS = 1.0       # a client is done below 1 remaining bit
+_IKEY_INF = np.iinfo(np.int64).max // 4
+
+_NOT_PORTED = {
+    "jobs": "multi-tenant jobs (net/jobs.py) are ROADMAP Queue 1 item 8",
+    "collector": "collector instrumentation (obs/) is ROADMAP Queue 1 "
+                 "item 8",
+    "schedule": "timelines (net/timeline.py) are ROADMAP Queue 1 item 7",
+    "jit": "the fused device phase (backend='jit') is ROADMAP Queue 1 "
+           "item 5",
+}
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"the PyTorch port does not support this yet: {_NOT_PORTED[what]}")
+
+
+@dataclass(frozen=True)
+class SweepCase:
+    """One cell of a sweep: a workload under (policy, load, seed).
+
+    ``dl_arrivals``/``ul_arrivals`` optionally inject a per-cycle
+    background arrival matrix ``(n_cycles, n_pons * n_onus)`` (bits) for
+    a phase; cycles beyond it see zero arrivals. Otherwise arrivals come
+    from the counter-based stream keyed ``(seed, phase, stream_round,
+    pon)``. ``no_dl_ids`` skip the model download (``dl_done`` 0.0).
+    Every case of a sweep shares one ``topology`` (``None`` = a single
+    PON). A case with tenant ``jobs`` raises ``NotImplementedError``.
+    """
+
+    workload: "FLRoundWorkload"  # noqa: F821
+    load: float
+    policy: str                  # "fcfs" | "bs"
+    seed: int = 0
+    dl_arrivals: Optional[np.ndarray] = None
+    ul_arrivals: Optional[np.ndarray] = None
+    stream_round: int = 0
+    no_dl_ids: frozenset = frozenset()
+    topology: Optional[MultiPonTopology] = None
+    jobs: Optional[tuple] = None
+
+
+# ---------------------------------------------------------------------------
+# client layout (host numpy)
+# ---------------------------------------------------------------------------
+
+
+class _Layout:
+    """Static slot layout shared by every row of a sweep.
+
+    Rows are flattened ``(case, pon)`` pairs (case-major); columns are
+    ``(local_onu, slot)`` pairs, ascending, where ONU ``o`` carries
+    ``max_p |clients on (p, o)|`` slots, bound in ascending client id
+    order (``cid_of[p, col]``; a column is dead — ``part`` False — in
+    rows whose PON or case does not bind it).
+    """
+
+    def __init__(self, cases: Sequence[SweepCase], n_onus: int,
+                 n_pons: int = 1):
+        total = n_onus * n_pons
+        ids = sorted(
+            {c.client_id for case in cases for c in case.workload.clients}
+        )
+        if not ids:
+            raise ValueError("sweep needs at least one client")
+        buckets: Dict[tuple, List[int]] = {}
+        for i in ids:
+            o = i % total
+            buckets.setdefault((o // n_onus, o % n_onus), []).append(i)
+        slots = np.zeros(n_onus, np.int64)
+        for (_, o), lst in buckets.items():
+            slots[o] = max(slots[o], len(lst))
+        self.onu = np.repeat(np.arange(n_onus, dtype=np.int64), slots)
+        slot_off = np.zeros(n_onus + 1, np.int64)
+        np.cumsum(slots, out=slot_off[1:])
+        nU = self.n_clients = int(slot_off[-1])
+        self.cid_of = np.full((n_pons, nU), -1, np.int64)
+        colmap: Dict[int, int] = {}
+        for (p, o), lst in buckets.items():
+            for s, cid in enumerate(lst):
+                col = int(slot_off[o]) + s
+                self.cid_of[p, col] = cid
+                colmap[cid] = col
+        starts = [0] + [
+            j for j in range(1, nU) if self.onu[j] != self.onu[j - 1]
+        ]
+        self.seg_starts = np.asarray(starts, np.int64)
+        self.seg_onus = self.onu[self.seg_starts]
+        self.seg_len = np.diff(np.append(self.seg_starts, nU))
+        self.single = bool(self.seg_len.max() == 1)
+        self.identity = self.single and nU == n_onus and bool(
+            (self.onu == np.arange(n_onus)).all()
+        )
+
+        R = len(cases) * n_pons
+        self.part = np.zeros((R, nU), bool)
+        self.t_ud = np.zeros((R, nU))
+        self.m_ud = np.zeros((R, nU))
+        self.list_pos = np.zeros((R, nU), np.int64)
+        for b, case in enumerate(cases):
+            seen = set()
+            for p, c in enumerate(case.workload.clients):
+                if c.client_id in seen:
+                    raise ValueError(
+                        f"duplicate client_id {c.client_id} in case {b}"
+                    )
+                seen.add(c.client_id)
+                o = c.client_id % total
+                r = b * n_pons + o // n_onus
+                j = colmap[c.client_id]
+                self.part[r, j] = True
+                self.t_ud[r, j] = c.t_ud
+                self.m_ud[r, j] = c.m_ud_bits
+                self.list_pos[r, j] = p
+
+    def rows(self, sel: np.ndarray) -> "_Layout":
+        """Row-sliced view for a sub-batch of rows (columns shared)."""
+        sub = object.__new__(_Layout)
+        sub.__dict__.update(self.__dict__)
+        for name in ("part", "t_ud", "m_ud", "list_pos"):
+            setattr(sub, name, getattr(self, name)[sel])
+        return sub
+
+
+# ---------------------------------------------------------------------------
+# arrival streams
+# ---------------------------------------------------------------------------
+
+_CHUNK = 1024
+_CHUNK_TARGET_CELLS = 1 << 22     # bound per-chunk sampler memory
+
+
+class _CaseFixed:
+    """Replays an injected ``(n_cycles, n_onus)`` arrival matrix."""
+
+    def __init__(self, rows, n_onus: int, device):
+        rows = np.asarray(rows, np.float64)
+        if rows.ndim != 2 or rows.shape[1] != n_onus:
+            raise ValueError(f"arrivals must be (n_cycles, {n_onus})")
+        self.rows = torch.as_tensor(rows, device=device)
+        self.n = n_onus
+
+    def chunk(self, cycle0: int, length: int) -> torch.Tensor:
+        out = torch.zeros((length, self.n), dtype=FLOAT,
+                          device=self.rows.device)
+        avail = self.rows[cycle0:cycle0 + length]
+        out[: len(avail)] = avail
+        return out
+
+
+class _Stream:
+    """Batched counter-based arrival rows, chunked and O(1)-seekable.
+
+    Sampled cases (``(key, lam)`` pairs) are drawn in one sampler call
+    per chunk; injected cases replay their fixed matrices.
+    """
+
+    def __init__(self, entries: List, n_onus: int, inv_burst: float,
+                 packet_bits: float = PACKET_BITS, *, device):
+        self.n = n_onus
+        self.inv_burst = inv_burst
+        self.packet_bits = packet_bits
+        self.device = device
+        self.fixed = [(i, e) for i, e in enumerate(entries)
+                      if isinstance(e, _CaseFixed)]
+        self.sampled = [(i, e) for i, e in enumerate(entries)
+                        if not isinstance(e, _CaseFixed)]
+        self.B = len(entries)
+        if self.sampled:
+            self.keys = np.stack([np.asarray(e[0], np.uint32)
+                                  for _, e in self.sampled])
+            self.lams = np.array([e[1] for _, e in self.sampled],
+                                 np.float32)
+            self.rows_sel = torch.as_tensor(
+                [i for i, _ in self.sampled], device=device)
+        self.chunk_len = int(np.clip(
+            _CHUNK_TARGET_CELLS // max(self.B * n_onus, 1), 64, _CHUNK
+        ))
+        self._buf: Optional[torch.Tensor] = None
+        self._base = 0
+
+    def row(self, k: int) -> torch.Tensor:
+        if self._buf is None or k >= self._base + self._buf.shape[1]:
+            self._base = k
+            draw = self.sampled and float(self.lams.max()) > 0.0
+            if draw and not self.fixed:
+                buf = sample_arrival_bits(
+                    self.keys, k, self.chunk_len, self.n, self.lams,
+                    self.inv_burst, self.packet_bits, device=self.device)
+            else:
+                buf = torch.zeros((self.B, self.chunk_len, self.n),
+                                  dtype=FLOAT, device=self.device)
+                if draw:
+                    buf[self.rows_sel] = sample_arrival_bits(
+                        self.keys, k, self.chunk_len, self.n, self.lams,
+                        self.inv_burst, self.packet_bits,
+                        device=self.device)
+                for i, e in self.fixed:
+                    buf[i] = e.chunk(k, self.chunk_len)
+            self._buf = buf
+        return self._buf[:, k - self._base, :]
+
+
+# ---------------------------------------------------------------------------
+# background queues: exact FIFO semantics over the arrival history
+# ---------------------------------------------------------------------------
+
+
+class _BgQueues:
+    """Batched per-ONU background FIFOs on a chunked prefix-sum history.
+
+    ``prefix[b, j, n]`` holds the cumulative bits pushed through cycle
+    ``j``; a queue's state is its drained offset ``D``: backlog is
+    ``cum - D``, the head-of-line segment is the first cycle whose
+    prefix exceeds ``D``, and a partial grant advances ``D`` by the
+    grant plus the reference's ≤1-bit compaction snap. History lives in
+    ``_CHUNK``-cycle device tensors, dropped once every live head has
+    passed them.
+    """
+
+    def __init__(self, B: int, n_onus: int, device):
+        self.B, self.N = B, n_onus
+        self.device = device
+        z = dict(dtype=FLOAT, device=device)
+        self.ptr = torch.zeros((B, n_onus), dtype=torch.int64,
+                               device=device)        # head segment cycle
+        self.drained = torch.zeros((B, n_onus), **z)  # incl. snap charges
+        self.cum = torch.zeros((B, n_onus), **z)      # pushed through k
+        self.backlog = torch.zeros((B, n_onus), **z)
+        self._chunks: Dict[int, torch.Tensor] = {}
+
+    def push(self, k: int, bits: torch.Tensor):
+        cidx, off = divmod(k, _CHUNK)
+        buf = self._chunks.get(cidx)
+        if buf is None:
+            buf = self._chunks[cidx] = torch.empty(
+                (self.B, _CHUNK, self.N), dtype=FLOAT, device=self.device)
+        fresh = (self.backlog <= 0.0) & (bits > 0.0)
+        self.cum = self.cum + bits
+        buf[:, off, :] = self.cum
+        self.backlog = self.cum - self.drained
+        # an arrival into an empty queue is the new head; every other
+        # event keeps ptr exact
+        self.ptr = torch.where(fresh, k, self.ptr)
+        if k and off == 0:
+            live = torch.where(self.backlog > 0.0, self.ptr, k)
+            floor = int(live.min()) // _CHUNK
+            for c in [c for c in self._chunks if c < floor]:
+                del self._chunks[c]
+
+    def _prefix_at(self, idx: torch.Tensor) -> torch.Tensor:
+        """Prefix values at absolute cycle ``idx`` ``(B, N)`` (0 where no
+        chunk holds the cycle)."""
+        out = torch.zeros((self.B, self.N), dtype=FLOAT, device=self.device)
+        for cidx, buf in self._chunks.items():
+            base = cidx * _CHUNK
+            m = (idx >= base) & (idx < base + _CHUNK)
+            off = (idx - base).clamp(0, _CHUNK - 1)
+            out = torch.where(m, buf.gather(1, off[:, None, :])[:, 0, :],
+                              out)
+        return out
+
+    def _advance(self, active, ptr, target, k: int) -> torch.Tensor:
+        """First cycle ≤ k whose prefix exceeds ``target``, for the
+        ``active`` queues (beyond ``k`` when none does).
+
+        A marginal queue usually crosses one or two segments, so a few
+        single steps come first; queues still moving after them search
+        their own history row (``torch.searchsorted``) in one call.
+        """
+        for _ in range(3):
+            move = active & (ptr <= k) & (self._prefix_at(ptr) <= target)
+            if not bool(move.any()):
+                return ptr
+            ptr = ptr + move
+        rb, rn = torch.nonzero(move, as_tuple=True)
+        first = min(self._chunks)
+        hist = torch.cat([self._chunks[c][rb, :, rn]
+                          for c in sorted(self._chunks)], dim=1)
+        cycle = first * _CHUNK + torch.arange(hist.shape[1],
+                                              device=self.device)
+        hist = torch.where(cycle[None, :] < ptr[rb, rn][:, None],
+                           -torch.inf, hist)
+        hist = torch.where(cycle[None, :] > k, torch.inf, hist)
+        pos = torch.searchsorted(hist, target[rb, rn][:, None],
+                                 right=True)[:, 0]
+        ptr[rb, rn] = first * _CHUNK + pos
+        return ptr
+
+    def hol_key(self) -> torch.Tensor:
+        """FCFS sort key: the head segment's arrival cycle (ordering by
+        ``ptr`` is ordering by head-of-line age)."""
+        return torch.where(self.backlog > 0.0, self.ptr, _IKEY_INF)
+
+    def serve(self, grants: torch.Tensor, k: int):
+        # a grant equal to the whole backlog drains the queue exactly
+        full = (grants > 0.0) & (grants == self.backlog)
+        budget = torch.where(full, 0.0, grants)
+        self.drained = torch.where(full, self.cum, self.drained)
+        self.backlog = torch.where(full, 0.0, self.backlog)
+        self.ptr = torch.where(full, k + 1, self.ptr)
+        part = budget > CAP_EPS
+        if not bool(part.any()):
+            return
+        # partial grants: closed-form drain on the prefix history (dense
+        # over all queues, kept where ``part``)
+        target = self.drained + budget
+        ptr = self._advance(part, self.ptr, target, k)
+        seg_end = self._prefix_at(ptr)
+        in_hist = ptr <= k
+        snap = in_hist & (seg_end - target <= SEG_EPS)
+        drained = torch.where(snap, seg_end, target)
+        bklg = torch.where(in_hist, self.cum - drained, 0.0)
+        low = bklg < 0.5
+        drained = torch.where(low, self.cum, drained)
+        bklg = torch.where(low, 0.0, bklg)
+        ptr = torch.where(low, k + 1, ptr)
+        # a snap consumed through the segment at ptr; the new head is
+        # the next arrival cycle (prefix > drained), not blindly ptr+1
+        adv = part & snap & ~low
+        ptr = torch.where(adv, self._advance(adv, ptr + 1, drained, k), ptr)
+        self.drained = torch.where(part, drained, self.drained)
+        self.ptr = torch.where(part, ptr, self.ptr)
+        self.backlog = torch.where(part, bklg, self.backlog)
+
+
+# ---------------------------------------------------------------------------
+# per-cycle grants
+# ---------------------------------------------------------------------------
+
+
+def _waterfill(backlog: torch.Tensor, hol_fn, cap: torch.Tensor
+               ) -> torch.Tensor:
+    """Oldest-first ``take = min(backlog, cap)`` grants (kernel K2).
+
+    ``hol_fn`` is called lazily: when every row's demand sits at least
+    one bit under capacity each queue gets its full backlog whatever the
+    age order, so head-of-line keys are never computed.
+    """
+    hard = hard_rows(backlog, cap)
+    if not bool(hard.any()):
+        return backlog.clone()
+    return waterfill_grants(backlog, hol_fn(), cap, hard,
+                            device=backlog.device)
+
+
+class _FLQueues:
+    """Batched per-ONU FL FIFOs over the static client layout."""
+
+    def __init__(self, lay: _Layout, B: int, n_onus: int, device):
+        self.lay = lay
+        self.B, self.N = B, n_onus
+        self.device = device
+        nU = lay.n_clients
+        self.qb = torch.zeros((B, nU), dtype=FLOAT, device=device)
+        self.push_key = torch.full((B, nU), _IKEY_INF, dtype=torch.int64,
+                                   device=device)
+        self.push_time = torch.zeros((B, nU), dtype=FLOAT, device=device)
+        self.list_pos = torch.as_tensor(lay.list_pos, device=device)
+        self.single = lay.single
+        self.onu = torch.as_tensor(lay.onu, device=device)
+        self.seg_onus = torch.as_tensor(lay.seg_onus, device=device)
+        if not self.single:
+            # segment members padded to the longest ONU with a dummy
+            # column nU, so per-ONU reductions are fixed-shape gathers
+            L = int(lay.seg_len.max())
+            idx = np.full((len(lay.seg_starts), L), nU, np.int64)
+            for s, (a, n) in enumerate(zip(lay.seg_starts, lay.seg_len)):
+                idx[s, :n] = np.arange(a, a + n)
+            self.seg_idx = torch.as_tensor(idx, device=device)
+            self.pos = torch.arange(nU, device=device)
+
+    def push(self, mask, bits, k: int, t: float, ready_t):
+        nU = self.lay.n_clients
+        self.qb = torch.where(mask, bits, self.qb)
+        key = k * (nU + 1) + self.list_pos
+        self.push_key = torch.where(mask, key, self.push_key)
+        self.push_time = torch.where(
+            mask, torch.clamp(ready_t, min=t), self.push_time)
+
+    def _segments(self, x: torch.Tensor, pad) -> torch.Tensor:
+        """``(B, n_seg, L)`` members of each ONU segment, padded."""
+        col = torch.full((self.B, 1), pad, dtype=x.dtype,
+                         device=self.device)
+        return torch.cat([x, col], dim=1)[:, self.seg_idx]
+
+    def backlog_per_onu(self) -> torch.Tensor:
+        if self.lay.identity:
+            return self.qb      # aliased view: callers only read it
+        out = torch.zeros((self.B, self.N), dtype=FLOAT,
+                          device=self.device)
+        if self.single:
+            out[:, self.seg_onus] = self.qb
+        else:
+            # np.add.reduceat order: members added left to right
+            seg = self._segments(self.qb, 0.0)
+            acc = seg[:, :, 0]
+            for j in range(1, seg.shape[2]):
+                acc = acc + seg[:, :, j]
+            out[:, self.seg_onus] = acc
+        return out
+
+    def _heads(self):
+        """``(has, pos)``: whether each ONU segment has a queued head and
+        the column of its oldest pushed client."""
+        nU = self.lay.n_clients
+        nonzero = self.qb > 0.0
+        pk = torch.where(nonzero, self.push_key, 0)
+        combined = torch.where(nonzero, pk * nU + self.pos, _IKEY_INF)
+        m = self._segments(combined, _IKEY_INF).amin(dim=2)
+        has = m < _IKEY_INF
+        return has, torch.where(has, m % nU, 0)
+
+    def hol_per_onu(self) -> torch.Tensor:
+        live = self.qb > 0.0
+        if self.lay.identity:
+            return torch.where(live, self.push_time, torch.inf)
+        out = torch.full((self.B, self.N), torch.inf, dtype=FLOAT,
+                         device=self.device)
+        if self.single:
+            out[:, self.seg_onus] = torch.where(live, self.push_time,
+                                                torch.inf)
+            return out
+        has, pos = self._heads()
+        out[:, self.seg_onus] = torch.where(
+            has, torch.gather(self.push_time, 1, pos), torch.inf)
+        return out
+
+    def serve(self, grants_onu: torch.Tensor, backlog_onu: torch.Tensor):
+        """Drain FIFO heads per ONU, reproducing ``OnuQueue.serve``'s
+        1-bit segment compaction (which also charges the grant)."""
+        lay = self.lay
+        if self.single:
+            budget = (grants_onu if lay.identity
+                      else grants_onu[:, self.onu])
+            act = (budget > CAP_EPS) & (self.qb > 0.0)
+            take = torch.where(act, torch.minimum(budget, self.qb), 0.0)
+            drop = act & (self.qb - take <= SEG_EPS)
+            self.qb = torch.where(drop, 0.0, self.qb - take)
+            return
+        nU = lay.n_clients
+        full = (grants_onu > 0.0) & (grants_onu == backlog_onu)
+        self.qb = torch.where(full[:, self.onu], 0.0, self.qb)
+        budget = torch.where(full, 0.0, grants_onu)[:, self.seg_onus]
+        while True:
+            has, pos = self._heads()
+            srv = has & (budget > CAP_EPS)
+            if not bool(srv.any()):
+                break
+            hq = torch.gather(self.qb, 1, pos)
+            take = torch.where(srv, torch.minimum(budget, hq), 0.0)
+            resid = torch.where(srv, hq - take, torch.inf)
+            drop = srv & (resid <= SEG_EPS)
+            newq = torch.where(drop, 0.0, hq - take)
+            # served segments write their head; the rest write a dummy
+            # column, so no two writes meet
+            qb = torch.cat([self.qb, torch.zeros((self.B, 1), dtype=FLOAT,
+                                                 device=self.device)], 1)
+            qb.scatter_(1, torch.where(srv, pos, nU), newq)
+            self.qb = qb[:, :nU]
+            charge = torch.where(drop, resid, 0.0)
+            budget = torch.clamp(budget - take - charge, min=0.0)
+
+
+def _credit(rem, done, done_t, drained, t_done: float):
+    """Attribute served FL bits to the clients that own them: a client
+    is done when its queued update has fully crossed the wire."""
+    new_rem = rem - drained
+    newly = ~done & (drained > 0.0) & (new_rem <= EPS_BITS)
+    rem = torch.where(newly, 0.0, torch.clamp(new_rem, min=0.0))
+    done = done | newly
+    done_t = torch.where(newly, t_done, done_t)
+    return rem, done, done_t
+
+
+class _Slots:
+    """A BS phase's stacked slot arrays, on the host and the device.
+
+    Slot activity in a cycle depends on the clock alone, so the host
+    decides which slots can grant (and how wide a window each row needs)
+    without reading the device.
+    """
+
+    def __init__(self, slot_arrays, cyc: float, device):
+        ts, te, onu_idx, rate, valid = slot_arrays
+        self.ts, self.valid = ts, valid
+        self.te_g = te + cyc
+        self.S = ts.shape[1]
+        self.cols = np.arange(self.S)
+        dev = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        self.d_ts, self.d_te_g, self.d_valid = dev(ts), dev(self.te_g), \
+            dev(valid)
+        self.d_onu, self.d_rate = dev(onu_idx), dev(rate)
+        self.device = device
+
+    def window(self, t: float, cyc: float):
+        """Width of the widest row's run of active slots this cycle
+        (0 when no slot is active)."""
+        active = self.valid & (self.ts < t + cyc) & (self.te_g > t)
+        if not active.any():
+            return 0
+        lo = np.where(active, self.cols, self.S).min(axis=1)
+        hi = np.where(active, self.cols, -1).max(axis=1)
+        return int((hi - lo).max()) + 1
+
+
+def _slot_grants(slots: _Slots, backlog_onu, t: float, cyc: float,
+                 cap, n_onus: int) -> torch.Tensor:
+    """SlicedDBA slot grants: overlap * slice rate, capped by the FL
+    backlog and the sequentially spent per-row cycle capacity ``cap``.
+
+    Only each row's run of active slots is gathered: the slots outside
+    it want exactly 0, so the slot-order prefix over the run equals the
+    reference's prefix over every slot bit for bit.
+    """
+    B = backlog_onu.shape[0]
+    W = slots.window(t, cyc)
+    out = torch.zeros((B, n_onus), dtype=FLOAT, device=slots.device)
+    if not W:
+        return out
+    t_end = t + cyc
+    act = slots.d_valid & (slots.d_ts < t_end) & (slots.d_te_g > t)
+    lo = torch.argmax(act.to(torch.int8), dim=1, keepdim=True)
+    idx = lo + torch.arange(W, device=slots.device)
+    inside = idx < slots.S
+    idx = idx.clamp(max=slots.S - 1)
+    ts = torch.gather(slots.d_ts, 1, idx)
+    te_g = torch.gather(slots.d_te_g, 1, idx)
+    onu = torch.gather(slots.d_onu, 1, idx)
+    active = inside & torch.gather(act, 1, idx)
+    overlap = torch.clamp(te_g, max=t_end) - torch.clamp(ts, min=t)
+    want = slots.d_rate * torch.clamp(overlap, min=0.0)
+    want = torch.minimum(want, torch.gather(backlog_onu, 1, onu))
+    want = torch.where(active & (want > 0.0), want, 0.0)
+    prefix = seq_cumsum(want)
+    grants = torch.minimum(
+        want, torch.clamp(cap[:, None] - (prefix - want), min=0.0))
+    # distinct slots of a row sit on distinct ONUs: no two grants meet
+    return out.scatter_add_(1, onu, grants)
+
+
+# ---------------------------------------------------------------------------
+# phase runner
+# ---------------------------------------------------------------------------
+
+
+def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
+               ready_t: np.ndarray, stream: Optional[_Stream], mode: str,
+               slot_arrays=None, max_t: float = 600.0,
+               fill_unfinished: bool = True,
+               cap_row: Optional[np.ndarray] = None,
+               cps_cap: Optional[float] = None, n_pons: int = 1,
+               deadline_row: Optional[np.ndarray] = None,
+               outage_row: Optional[np.ndarray] = None, *, device):
+    """One transfer phase for a policy-homogeneous batch of rows.
+
+    Host numpy in and out; the cycle loop runs on ``device``. Rows are
+    ``(case, pon)`` pairs; ``cap_row`` is each row's cycle capacity and
+    ``cps_cap`` the CPS budget shared by a case's ``n_pons`` rows.
+    Returns ``(done_t, rem)``: per-client completion times (NaN for
+    clients outside a case) and the bits still unserved. Clients cut off
+    at ``max_t`` get ``t + propagation`` when ``fill_unfinished``.
+    ``deadline_row`` ``(B,)`` gives each row its own cutoff (``inf`` =
+    none); ``outage_row`` ``(B, 2)`` masks a row's capacity to zero for
+    cycles starting in ``[start, end)``.
+    """
+    B = rem_init.shape[0]
+    N = cfg.n_onus
+    cyc = cfg.cycle_time_s
+    prop = cfg.propagation_s
+    if cap_row is None:
+        cap_row = np.full((B,), cfg.line_rate_bps * cyc * cfg.efficiency)
+    cap_row = np.asarray(cap_row, np.float64)
+    if deadline_row is None:
+        cap_t = None
+        tmax = max_t
+    else:
+        cap_t = np.where(np.isfinite(deadline_row), deadline_row, max_t)
+        tmax = float(cap_t.max())
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    part = dev(lay.part)
+    rem = dev(np.asarray(rem_init, np.float64))
+    done_h = ~lay.part | (rem_init <= 0.0)
+    done = dev(done_h)
+    done_t = torch.full(rem.shape, torch.nan, dtype=FLOAT, device=device)
+    ready_d = dev(np.asarray(ready_t, np.float64))
+    fl = _FLQueues(lay, B, N, device)
+    # under the Sliced DBA the FL slice is served first and background
+    # only gets the residual: the BS phase needs no background at all
+    use_bg = mode == "fcfs"
+    bg = _BgQueues(B, N, device) if use_bg else None
+    slots = (_Slots(slot_arrays, cyc, device) if slot_arrays is not None
+             else None)
+
+    n_left = int(np.count_nonzero(~done_h & lay.part))
+    waiting = lay.part & ~done_h          # host: readiness needs no device
+    n_wait = int(np.count_nonzero(waiting))
+    t = 0.0
+    k = 0
+    cap_col = dev(cap_row)
+    cap_cyc = cap_col
+    masked = cap_t is not None or outage_row is not None
+    dark_prev = np.zeros(B, bool)
+    while t < tmax and n_left:
+        if masked:
+            # rows past their deadline or inside an outage get no
+            # capacity; decided on the host clock, uploaded on change
+            dark = np.zeros(B, bool)
+            if cap_t is not None:
+                alive = cap_t > t
+                if not alive.all() and not bool(
+                        (dev(alive)[:, None] & part & ~done).any()):
+                    break
+                dark |= ~alive
+            if outage_row is not None:
+                dark |= (outage_row[:, 0] <= t) & (t < outage_row[:, 1])
+            if (dark != dark_prev).any():
+                cap_cyc = dev(np.where(dark, 0.0, cap_row))
+                dark_prev = dark
+        if use_bg:
+            bg.push(k, stream.row(k))
+        if n_wait:
+            newly = waiting & (ready_t <= t + cyc)
+            n_new = int(np.count_nonzero(newly))
+            if n_new:
+                waiting &= ~newly
+                n_wait -= n_new
+                fl.push(dev(newly), rem, k, t, ready_d)
+
+        # pushed & undone clients hold exactly the nonzero FL queues, so
+        # the idle stretch before the first ready client skips FL work
+        if n_left > n_wait:
+            backlog_onu = fl.backlog_per_onu()
+            if mode == "fcfs":
+                if cps_cap is None:
+                    eff = cap_cyc
+                else:
+                    want = torch.minimum(
+                        bg.backlog.sum(dim=1) + backlog_onu.sum(dim=1),
+                        cap_cyc)
+                    eff = cps_waterfill(want.reshape(-1, n_pons),
+                                        cps_cap).reshape(-1)
+                bg_grants = _waterfill(bg.backlog, bg.hol_key, eff)
+                cap_fl = eff - bg_grants.sum(dim=1)
+                fl_grants = _waterfill(backlog_onu, fl.hol_per_onu, cap_fl)
+                bg.serve(bg_grants, k)
+            else:
+                fl_grants = _slot_grants(slots, backlog_onu, t, cyc,
+                                         cap_cyc, N)
+                if cps_cap is not None:
+                    want = fl_grants.sum(dim=1)
+                    eff = cps_waterfill(want.reshape(-1, n_pons),
+                                        cps_cap).reshape(-1)
+                    if bool((eff < want).any()):
+                        fl_grants = _slot_grants(slots, backlog_onu, t,
+                                                 cyc, eff, N)
+            if bool((fl_grants > 0.0).any()):
+                prev_qb = fl.qb.clone()
+                fl.serve(fl_grants, backlog_onu)
+                rem, done, done_t = _credit(
+                    rem, done, done_t, prev_qb - fl.qb, t + cyc + prop)
+                n_left = int((~done & part).count_nonzero())
+        elif use_bg:
+            if cps_cap is None:
+                eff = cap_cyc
+            else:
+                want = torch.minimum(bg.backlog.sum(dim=1), cap_cyc)
+                eff = cps_waterfill(want.reshape(-1, n_pons),
+                                    cps_cap).reshape(-1)
+            bg.serve(_waterfill(bg.backlog, bg.hol_key, eff), k)
+        t += cyc
+        k += 1
+
+    if cap_t is not None:
+        # only deadline-free rows time out at max_t with filled times;
+        # deadlined rows report their unserved rem instead
+        left = part & ~done & ~dev(np.isfinite(deadline_row))[:, None]
+        done_t = torch.where(left, t + prop, done_t)
+    elif fill_unfinished:
+        done_t = torch.where(part & ~done, t + prop, done_t)
+    return done_t.cpu().numpy(), rem.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# sweep driver (host)
+# ---------------------------------------------------------------------------
+
+
+def _bs_slice(profiles: List[ClientProfile], capacity_bps: float):
+    """Per-segment slice spec + slot arrays (a PON row of a multi-PON
+    case may hold no clients)."""
+    if not profiles:
+        return None, slots_to_arrays([])
+    spec = compute_slice(profiles, t_current=0.0, t_round=0.0,
+                         capacity_bps=capacity_bps, h=1)
+    return spec, slots_to_arrays(
+        schedule_slots(profiles, spec, round_start=0.0))
+
+
+def _stack_slots(per_row, n_onus: int):
+    """Pad per-row slot arrays to a common (B, S) shape."""
+    S = max(
+        (len(a["client_id"]) for _, a in per_row), default=0
+    ) or 1
+    B = len(per_row)
+    ts = np.full((B, S), np.inf)
+    te = np.full((B, S), -np.inf)
+    onu = np.zeros((B, S), np.int64)
+    rate = np.zeros((B, 1))
+    valid = np.zeros((B, S), bool)
+    for b, (spec, a) in enumerate(per_row):
+        s = len(a["client_id"])
+        if s:
+            ts[b, :s] = a["t_start"]
+            te[b, :s] = a["t_end"]
+            onu[b, :s] = a["client_id"] % n_onus
+            valid[b, :s] = True
+        if spec is not None:
+            rate[b, 0] = spec.bandwidth_bps
+    return ts, te, onu, rate, valid
+
+
+def _sweep_topology(cases: Sequence[SweepCase]) -> MultiPonTopology:
+    """The one topology shared by every case (None ≡ trivial)."""
+    topos = {case.topology for case in cases}
+    topos.discard(None)
+    if len(topos) > 1:
+        raise ValueError("sweep cases must share one MultiPonTopology")
+    if not topos:
+        return MultiPonTopology()
+    topo = topos.pop()
+    if any(case.topology is None for case in cases) and not topo.trivial:
+        raise ValueError("sweep cases must share one MultiPonTopology")
+    return topo
+
+
+def _round_sweep(cfg, cases: Sequence[SweepCase],
+                 t_round_hint: float = 10.0,
+                 max_t: float = 600.0,
+                 ul_deadline_s=None,
+                 ul_outage_s=None,
+                 *, device=DEFAULT_DEVICE) -> List["RoundResult"]:  # noqa: F821
+    """Simulate every sweep case as one stacked tensor simulation on
+    ``device``.
+
+    Semantics are those of ``repro.net.engine._round_sweep``: rows are
+    ``(case, pon)`` pairs under the shared topology, ``ul_deadline_s``
+    (scalar, or one entry per case with ``None``/``inf`` = none) cuts
+    the upload phase and reports unserved bits in ``ul_remaining``,
+    ``ul_outage_s`` (per case: ``None``, ``(2,)`` or ``(n_pons, 2)``
+    ``[start, end)`` windows) darkens a row's capacity.
+    """
+    from repro_torch.net.sim import RoundResult
+
+    device = resolve_device(device)
+    cases = list(cases)
+    if any(case.jobs is not None for case in cases):
+        raise _not_ported("jobs")
+    topo = _sweep_topology(cases)
+    P = topo.n_pons
+    n_local = cfg.n_onus
+    total_onus = P * n_local
+    for b, case in enumerate(cases):
+        if case.policy not in ("fcfs", "bs"):
+            raise ValueError(f"unknown policy {case.policy!r}")
+        if case.policy == "bs":
+            bad = [c.client_id for c in case.workload.clients
+                   if c.client_id >= total_onus]
+            if bad:
+                raise ValueError(
+                    "bs policy requires client_id < n_onus * n_pons; "
+                    f"got {bad}"
+                )
+        for name in ("dl_arrivals", "ul_arrivals"):
+            arr = getattr(case, name)
+            if arr is None:
+                continue
+            a = np.asarray(arr, np.float64)
+            if a.ndim != 2 or a.shape[1] != total_onus:
+                raise ValueError(
+                    f"cases[{b}].{name} must be 2-D with "
+                    f"n_pons * n_onus = {total_onus} columns; "
+                    f"got shape {np.shape(arr)}"
+                )
+    lay = _Layout(cases, n_local, P)
+    B = len(cases)
+    R = B * P
+    row_case = np.repeat(np.arange(B), P)
+    row_pon = np.tile(np.arange(P), B)
+    rates_pon = topo.rates(cfg)
+    cap_row = np.tile(topo.capacity_bits(cfg), B)
+    cps_cap = topo.cps_capacity_bits(cfg)
+    per_onu_rate = np.stack([
+        pon_bg_rates(c.workload.clients, c.workload.model_bits, c.load,
+                     cfg, topo, t_round_hint)
+        for c in cases
+    ])                                                  # (B, n_pons)
+    per_case_dl = isinstance(ul_deadline_s, (list, tuple, np.ndarray))
+    if per_case_dl:
+        dl_case = np.array(
+            [np.inf if d is None else float(d) for d in ul_deadline_s],
+            np.float64,
+        )
+        if dl_case.shape != (B,):
+            raise ValueError(
+                f"per-case ul_deadline_s needs {B} entries; "
+                f"got shape {dl_case.shape}"
+            )
+        dl_row = np.repeat(dl_case, P)
+        ul_max_t = max_t
+    else:
+        dl_case = dl_row = None
+        ul_max_t = max_t if ul_deadline_s is None else ul_deadline_s
+    outage_row = None
+    if ul_outage_s is not None:
+        if len(ul_outage_s) != B:
+            raise ValueError(
+                f"per-case ul_outage_s needs {B} entries; "
+                f"got {len(ul_outage_s)}"
+            )
+        outage_row = np.full((B, P, 2), np.inf)
+        for b, win in enumerate(ul_outage_s):
+            if win is None:
+                continue
+            arr = np.asarray(win, np.float64)
+            if arr.shape == (2,):
+                arr = np.broadcast_to(arr, (P, 2))
+            if arr.shape != (P, 2):
+                raise ValueError(
+                    f"ul_outage_s[{b}] must be (2,) or ({P}, 2); "
+                    f"got shape {arr.shape}"
+                )
+            outage_row[b] = arr
+        outage_row = outage_row.reshape(R, 2)
+        if not np.isfinite(outage_row[:, 0]).any():
+            outage_row = None       # all-inf: the outage-free path
+    no_dl = np.zeros((R, lay.n_clients), bool)
+    for b, case in enumerate(cases):
+        if case.no_dl_ids:
+            skip = list(case.no_dl_ids)
+            for p in range(P):
+                no_dl[b * P + p] = np.isin(lay.cid_of[p], skip)
+    no_dl &= lay.part
+
+    def providers(sel, phase):
+        entries = []
+        for r in sel:
+            b, p = int(row_case[r]), int(row_pon[r])
+            case = cases[b]
+            injected = (case.dl_arrivals if phase == "dl"
+                        else case.ul_arrivals)
+            if injected is not None:
+                if P > 1:
+                    arr = np.asarray(injected, np.float64)
+                    injected = arr[:, p * n_local:(p + 1) * n_local]
+                entries.append(_CaseFixed(injected, n_local, device))
+            else:
+                entries.append((
+                    make_stream_key(case.seed, 0 if phase == "dl" else 1,
+                                    case.stream_round, p),
+                    burst_lambda(per_onu_rate[b, p], cfg.cycle_time_s,
+                                 PACKET_BITS, cfg.bg_burst_packets),
+                ))
+        return _Stream(entries, n_local, 1.0 / cfg.bg_burst_packets,
+                       device=device)
+
+    def run_phase(sub, rem0, ready, sel, phase, mode, **kw):
+        stream = providers(sel, phase) if mode == "fcfs" else None
+        return _run_phase(cfg, sub, rem0, ready, stream, mode,
+                          device=device, **kw)
+
+    # ---- downstream ------------------------------------------------------
+    dl_done = np.full((R, lay.n_clients), np.nan)
+    fcfs_rows = np.array(
+        [r for r in range(R) if cases[row_case[r]].policy == "fcfs"],
+        np.int64,
+    )
+    bs_rows = np.array(
+        [r for r in range(R) if cases[row_case[r]].policy == "bs"],
+        np.int64,
+    )
+    if len(fcfs_rows):
+        sub = lay.rows(fcfs_rows)
+        bits = np.array([cases[row_case[r]].workload.model_bits
+                         for r in fcfs_rows])[:, None]
+        rem0 = np.where(sub.part & ~no_dl[fcfs_rows], bits, 0.0)
+        ready0 = np.zeros_like(rem0)
+        dl_done[fcfs_rows], _ = run_phase(
+            sub, rem0, ready0, fcfs_rows, "dl", "fcfs",
+            max_t=max_t, cap_row=cap_row[fcfs_rows], cps_cap=cps_cap,
+            n_pons=P,
+        )
+    for r in bs_rows:
+        b, p = int(row_case[r]), int(row_pon[r])
+        mb = cases[b].workload.model_bits
+        t_bcast = mb / (rates_pon[p] * cfg.efficiency) + cfg.propagation_s
+        dl_done[r] = np.where(lay.part[r], t_bcast, np.nan)
+    dl_done = np.where(no_dl, 0.0, dl_done)
+
+    ready_t = dl_done + lay.t_ud
+
+    # ---- upstream --------------------------------------------------------
+    ul_done = np.full((R, lay.n_clients), np.nan)
+    ul_rem = np.zeros((R, lay.n_clients))
+    specs: Dict[int, SliceSpec] = {}
+    if len(fcfs_rows):
+        sub = lay.rows(fcfs_rows)
+        rem0 = np.where(sub.part, sub.m_ud, 0.0)
+        ready = np.where(sub.part, ready_t[fcfs_rows], np.inf)
+        ul_done[fcfs_rows], ul_rem[fcfs_rows] = run_phase(
+            sub, rem0, ready, fcfs_rows, "ul", "fcfs",
+            max_t=ul_max_t, fill_unfinished=ul_deadline_s is None,
+            cap_row=cap_row[fcfs_rows], cps_cap=cps_cap, n_pons=P,
+            deadline_row=None if dl_row is None else dl_row[fcfs_rows],
+            outage_row=(None if outage_row is None
+                        else outage_row[fcfs_rows]),
+        )
+    if len(bs_rows):
+        per_row = []
+        for r in bs_rows:
+            b, p = int(row_case[r]), int(row_pon[r])
+            dl_map = {
+                int(lay.cid_of[p, j]): float(dl_done[r, j])
+                for j in range(lay.n_clients) if lay.part[r, j]
+            }
+            profiles = [
+                ClientProfile(
+                    client_id=c.client_id,
+                    t_ud=c.t_ud,
+                    t_dl=dl_map[c.client_id],
+                    m_ud_bits=c.m_ud_bits,
+                    distance_m=c.distance_m,
+                )
+                for c in cases[b].workload.clients
+                if c.client_id in dl_map
+            ]
+            spec, arrays = _bs_slice(
+                profiles, float(rates_pon[p] * cfg.efficiency)
+            )
+            if P == 1:
+                specs[b] = spec
+            per_row.append((spec, arrays))
+        sub = lay.rows(bs_rows)
+        rem0 = np.where(sub.part, sub.m_ud, 0.0)
+        ready = np.where(sub.part, ready_t[bs_rows], np.inf)
+        ul_done[bs_rows], ul_rem[bs_rows] = run_phase(
+            sub, rem0, ready, bs_rows, "ul", "bs",
+            slot_arrays=_stack_slots(per_row, n_local), max_t=ul_max_t,
+            fill_unfinished=ul_deadline_s is None,
+            cap_row=cap_row[bs_rows], cps_cap=cps_cap, n_pons=P,
+            deadline_row=None if dl_row is None else dl_row[bs_rows],
+            outage_row=(None if outage_row is None
+                        else outage_row[bs_rows]),
+        )
+
+    # ---- assemble --------------------------------------------------------
+    results = []
+    for b, case in enumerate(cases):
+        dl: Dict[int, float] = {}
+        rd: Dict[int, float] = {}
+        ul: Dict[int, float] = {}
+        remaining: Dict[int, float] = {}
+        for p in range(P):
+            r = b * P + p
+            sel = lay.part[r]
+            if not sel.any():
+                continue
+            ids = lay.cid_of[p][sel]
+            dl.update(
+                (int(i), float(v)) for i, v in zip(ids, dl_done[r, sel])
+            )
+            rd.update(
+                (int(i), float(v)) for i, v in zip(ids, ready_t[r, sel])
+            )
+            ul.update(
+                (int(i), float(v)) for i, v in zip(ids, ul_done[r, sel])
+            )
+            remaining.update(
+                (int(i), float(v))
+                for i, v in zip(ids, ul_rem[r, sel]) if v > 0.0
+            )
+        if per_case_dl:
+            dlb = float(dl_case[b])
+            has_dl = bool(np.isfinite(dl_case[b]))
+        else:
+            dlb = ul_deadline_s
+            has_dl = ul_deadline_s is not None
+        if remaining and has_dl:
+            sync = dlb + case.workload.t_aggregate
+        else:
+            sync = max(ul.values()) + case.workload.t_aggregate
+        results.append(RoundResult(
+            policy=case.policy,
+            sync_time=sync,
+            dl_done=dl,
+            ready=rd,
+            ul_done=ul,
+            compute_bound=max(rd.values()),
+            load=case.load,
+            slice_spec=specs.get(b),
+            ul_remaining=remaining if has_dl else None,
+        ))
+    return results
+
+
+def simulate_round_sweep(cfg, cases=None,
+                         t_round_hint: float = 10.0,
+                         max_t: float = 600.0,
+                         ul_deadline_s=None,
+                         ul_outage_s=None,
+                         collector=None,
+                         backend: Optional[str] = None,
+                         *, device=DEFAULT_DEVICE) -> List["RoundResult"]:  # noqa: F821
+    """Public round-sweep entry point.
+
+    Preferred form: ``simulate_round_sweep(spec)`` or
+    ``simulate_round_sweep(cfg, spec)`` with a
+    ``repro_torch.net.SweepSpec`` (the same call as ``simulate``). The
+    keyword form ``simulate_round_sweep(cfg, cases, ...)`` still works
+    and emits a ``DeprecationWarning``, as in the reference.
+    """
+    from repro_torch.net.api import SweepSpec, simulate
+
+    spec = None
+    pon = None
+    if isinstance(cfg, SweepSpec):
+        if cases is not None:
+            raise TypeError(
+                "simulate_round_sweep(spec) takes no second argument; "
+                "put the PONConfig in spec.pon or call "
+                "simulate_round_sweep(cfg, spec)"
+            )
+        spec = cfg
+    elif isinstance(cases, SweepSpec):
+        spec, pon = cases, cfg
+    if spec is not None:
+        if spec.schedule is not None:
+            raise _not_ported("schedule")
+        return simulate(spec, pon, collector=collector, device=device)
+    warnings.warn(
+        "simulate_round_sweep(cfg, cases, **kwargs) is deprecated; "
+        "build a repro_torch.net.SweepSpec and call simulate(spec)",
+        DeprecationWarning, stacklevel=2,
+    )
+    if collector is not None:
+        raise _not_ported("collector")
+    if backend == "jit":
+        raise _not_ported("jit")
+    if backend not in (None, "numpy"):
+        raise ValueError(f"unknown engine backend {backend!r}")
+    return _round_sweep(
+        cfg, cases, t_round_hint=t_round_hint, max_t=max_t,
+        ul_deadline_s=ul_deadline_s, ul_outage_s=ul_outage_s,
+        device=device,
+    )

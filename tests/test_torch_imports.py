@@ -1,0 +1,51 @@
+"""The port stands alone: no file of ``src/repro_torch`` and not
+``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and every
+port module, kernel modules included, imports on a machine with no
+``nvcc`` and no card without building anything."""
+import ast
+import importlib
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", None) == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_scan_covers_the_port():
+    names = {p.relative_to(PORT).as_posix() for p in FILES[:-1]}
+    for expected in ("net/engine.py", "kernels/traffic/kernel.py",
+                     "kernels/ponsim/kernel.py", "_device.py"):
+        assert expected in names
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.name)
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_modules_import_without_building():
+    from repro_torch import _cuda
+
+    mods = [".".join(p.relative_to(PORT.parent).with_suffix("").parts)
+            for p in FILES[:-1]]
+    for name in mods:
+        importlib.import_module(name.removesuffix(".__init__"))
+    assert _cuda._lib is None
