@@ -1,0 +1,134 @@
+"""Where olmo-1b serving on the PyTorch port spends its time on a CUDA card.
+
+    python3 scripts/profile_port_serve.py [--out chiprun_out/profile_serve.json]
+
+Full-width olmo-1b (16 layers, float32 parameters, bfloat16 compute,
+random weights from seed 0), batch 4, 2048-token prompts (seed 1): one
+prefill and 8 greedy decode steps to warm up, then the same unprofiled
+(host clock around work that ends in a synchronise) and under
+``torch.profiler``. For the prefill and the decode steps apart it
+reports the wall time, the device's busy share (summed kernel time over
+the unprofiled wall), the device time of the flash-attention kernel K4,
+of the matrix products (cuBLAS kernel names: gemm, gemv, xmma,
+cutlass, nvjet), of
+the rest, and the kernels that take the most device time. The JSON
+summary is printed and written to ``--out``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+BATCH, PROMPT, DECODE_STEPS = 4, 2048, 8
+GEMM_MARKS = ("gemm", "gemv", "xmma", "cutlass", "nvjet")
+
+
+def _prefill(cfg, params, prompts):
+    """Returns (logits, cache, seconds) of one prefill."""
+    from repro_torch.dist import stepfns
+    from repro_torch.models import lm
+
+    cache = lm.init_cache(cfg, BATCH, PROMPT + DECODE_STEPS + 8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = stepfns.make_prefill_step(cfg)(params, prompts, cache)
+    torch.cuda.synchronize()
+    return logits, cache, time.perf_counter() - t0
+
+
+def _decode(cfg, params, logits, cache) -> float:
+    """Seconds of ``DECODE_STEPS`` greedy decode steps."""
+    from repro_torch.dist import stepfns
+
+    decode = stepfns.make_decode_step(cfg)
+    tok = logits[:, -1:].argmax(-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_STEPS):
+        logits, cache = decode(params, tok, cache)
+        tok = logits[:, -1:].argmax(-1)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _breakdown(events, wall_s: float) -> dict:
+    kernels = sorted(((e.self_device_time_total, e.key, e.count)
+                      for e in events if e.device_type == DeviceType.CUDA),
+                     reverse=True)
+    busy = sum(t for t, _, _ in kernels)
+    k4 = sum(t for t, name, _ in kernels if "flash_fwd_kernel" in name)
+    gemm = sum(t for t, name, _ in kernels
+               if any(m in name.lower() for m in GEMM_MARKS))
+    return {
+        "wall_ms": wall_s * 1e3,
+        "device_busy_ms": busy / 1e3,
+        "device_busy_share": busy * 1e-6 / wall_s,
+        "k4_ms": k4 / 1e3,
+        "gemm_ms": gemm / 1e3,
+        "other_ms": (busy - k4 - gemm) / 1e3,
+        "top_device_us": [[name[:120], t, n] for t, name, n in kernels[:10]],
+    }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
+                                                  "profile_serve.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_port_serve: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config("olmo-1b")
+    with torch.inference_mode():
+        params = lm.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
+        prompts = torch.randint(
+            0, cfg.vocab_size, (BATCH, PROMPT), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(1))
+        _decode(cfg, params, *_prefill(cfg, params, prompts)[:2])  # warm up
+        summary = {
+            "device": torch.cuda.get_device_name(0),
+            "smi": subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True,
+                text=True).stdout.strip(),
+            "batch": BATCH, "prompt": PROMPT, "decode_steps": DECODE_STEPS,
+        }
+        logits, cache, wall = _prefill(cfg, params, prompts)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _prefill(cfg, params, prompts)
+        summary["prefill"] = _breakdown(prof.key_averages(), wall)
+        wall = _decode(cfg, params, logits, cache)
+        logits, cache, _ = _prefill(cfg, params, prompts)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _decode(cfg, params, logits, cache)
+        summary["decode"] = _breakdown(prof.key_averages(), wall)
+    summary["decode_ms_per_step"] = (summary["decode"]["wall_ms"]
+                                     / DECODE_STEPS)
+    summary["decode_tok_s"] = BATCH * DECODE_STEPS / (
+        summary["decode"]["wall_ms"] / 1e3)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(summary, f, indent=1)
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

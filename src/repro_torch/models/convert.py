@@ -1,0 +1,48 @@
+"""Carry the reference package's LM parameters into the port.
+
+``from_reference_params`` takes the reference parameter pytree as nested
+dicts of numpy arrays (``jax.tree.map(np.asarray, params)``), with the
+leading ``n_units`` axis on the leaves of ``units``, and returns the
+port's parameter dict with the same keys, shapes and dtypes, so that both
+packages compute the same function in the tests.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch._device import DEFAULT_DEVICE, resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lm
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a).copy())
+
+
+def _convert(tree, want, path: str, device: torch.device):
+    if isinstance(want, dict):
+        if not isinstance(tree, dict) or set(tree) != set(want):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{path or 'params'}: keys {got} != "
+                             f"{sorted(want)}")
+        return {k: _convert(tree[k], want[k], f"{path}/{k}", device)
+                for k in want}
+    t = _tensor(tree)
+    if tuple(t.shape) != tuple(want.shape) or t.dtype != want.dtype:
+        raise ValueError(f"{path}: {tuple(t.shape)} {t.dtype} != "
+                         f"{tuple(want.shape)} {want.dtype}")
+    return t.to(device)
+
+
+def from_reference_params(tree, cfg: ModelConfig,
+                          device=DEFAULT_DEVICE) -> dict:
+    """The port's params on ``device`` from a reference pytree of numpy
+    arrays; raises ``ValueError`` if a key, shape or dtype does not match
+    what ``lm.init_params(cfg)`` would build."""
+    dev = resolve_device(device)
+    want = lm._init(cfg, None, torch.device("meta"))
+    return _convert(tree, want, "", dev)

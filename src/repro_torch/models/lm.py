@@ -1,0 +1,250 @@
+"""Decoder-only language model assembled from the config-driven blocks.
+
+Parameters mirror the reference package's pytree: the config's repeating
+*pattern unit* is stored with a leading ``n_units`` axis on every leaf of
+``params["units"]``, remainder layers (n_layers % unit_len) unstacked
+under ``params["rem"]``. Where the reference scans the units with
+``lax.scan``, the port loops over them in Python, indexing unit ``u`` of
+each stacked leaf (a view). Remat does not apply: the port runs forward
+only so far.
+
+Entry points:
+  ``forward_train``  — full logits over a sequence (forward only)
+  ``prefill``        — forward over the prompt, filling the KV caches
+  ``decode_step``    — one token against the caches
+
+Only attention blocks with a dense MLP are ported; RG-LRU, SSD and MoE
+blocks raise ``NotImplementedError`` (ROADMAP Queue 1 item 10).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch._device import DEFAULT_DEVICE, resolve_device
+from repro_torch.configs.base import ATTN, LayerSpec, ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (
+    apply_norm,
+    embed_init,
+    mlp_apply,
+    mlp_init,
+    norm_init,
+    sinusoidal_embed,
+    torch_dtype,
+)
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    kinds = {s.kind for s in cfg.pattern}
+    if kinds != {ATTN}:
+        raise NotImplementedError(
+            f"{cfg.name}: block kinds {sorted(kinds - {ATTN})} are not "
+            "ported yet (ROADMAP Queue 1 item 10)")
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP Queue 1 "
+            "item 10)")
+
+
+def _add_abs_pos(x, cfg, positions):
+    if cfg.abs_sinusoidal:
+        x = x + sinusoidal_embed(positions, cfg.d_model).to(x.dtype)
+    return x
+
+
+def _tree_index(tree, u: int):
+    """Unit ``u`` of a tree whose leaves carry a leading ``n_units`` axis."""
+    if isinstance(tree, dict):
+        return {k: _tree_index(v, u) for k, v in tree.items()}
+    return tree[u]
+
+
+def _tree_stack(trees):
+    """Stack a list of like trees along a new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+# ---------------------------------------------------------------------------
+# block = attention mixer + MLP, with pre-norms
+# ---------------------------------------------------------------------------
+
+
+def _block_init(generator, cfg: ModelConfig, spec: LayerSpec, device):
+    p = {"mix_norm": norm_init(cfg, device=device),
+         "mixer": attn_mod.attn_init(generator, cfg, device=device)}
+    if cfg.d_ff > 0:
+        p["ffn_norm"] = norm_init(cfg, device=device)
+        p["mlp"] = mlp_init(generator, cfg, device=device)
+    return p
+
+
+def _block_apply(params, x, cfg, spec, positions, mode, cache, pos):
+    """The block's output; a prefill or decode writes ``cache`` in place."""
+    h = apply_norm(params["mix_norm"], x, cfg)
+    if mode == "train":
+        mix = attn_mod.attn_full(params["mixer"], h, cfg, spec, positions)
+    elif mode == "prefill":
+        mix, _ = attn_mod.attn_prefill(params["mixer"], h, cfg, spec,
+                                       positions, cache)
+    else:
+        mix, _ = attn_mod.attn_decode(params["mixer"], h, cfg, spec, pos,
+                                      cache)
+    x = x + mix
+    if "mlp" in params:
+        h2 = apply_norm(params["ffn_norm"], x, cfg)
+        x = x + mlp_apply(params["mlp"], h2, cfg)
+    return x
+
+
+def _unit_init(generator, cfg: ModelConfig, pattern, device):
+    return {f"b{i}": _block_init(generator, cfg, spec, device)
+            for i, spec in enumerate(pattern)}
+
+
+def _unit_apply(params, x, cfg, pattern, positions, mode, cache, pos):
+    for i, spec in enumerate(pattern):
+        x = _block_apply(params[f"b{i}"], x, cfg, spec, positions, mode,
+                         cache[f"b{i}"] if cache else None, pos)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+
+
+def _init(cfg: ModelConfig, generator, device: torch.device) -> dict:
+    _require_ported(cfg)
+    params = {
+        "embed": embed_init(generator, cfg.vocab_size, cfg.d_model,
+                            cfg.param_dtype, device=device),
+        "units": _tree_stack([_unit_init(generator, cfg, cfg.pattern, device)
+                              for _ in range(cfg.n_units)]),
+        "final_norm": norm_init(cfg, device=device),
+    }
+    if cfg.n_remainder:
+        params["rem"] = _unit_init(generator, cfg, cfg.remainder_pattern,
+                                   device)
+    if not cfg.tie_embeddings:
+        w = torch.randn((cfg.d_model, cfg.vocab_size), generator=generator,
+                        device=device)
+        params["lm_head"] = (w * 0.02).to(torch_dtype(cfg.param_dtype))
+    return params
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
+                device=DEFAULT_DEVICE) -> dict:
+    """Random parameters at the reference's scales, drawn from
+    ``generator`` (a ``torch.Generator`` on ``device``; seed 0 if None)."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    return _init(cfg, generator, dev)
+
+
+def _embed(params, cfg, tokens, extra_embeds):
+    dt = torch_dtype(cfg.dtype)
+    x = params["embed"][tokens].to(dt)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(dt), x], dim=1)
+    return x
+
+
+def _logits(params, cfg, x):
+    x = apply_norm(params["final_norm"], x, cfg)
+    head = (params["embed"].T if cfg.tie_embeddings
+            else params["lm_head"]).to(torch_dtype(cfg.dtype))
+    logits = x @ head
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits
+
+
+def _run_stack(params, cfg, x, positions, mode, cache, pos):
+    """Loop over the stacked units, then the remainder unit."""
+    unit_caches = cache["units"] if cache else None
+    for u in range(cfg.n_units):
+        x = _unit_apply(
+            _tree_index(params["units"], u), x, cfg, cfg.pattern, positions,
+            mode, None if unit_caches is None else _tree_index(unit_caches, u),
+            pos)
+    if cfg.n_remainder:
+        x = _unit_apply(params["rem"], x, cfg, cfg.remainder_pattern,
+                        positions, mode, cache["rem"] if cache else None, pos)
+    if cache is None:
+        return x, None
+    # the per-unit caches are views of the stacked tensors, written in place
+    new_cache = dict(cache)
+    new_cache["pos"] = (positions.shape[-1] if mode == "prefill"
+                        else cache["pos"] + 1)
+    return x, new_cache
+
+
+def forward_train(params, cfg: ModelConfig, tokens, extra_embeds=None):
+    """Full logits ``(B, S, V)`` (forward only; no aux loss without MoE).
+
+    tokens: (B, S_text) int; extra_embeds: (B, n_frontend, D) or None.
+    """
+    _require_ported(cfg)
+    x = _embed(params, cfg, tokens, extra_embeds)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    x = _add_abs_pos(x, cfg, positions)
+    x, _ = _run_stack(params, cfg, x, positions, "train", None, None)
+    return _logits(params, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# caches / serving
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=DEFAULT_DEVICE) -> dict:
+    """Zeroed caches: ``units`` stacked over ``n_units``, ``rem`` for the
+    remainder layers, ``pos`` (an int) the tokens cached so far."""
+    _require_ported(cfg)
+    dev = resolve_device(device)
+
+    def unit(pattern):
+        return {f"b{i}": attn_mod.init_layer_cache(cfg, spec, batch, max_len,
+                                                   device=dev)
+                for i, spec in enumerate(pattern)}
+
+    cache = {"units": _tree_stack([unit(cfg.pattern)
+                                   for _ in range(cfg.n_units)]),
+             "pos": 0}
+    if cfg.n_remainder:
+        cache["rem"] = unit(cfg.remainder_pattern)
+    return cache
+
+
+def prefill(params, cfg: ModelConfig, tokens, cache, extra_embeds=None):
+    """Forward over the prompt, filling caches (in place). Returns
+    (logits of the last position ``(B, 1, V)``, cache)."""
+    _require_ported(cfg)
+    x = _embed(params, cfg, tokens, extra_embeds)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    x = _add_abs_pos(x, cfg, positions)
+    x, new_cache = _run_stack(params, cfg, x, positions, "prefill", cache,
+                              None)
+    return _logits(params, cfg, x[:, -1:]), new_cache
+
+
+def decode_step(params, cfg: ModelConfig, token, cache):
+    """token: (B, 1) int. Returns (logits (B, 1, V), cache)."""
+    _require_ported(cfg)
+    pos = int(cache["pos"])
+    x = _embed(params, cfg, token, None)
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    x = _add_abs_pos(x, cfg, positions)
+    x, new_cache = _run_stack(params, cfg, x, positions, "decode", cache, pos)
+    return _logits(params, cfg, x), new_cache

@@ -1,0 +1,108 @@
+"""The port's attention oracle against the JAX package's, on the CPU.
+
+Inputs are drawn once with numpy and handed to both frameworks. The
+port's ``attention_ref`` (the plain version of the Hopper kernel K4) is
+held to the JAX ``attention_ref`` and to the Pallas kernel
+``flash_attention_fwd`` run in interpret mode, over the grid of
+``tests/test_kernels.py`` plus a few port-only shapes (unequal S and T,
+small head dims). Tolerances: float32 2e-5 (the same function summed in
+another order); bfloat16 2e-2 (inputs rounded to bf16 identically on
+both sides, outputs rounded to bf16, as ``tests/test_kernels.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.attention.kernel import flash_attention_fwd
+from repro.kernels.attention.ref import attention_ref as jax_attention_ref
+from repro_torch import _cuda
+from repro_torch.kernels.attention import kernel, ops, ref
+
+# (B, S, T, H, K, D, causal, window)
+GRID = [
+    (2, 256, 256, 4, 2, 64, True, None),     # GQA causal
+    (1, 128, 128, 8, 8, 32, True, None),     # MHA
+    (1, 333, 333, 4, 1, 64, True, None),     # MQA, ragged seq
+    (2, 256, 256, 4, 2, 64, True, 64),       # sliding window
+    (1, 192, 192, 2, 2, 128, False, None),   # bidirectional
+    (1, 96, 96, 4, 4, 64, True, 8),          # tiny window < block
+]
+PORT_ONLY = [
+    (2, 40, 40, 4, 2, 16, True, 8),          # smoke head dim, window
+    (1, 50, 70, 4, 2, 32, True, None),       # more keys than queries
+    (1, 70, 50, 2, 1, 16, False, 24),        # fewer keys, window only
+]
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _inputs(B, S, T, H, K, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, D), np.float32),
+            rng.standard_normal((B, T, K, D), np.float32),
+            rng.standard_normal((B, T, K, D), np.float32))
+
+
+def _both(arrays, jdt, tdt):
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [torch.as_tensor(a).to(tdt) for a in arrays])
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window", GRID + PORT_ONLY)
+def test_ref_matches_jax_ref(B, S, T, H, K, D, causal, window, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, S, T, H, K, D), jdt, tdt)
+    want = jax_attention_ref(jq, jk, jv, causal, window)
+    got = ref.attention_ref(tq, tk, tv, causal, window)
+    assert got.dtype == tdt and got.shape == (B, S, H, D)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window", GRID)
+def test_ref_matches_pallas_kernel(B, S, T, H, K, D, causal, window, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, S, T, H, K, D, seed=1),
+                                       jdt, tdt)
+    want = flash_attention_fwd(jq, jk, jv, causal=causal, window=window,
+                               interpret=True)
+    got = ref.attention_ref(tq, tk, tv, causal, window)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+
+
+def test_ops_on_cpu_takes_the_plain_version():
+    q, k, v = (torch.as_tensor(a) for a in _inputs(2, 40, 40, 4, 2, 16))
+    before = kernel.launches
+    got = ops.flash_attention(q, k, v, causal=True, window=8)
+    assert torch.equal(got, ref.attention_ref(q, k, v, True, 8))
+    assert kernel.launches == before
+    assert _cuda._lib is None
+
+
+def test_ops_on_cpu_keeps_gradients():
+    q, k, v = (torch.as_tensor(a).requires_grad_()
+               for a in _inputs(1, 12, 12, 2, 1, 16))
+    ops.flash_attention(q, k, v).sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    q, k, v = (torch.as_tensor(a) for a in _inputs(1, 8, 8, 2, 1, 16))
+    before = kernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.flash_attention_cuda(q, k, v)
+    assert kernel.launches == before
+    assert _cuda._lib is None
+
+
+def test_flash_source_is_built():
+    assert "flash_attn.cu" in _cuda.SOURCES
+    assert (_cuda.CSRC / "flash_attn.cu").exists()

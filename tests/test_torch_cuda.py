@@ -8,13 +8,23 @@ that has only PyTorch:
 
 The kernels are held to their plain versions, and whole sweeps on the
 card (kernels, device-side queue state, the column-by-column prefix
-sums) to the same sweeps on the CPU.
+sums) to the same sweeps on the CPU. K1 and K2 are held bit for bit;
+K4 (flash attention) within 2e-5 in float32 (the same function summed in
+another order; the plain version's products run in full float32, TF32
+off) and 2e-2 in bfloat16 (both outputs rounded to bf16).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.slicing import ClientProfile
+from repro_torch.dist import stepfns
+from repro_torch.kernels.attention import kernel as k4
+from repro_torch.kernels.attention import ops as k4_ops
+from repro_torch.kernels.attention import ref as k4_ref
+from repro_torch.launch.serve import serve
+from repro_torch.models import lm
 from repro_torch.kernels.ponsim import kernel as k2
 from repro_torch.kernels.ponsim import ops as k2_ops
 from repro_torch.kernels.ponsim import ref as k2_ref
@@ -170,3 +180,122 @@ def test_sweep_on_card_equals_cpu(cuda, name):
                 assert np.array_equal(np.array(list(x.values())),
                                       np.array(list(y.values())),
                                       equal_nan=True), field
+
+
+# (B, S, T, H, K, D, causal, window): the grid of tests/test_kernels.py,
+# port-only shapes, and olmo-1b's prefill
+K4_GRID = [
+    (2, 256, 256, 4, 2, 64, True, None),
+    (1, 128, 128, 8, 8, 32, True, None),
+    (1, 333, 333, 4, 1, 64, True, None),
+    (2, 256, 256, 4, 2, 64, True, 64),
+    (1, 192, 192, 2, 2, 128, False, None),
+    (1, 96, 96, 4, 4, 64, True, 8),
+    (2, 40, 40, 4, 2, 16, True, 8),
+    (1, 50, 70, 4, 2, 32, True, None),
+    (1, 70, 50, 2, 1, 16, False, 24),
+]
+K4_DTYPES = {"float32": (torch.float32, 2e-5),
+             "bfloat16": (torch.bfloat16, 2e-2)}
+
+
+@pytest.fixture
+def cuda_fp32(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return cuda
+
+
+def _qkv(B, S, T, H, K, D, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                 for shape in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+
+
+@pytest.mark.parametrize("dtype", list(K4_DTYPES))
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window", K4_GRID)
+def test_flash_kernel_matches_plain(cuda_fp32, B, S, T, H, K, D, causal,
+                                    window, dtype):
+    dt, tol = K4_DTYPES[dtype]
+    q, k, v = _qkv(B, S, T, H, K, D, dt, cuda_fp32)
+    before = k4.launches
+    got = k4.flash_attention_cuda(q, k, v, causal, window)
+    assert k4.launches == before + 1
+    want = k4_ref.attention_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (B, S, H, D)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_at_olmo_prefill(cuda_fp32):
+    q, k, v = _qkv(4, 2048, 2048, 16, 16, 128, torch.bfloat16, cuda_fp32)
+    got = k4_ops.flash_attention(q, k, v, causal=True)
+    want = k4_ref.attention_ref(q, k, v, True, None)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv(1, 8, 8, 2, 1, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        k4.flash_attention_cuda(*_qkv(1, 8, 8, 2, 1, 48, torch.float32,
+                                      cuda))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        k4.flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="k must be"):
+        k4.flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.flash_attention_cuda(q.transpose(1, 2), k, v)
+    with pytest.raises(NotImplementedError, match="backward"):
+        k4_ops.flash_attention(q.requires_grad_(), k, v)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _serve_steps(cfg, params, tokens, feed, dev):
+    """Prefill logits and the decode logits of the fed tokens."""
+    cache = lm.init_cache(cfg, tokens.shape[0], tokens.shape[1] + 16,
+                          device=dev)
+    with torch.inference_mode():
+        logits, cache = stepfns.make_prefill_step(cfg)(
+            _to(params, dev), tokens.to(dev), cache)
+        steps = [logits.cpu()]
+        for tok in feed:
+            logits, cache = stepfns.make_decode_step(cfg)(
+                _to(params, dev), tok.to(dev), cache)
+            steps.append(logits.cpu())
+    return steps
+
+
+def test_smoke_model_on_card_equals_cpu(cuda_fp32):
+    """float32 smoke olmo: the card (K4 in the prefill) against the CPU
+    (plain attention), teacher-forced with the CPU's greedy tokens; 1e-4
+    for cuBLAS's float32 summation order."""
+    cfg = get_config("olmo-1b", smoke=True).replace(attn_impl="chunked")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24),
+                           generator=torch.Generator().manual_seed(1))
+    want = _serve_steps(cfg, params, tokens, [], "cpu")
+    feed = []
+    for _ in range(4):
+        feed.append(want[-1][:, -1:].argmax(-1))
+        want = _serve_steps(cfg, params, tokens, feed, "cpu")
+    before = k4.launches
+    got = _serve_steps(cfg, params, tokens, feed, cuda_fp32)
+    assert k4.launches == before + cfg.n_layers   # prefill only, one a layer
+    for a, b in zip(want, got):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+def test_serve_on_card(cuda):
+    """``serve()`` on the card at smoke size. ``smoke()`` selects the
+    plain attention (as in the reference package), so K4 stays idle; the
+    full-width run through K4 is ``chip_smoke.py``'s serve phase."""
+    before = k4.launches
+    out = serve(smoke=True, batch=2, prompt_len=16, max_new_tokens=4)
+    assert out.shape == (2, 4)
+    assert k4.launches == before

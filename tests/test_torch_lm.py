@@ -1,0 +1,364 @@
+"""The port's LM stack against the JAX package's, on the CPU.
+
+Configs must equal the reference's field by field. Blocks (norms, RoPE,
+MLPs) and the whole model are fed the same inputs (numpy seeds) and the
+same weights: the reference's ``init_params`` pytree, carried across by
+``models.convert.from_reference_params``. At smoke size in float32,
+``forward_train``, ``prefill`` (logits and caches) and 8 teacher-forced
+``decode_step``s (both sides fed the reference's greedy tokens, so a
+near tie cannot fork the sequences) must agree within 2e-5: the same
+float32 arithmetic summed in another order. Every ``attn_impl`` is run:
+the port sends ``pallas`` and ``chunked`` to its flash-attention op (the
+plain version on the CPU), the reference to its Pallas kernel (interpret
+mode) and its XLA flash scan.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jcfgs
+from repro.models import layers as jlayers
+from repro.models import lm as jlm
+from repro_torch import configs as tcfgs
+from repro_torch.configs.base import ATTN, RGLRU, SSD, LayerSpec, MoEConfig
+from repro_torch.models import attention as tattn
+from repro_torch.models import layers as tlayers
+from repro_torch.models import lm as tlm
+from repro_torch.models.convert import from_reference_params
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+IMPLS = ("reference", "pallas", "chunked")
+BATCH, PROMPT, N_DECODE = 2, 12, 8
+
+
+def _np_tree(tree):
+    """Writable numpy copies of a JAX pytree's leaves."""
+    return jax.tree.map(np.array, tree)
+
+
+def _torch_cfg(jcfg):
+    """The port's config with the same fields as a reference config."""
+    kw = dataclasses.asdict(jcfg)
+    kw["pattern"] = tuple(LayerSpec(**s) for s in kw["pattern"])
+    for key, cls in (("moe", tcfgs.MoEConfig), ("ssm", tcfgs.SSMConfig),
+                     ("recurrent", tcfgs.RecurrentConfig)):
+        if kw[key] is not None:
+            kw[key] = cls(**kw[key])
+    return tcfgs.ModelConfig(**kw)
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_olmo_config_equals_reference(smoke):
+    want = jcfgs.get_config("olmo-1b", smoke=smoke)
+    got = tcfgs.get_config("olmo-1b", smoke=smoke)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for prop in ("unit_len", "n_units", "n_remainder", "d_attn",
+                 "has_attention", "max_window", "is_subquadratic",
+                 "supports_long_context"):
+        assert getattr(got, prop) == getattr(want, prop), prop
+    assert tcfgs.param_count(got) == jcfgs.param_count(want)
+
+
+def test_registry_and_shapes():
+    assert tcfgs.list_architectures() == ["olmo_1b"]
+    with pytest.raises(KeyError, match="port has"):
+        tcfgs.get_config("llama3-8b")
+    assert [dataclasses.asdict(s) for s in tcfgs.ALL_SHAPES] == [
+        dataclasses.asdict(s) for s in jcfgs.ALL_SHAPES]
+    cfg = tcfgs.get_config("olmo-1b")
+    assert [s.name for s in tcfgs.applicable_shapes(cfg)] == [
+        s.name for s in jcfgs.applicable_shapes(jcfgs.get_config("olmo-1b"))]
+    assert round(tcfgs.param_count(cfg)["total"] / 1e9, 2) == 1.18
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x22b", "mamba2-780m",
+                                  "recurrentgemma-2b", "gemma3-12b"])
+def test_smoke_of_other_families_equals_reference(name):
+    """``smoke()`` and ``replace()`` of the copied schema, on configs with
+    MoE / SSM / recurrent sub-configs and windows."""
+    jcfg = jcfgs.get_config(name)
+    tcfg = _torch_cfg(jcfg)
+    assert dataclasses.asdict(tcfg.smoke()) == dataclasses.asdict(
+        jcfg.smoke())
+    assert tcfgs.param_count(tcfg) == jcfgs.param_count(jcfg)
+    assert tcfg.max_window == jcfg.max_window
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("norm", ["layernorm_nonparam", "layernorm",
+                                  "rmsnorm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_norm(norm, dtype):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 5, 64), np.float32) * 3 + 1
+    jcfg = jcfgs.get_config("olmo-1b", smoke=True).replace(norm=norm)
+    params = {}
+    if norm != "layernorm_nonparam":
+        params["scale"] = rng.standard_normal(64, np.float32)
+    if norm == "layernorm":
+        params["bias"] = rng.standard_normal(64, np.float32)
+    want = jlayers.apply_norm({k: jnp.asarray(v) for k, v in params.items()},
+                              jnp.asarray(x, dtype), jcfg)
+    got = tlayers.apply_norm(
+        {k: torch.as_tensor(v) for k, v in params.items()},
+        torch.as_tensor(x).to(tlayers.torch_dtype(dtype)), _torch_cfg(jcfg))
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def test_apply_head_norm():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 5, 4, 16), np.float32)
+    s = rng.standard_normal(16, np.float32)
+    want = jlayers.apply_head_norm({"scale": jnp.asarray(s)}, jnp.asarray(x))
+    got = tlayers.apply_head_norm({"scale": torch.as_tensor(s)},
+                                  torch.as_tensor(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("theta", [10000.0, 500000.0])
+def test_apply_rope(theta):
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 7, 3, 16), np.float32)
+    pos = rng.integers(0, 4096, (2, 7)).astype(np.int32)
+    want = jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    got = tlayers.apply_rope(torch.as_tensor(x), torch.as_tensor(pos), theta)
+    # angles up to ~4096 rad: cos/sin of a large fp32 argument differ by
+    # a few ulp of the argument between the two libraries
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(
+        tlayers.rope_frequencies(16, theta).numpy(),
+        np.asarray(jlayers.rope_frequencies(16, theta)), **TOL)
+
+
+def test_sinusoidal_embed():
+    pos = np.arange(24, dtype=np.int32).reshape(2, 12)
+    want = jlayers.sinusoidal_embed(jnp.asarray(pos), 64)
+    got = tlayers.sinusoidal_embed(torch.as_tensor(pos), 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("act", ["swiglu", "gelu"])
+def test_mlp_apply(act):
+    jcfg = jcfgs.get_config("olmo-1b", smoke=True).replace(mlp_act=act)
+    params = _np_tree(jlayers.mlp_init(jax.random.PRNGKey(1), jcfg))
+    x = np.random.default_rng(6).standard_normal((2, 5, 64), np.float32)
+    want = jlayers.mlp_apply(jax.tree.map(jnp.asarray, params),
+                             jnp.asarray(x), jcfg)
+    got = tlayers.mlp_apply({k: torch.as_tensor(v) for k, v in params.items()},
+                            torch.as_tensor(x), _torch_cfg(jcfg))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_init_scales_follow_the_reference():
+    cfg = tcfgs.get_config("olmo-1b", smoke=True)
+    g = torch.Generator().manual_seed(0)
+    p = tlm.init_params(cfg, g, device="cpu")
+    assert p["final_norm"] == {} and p["units"]["b0"]["mix_norm"] == {}
+    wq = p["units"]["b0"]["mixer"]["wq"]
+    assert wq.shape == (cfg.n_units, 64, 64) and wq.dtype == torch.float32
+    assert abs(float(wq.std()) - 64 ** -0.5) < 0.01
+    assert abs(float(p["embed"].std()) - 0.02) < 0.002
+    again = tlm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert torch.equal(again["embed"], p["embed"])
+
+
+# ---------------------------------------------------------------------------
+# weights across
+# ---------------------------------------------------------------------------
+
+
+def test_from_reference_params_round_trips_every_leaf():
+    jcfg = jcfgs.get_config("olmo-1b", smoke=True)
+    tree = _np_tree(jlm.init_params(jax.random.PRNGKey(0), jcfg))
+    got = from_reference_params(tree, _torch_cfg(jcfg), device="cpu")
+    leaves_w = jax.tree_util.tree_leaves_with_path(tree)
+    leaves_g = jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(lambda t: t.numpy(), got))
+    assert [p for p, _ in leaves_g] == [p for p, _ in leaves_w]
+    for (_, a), (_, b) in zip(leaves_w, leaves_g):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_from_reference_params_rejects_a_wrong_tree():
+    jcfg = jcfgs.get_config("olmo-1b", smoke=True)
+    tree = _np_tree(jlm.init_params(jax.random.PRNGKey(0), jcfg))
+    tree["units"]["b0"]["mixer"]["wq"] = tree["units"]["b0"]["mixer"]["wq"][1:]
+    with pytest.raises(ValueError, match="wq"):
+        from_reference_params(tree, _torch_cfg(jcfg), device="cpu")
+    del tree["final_norm"]
+    with pytest.raises(ValueError, match="keys"):
+        from_reference_params(tree, _torch_cfg(jcfg), device="cpu")
+
+
+def test_from_reference_params_carries_bfloat16():
+    jcfg = jcfgs.get_config("olmo-1b", smoke=True).replace(
+        param_dtype="bfloat16")
+    tree = _np_tree(jlm.init_params(jax.random.PRNGKey(2), jcfg))
+    got = from_reference_params(tree, _torch_cfg(jcfg), device="cpu")
+    assert got["embed"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(got["embed"].float().numpy(),
+                                  tree["embed"].astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# the whole model
+# ---------------------------------------------------------------------------
+
+VARIANTS = {
+    "olmo": lambda c: c,
+    # GQA + sliding window shorter than the prompt: the ring-buffer cache
+    "gqa_window": lambda c: c.replace(n_kv_heads=2,
+                                      pattern=(LayerSpec(ATTN, 8),)),
+}
+
+
+def _run_reference(jcfg, tokens, extra=None):
+    """The reference's outputs, greedy tokens included, as numpy."""
+    params = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    train = jax.jit(lambda p, t, e: jlm.forward_train(p, jcfg, t, e)[0])
+    logits_train = train(params, tokens, extra)
+    max_len = tokens.shape[1] + N_DECODE + 8
+    cache = jlm.init_cache(jcfg, tokens.shape[0], max_len)
+    pre = jax.jit(lambda p, t, c: jlm.prefill(p, jcfg, t, c))
+    dec = jax.jit(lambda p, t, c: jlm.decode_step(p, jcfg, t, c))
+    logits, cache = pre(params, tokens, cache)
+    out = {"params": _np_tree(params), "train": np.asarray(logits_train),
+           "prefill": np.asarray(logits), "cache": _np_tree(cache),
+           "max_len": max_len, "tokens": [], "decode": []}
+    tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+    for _ in range(N_DECODE):
+        out["tokens"].append(np.asarray(tok))
+        logits, cache = dec(params, tok, cache)
+        out["decode"].append(np.asarray(logits))
+        tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+    out["final_cache"] = _np_tree(cache)
+    return out
+
+
+def _assert_cache(got, want):
+    for key in ("k", "v"):
+        np.testing.assert_allclose(
+            got["units"]["b0"][key].numpy(),
+            want["units"]["b0"][key], **TOL)
+    assert got["pos"] == int(want["pos"])
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_model_matches_reference(variant, impl):
+    jcfg = VARIANTS[variant](jcfgs.get_config("olmo-1b", smoke=True)).replace(
+        attn_impl=impl)
+    tokens = np.random.default_rng(8).integers(
+        0, jcfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    want = _run_reference(jcfg, jnp.asarray(tokens))
+    cfg = _torch_cfg(jcfg)
+    params = from_reference_params(want["params"], cfg, device="cpu")
+    tt = torch.as_tensor(tokens)
+    with torch.inference_mode():
+        np.testing.assert_allclose(
+            tlm.forward_train(params, cfg, tt).numpy(), want["train"], **TOL)
+        cache = tlm.init_cache(cfg, BATCH, want["max_len"], device="cpu")
+        logits, cache = tlm.prefill(params, cfg, tt, cache)
+        np.testing.assert_allclose(logits.numpy(), want["prefill"], **TOL)
+        _assert_cache(cache, want["cache"])
+        for tok, want_logits in zip(want["tokens"], want["decode"]):
+            logits, cache = tlm.decode_step(params, cfg, torch.as_tensor(tok),
+                                            cache)
+            np.testing.assert_allclose(logits.numpy(), want_logits, **TOL)
+        _assert_cache(cache, want["final_cache"])
+    if variant == "gqa_window":
+        assert cache["units"]["b0"]["k"].shape[2] == 8    # ring of 8 slots
+
+
+def test_feature_variant_matches_reference():
+    """rmsnorm, qk-norm, GELU, untied head, soft-capping, embedding scale,
+    absolute positions, extra embeddings and a remainder layer (3 layers
+    over a global + windowed unit), all through the plain attention."""
+    jcfg = jcfgs.get_config("olmo-1b", smoke=True).replace(
+        norm="rmsnorm", qk_norm=True, mlp_act="gelu", tie_embeddings=False,
+        logit_softcap=30.0, embed_scale=True, abs_sinusoidal=True,
+        n_layers=3, pattern=(LayerSpec(ATTN), LayerSpec(ATTN, 4)))
+    rng = np.random.default_rng(9)
+    tokens = rng.integers(0, jcfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    extra = rng.standard_normal((BATCH, 3, jcfg.d_model), np.float32)
+    want = _run_reference(jcfg, jnp.asarray(tokens))
+    cfg = _torch_cfg(jcfg)
+    params = from_reference_params(want["params"], cfg, device="cpu")
+    assert set(params) == {"embed", "units", "final_norm", "rem", "lm_head"}
+    with torch.inference_mode():
+        np.testing.assert_allclose(
+            tlm.forward_train(params, cfg, torch.as_tensor(tokens)).numpy(),
+            want["train"], **TOL)
+        cache = tlm.init_cache(cfg, BATCH, want["max_len"], device="cpu")
+        logits, cache = tlm.prefill(params, cfg, torch.as_tensor(tokens),
+                                    cache)
+        np.testing.assert_allclose(logits.numpy(), want["prefill"], **TOL)
+        for tok, want_logits in zip(want["tokens"], want["decode"]):
+            logits, cache = tlm.decode_step(params, cfg, torch.as_tensor(tok),
+                                            cache)
+            np.testing.assert_allclose(logits.numpy(), want_logits, **TOL)
+        for key in ("k", "v"):
+            np.testing.assert_allclose(
+                cache["rem"]["b0"][key].numpy(),
+                want["final_cache"]["rem"]["b0"][key], **TOL)
+        jparams = jax.tree.map(jnp.asarray, want["params"])
+        want_x = jlm.forward_train(jparams, jcfg, jnp.asarray(tokens),
+                                   jnp.asarray(extra))[0]
+        got_x = tlm.forward_train(params, cfg, torch.as_tensor(tokens),
+                                  torch.as_tensor(extra))
+    np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), **TOL)
+
+
+@pytest.mark.parametrize("pattern,moe", [
+    ((LayerSpec(RGLRU),), None),
+    ((LayerSpec(SSD),), None),
+    ((LayerSpec(ATTN),), MoEConfig(n_experts=4, top_k=2, d_ff_expert=64)),
+])
+def test_unported_blocks_raise(pattern, moe):
+    cfg = tcfgs.get_config("olmo-1b", smoke=True).replace(pattern=pattern,
+                                                          moe=moe)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tlm.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tlm.init_cache(cfg, 1, 8, device="cpu")
+
+
+def test_int8_cache_raises():
+    cfg = tcfgs.get_config("olmo-1b", smoke=True).replace(
+        kv_cache_dtype="int8")
+    with pytest.raises(NotImplementedError, match="int8"):
+        tattn.init_layer_cache(cfg, cfg.pattern[0], 1, 8, device="cpu")
+
+
+def test_unknown_attn_impl_raises():
+    cfg = tcfgs.get_config("olmo-1b", smoke=True).replace(attn_impl="xla")
+    params = tlm.init_params(cfg, device="cpu")
+    with pytest.raises(ValueError, match="attn_impl"):
+        tlm.forward_train(params, cfg, torch.zeros((1, 4), dtype=torch.long))
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = tcfgs.get_config("olmo-1b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlm.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlm.init_cache(cfg, 1, 8)

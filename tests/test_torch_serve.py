@@ -1,0 +1,117 @@
+"""The port's serving path against the JAX package's, on the CPU.
+
+The step functions of ``repro_torch.dist.stepfns`` on parameters carried
+across from the reference must equal the reference's jitted
+``repro.dist.stepfns`` steps (float32 smoke config, 2e-5: the same
+arithmetic summed in another order), over a prefill and teacher-forced
+decode steps. ``repro_torch.launch.serve.serve`` runs end to end on
+the CPU when asked, and raises without a card otherwise.
+"""
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jcfgs
+from repro.dist import stepfns as jstepfns
+from repro.models import lm as jlm
+from repro_torch.configs import get_config
+from repro_torch.dist import stepfns
+from repro_torch.launch import serve as serve_mod
+from repro_torch.models import lm
+from repro_torch.models.convert import from_reference_params
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+ECHO = re.compile(r"^olmo-1b: prefill\((\d+)x(\d+)\)=[\d.]+ms decode (\d+) "
+                  r"steps=[\d.]+ms \([\d.]+ tok/s batched\)$", re.M)
+
+
+@pytest.mark.parametrize("impl", ["reference", "chunked"])
+def test_step_functions_match_reference(impl):
+    jcfg = jcfgs.get_config("olmo-1b", smoke=True).replace(attn_impl=impl)
+    cfg = get_config("olmo-1b", smoke=True).replace(attn_impl=impl)
+    jparams = jlm.init_params(jax.random.PRNGKey(3), jcfg)
+    params = from_reference_params(jax.tree.map(np.array, jparams), cfg,
+                                   device="cpu")
+    B, S, n_new = 3, 10, 6
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    jpre = jax.jit(jstepfns.make_prefill_step(jcfg))
+    jdec = jax.jit(jstepfns.make_decode_step(jcfg))
+    pre = stepfns.make_prefill_step(cfg)
+    dec = stepfns.make_decode_step(cfg)
+    jcache = jlm.init_cache(jcfg, B, S + n_new + 8)
+    cache = lm.init_cache(cfg, B, S + n_new + 8, device="cpu")
+    jlogits, jcache = jpre(jparams, jnp.asarray(tokens), jcache, None)
+    with torch.inference_mode():
+        logits, cache = pre(params, torch.as_tensor(tokens), cache)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+        for _ in range(n_new):
+            tok = jnp.argmax(jlogits[:, -1:], axis=-1).astype(jnp.int32)
+            jlogits, jcache = jdec(jparams, tok, jcache)
+            logits, cache = dec(params, torch.as_tensor(np.array(tok)),
+                                cache)
+            np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                                       **TOL)
+            assert cache["pos"] == int(jcache["pos"])
+
+
+def test_serve_on_cpu_returns_tokens_and_echoes(capsys):
+    out = serve_mod.serve(smoke=True, batch=2, prompt_len=8,
+                          max_new_tokens=5, device="cpu")
+    assert isinstance(out, np.ndarray) and out.shape == (2, 5)
+    assert np.issubdtype(out.dtype, np.integer)
+    assert ((out >= 0) & (out < 128)).all()
+    m = ECHO.search(capsys.readouterr().out)
+    assert m and m.groups() == ("2", "8", "5")
+    again = serve_mod.serve(smoke=True, batch=2, prompt_len=8,
+                            max_new_tokens=5, device="cpu")
+    assert np.array_equal(out, again)             # seeded generators
+
+
+def test_serve_greedy_equals_the_step_functions():
+    """``serve()``'s tokens are the greedy argmax of the step functions on
+    the same seeded weights and prompts."""
+    out = serve_mod.serve(smoke=True, batch=2, prompt_len=6,
+                          max_new_tokens=4, seed=5, device="cpu")
+    cfg = get_config("olmo-1b", smoke=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 6),
+                            generator=torch.Generator().manual_seed(6))
+    cache = lm.init_cache(cfg, 2, 6 + 4 + 8, device="cpu")
+    with torch.inference_mode():
+        logits, cache = stepfns.make_prefill_step(cfg)(params, prompts, cache)
+        toks = [logits[:, -1:].argmax(-1)]
+        for _ in range(3):
+            logits, cache = stepfns.make_decode_step(cfg)(params, toks[-1],
+                                                          cache)
+            toks.append(logits[:, -1:].argmax(-1))
+    assert np.array_equal(out, torch.cat(toks, dim=1).numpy())
+
+
+def test_serve_samples_with_temperature():
+    out = serve_mod.serve(smoke=True, batch=3, prompt_len=4,
+                          max_new_tokens=6, temperature=1.0, device="cpu")
+    assert out.shape == (3, 6) and ((out >= 0) & (out < 128)).all()
+
+
+def test_cli_on_cpu(capsys):
+    serve_mod.main(["--device", "cpu", "--batch", "1", "--prompt-len", "5",
+                    "--max-new-tokens", "3"])
+    m = ECHO.search(capsys.readouterr().out)
+    assert m and m.groups() == ("1", "5", "3")
+
+
+def test_log_jsonl_is_not_ported_yet(tmp_path):
+    with pytest.raises(NotImplementedError, match="obs"):
+        serve_mod.serve(device="cpu", log_jsonl=str(tmp_path / "ev.jsonl"))
+
+
+def test_serve_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_mod.serve()
