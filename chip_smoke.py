@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-The port has two paths, each driven through its user entry point with
+The port has three paths, each driven through its user entry point with
 the kernel counts set to 0 just before and read just after:
 
 * the Fig. 2b round engine (``repro_torch.net.simulate``), through K1
   (traffic sampler) and K2 (waterfill grant);
 * olmo-1b serving (``repro_torch.launch.serve``: prefill, then greedy
-  decode), through K4 (flash attention) in every layer of the prefill.
+  decode), through K4 (flash attention) in every layer of the prefill;
+* mamba2-780m serving (the same entry point), through K5 (the chunked
+  SSD scan) in every layer of the prefill.
 
 Phases, each printing its own line with its seconds; any failure exits
 nonzero:
@@ -27,14 +29,22 @@ nonzero:
    olmo-1b's prefill shape (4, 2048, 16, 16, 128) bf16 causal, timed
    there beside its plain version and ``scaled_dot_product_attention``
    (a yardstick only: the port never calls it);
-5. ``main``: the 16-case Fig. 2b sweep (128 ONUs, {fcfs, bs} x load
+5. ``k5``: the SSD scan against its plain chunked version on the card
+   over a grid (float32 and bf16 inputs, whole and ragged lengths, with
+   and without an initial state, mamba2 widths and small ones, chunk
+   sums past the point where the unmasked product form overflows),
+   y and the final state within ``K5_TOL`` of the plain version's
+   largest value; timed at mamba2-780m's prefill shape
+   (4, 2048, 48, 64), N 128, chunk 128, bf16, beside its plain version
+   (no single PyTorch call computes the scan);
+6. ``main``: the 16-case Fig. 2b sweep (128 ONUs, {fcfs, bs} x load
    {0.3, 0.8} x involvement {0.1, 0.4, 0.7, 1.0}) on the card; every sync
    time must match the JAX engine's value within 1e-9 s and both kernels
    must have been launched; one warm-up run, then the median wall time
    of 3;
-6. ``full_width``: one FCFS load-0.8 round at 2048 ONUs (line rate scaled
+7. ``full_width``: one FCFS load-0.8 round at 2048 ONUs (line rate scaled
    10 Gb/s * n / 128) held against the JAX engine's sync time;
-7. ``serve``: olmo-1b at full width and depth (16 layers, float32
+8. ``serve``: olmo-1b at full width and depth (16 layers, float32
    parameters, bfloat16 compute, random weights from a seed), batch 4,
    2048-token prompts (OLMo-1B's context length), 32 greedy new tokens,
    through ``serve()``; K4 must run 16 times (one a layer) in the
@@ -47,7 +57,20 @@ nonzero:
    ``F32_RATIO`` times the plain path does. Decode never runs K4. JAX
    is not installed beside the card, so parity with the JAX package is
    carried by the CPU tests at smoke size (``tests/test_torch_lm.py``,
-   ``tests/test_torch_serve.py``).
+   ``tests/test_torch_serve.py``);
+9. ``serve_mamba2``: mamba2-780m at full width and depth (48 layers,
+   d_model 1536, float32 parameters, bfloat16 compute, random weights
+   from a seed), batch 4, 2048-token prompts, 32 greedy new tokens,
+   through ``serve()``; K5 must run 48 times (one a layer) in the
+   prefill and never in decode, and every logit must be finite. The
+   same weights then run with the plain scan swapped in for the
+   dispatch (here only, by patching ``kernels.ssd.ops.ssd_scan``; no
+   user reaches it) in bf16 and in float32 compute, held as in
+   ``serve`` with ``MAMBA_LOGIT_TOL`` and ``MAMBA_F32_RATIO``; the
+   kernel path in float32 compute must agree with the plain scan's
+   within ``MAMBA_F32_TOL``. Parity with the JAX package is carried by
+   ``tests/test_torch_lm.py`` and ``tests/test_torch_serve.py`` at smoke
+   size on the CPU.
 
 Before the last line it prints one JSON object with each kernel's
 launches on its path, its error against the plain version, its time,
@@ -64,6 +87,7 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -108,6 +132,7 @@ OPS32_S = 67e12
 FP64_S = 34e12
 THREEFRY_OPS = 120        # 32-bit ALU ops of one threefry-2x32 draw
 BF16_S = 989e12           # dense bf16 tensor-core rate
+TF32_S = 495e12           # dense TF32 tensor-core rate (float32 operands)
 
 # K4 parity grid (B, S, T, H, K, D, causal, window), as
 # tests/test_torch_cuda.py; float32 within 2e-5 (summation order), bf16
@@ -141,6 +166,39 @@ SERVE_FORCED = 8          # teacher-forced decode steps held to the plain path
 # F32_RATIO times the plain path is (the kernel adds no error of its own).
 LOGIT_TOL = 0.15
 F32_RATIO = 1.5
+
+# K5 grid (B, S, H, P, N, chunk): mamba2 widths whole and ragged, the
+# smoke widths, widths off the kernel's tiles, S below one chunk. The
+# step sizes rise across heads so that some heads keep their state over
+# many chunks and others sum dt |a| past 88.7 in a chunk. Both versions
+# compute in float32 from the same (upcast) inputs and differ only in
+# summation order: within 1e-4 of the largest value, the reference
+# package's own kernel test measure (tests/test_kernels.py)
+K5_GRID = [
+    (2, 2048, 4, 64, 128, 128),
+    (2, 2000, 4, 64, 128, 128),
+    (2, 200, 3, 16, 16, 8),
+    (1, 333, 2, 24, 48, 64),
+    (1, 120, 3, 16, 32, 128),
+]
+K5_TOL = 1e-4
+MAMBA_PREFILL = (4, 2048, 48, 64, 128, 128)   # B, S, H, P, N, chunk
+# serve_mamba2 phase: mamba2-780m, batch 4, 2048-token prompts, 32 tokens.
+# Logits spread ~0.78. bf16 rounding compounds through 48 random-weight
+# SSD layers far more than through olmo's 16: on the CPU the JAX package
+# and the port drift alike from their own float32 runs (0.05 at 2
+# layers, 0.17 at 8, full width, 64 tokens), and on an NVIDIA H100 80GB
+# HBM3 (700 W) the kernel and plain-scan paths were 0.576 apart in bf16
+# compute, each 1.1-1.3 from the float32 path. So the bf16 paths agree
+# within MAMBA_LOGIT_TOL, and the kernel path is no farther from the
+# float32 path than MAMBA_F32_RATIO times the plain path is. Where the
+# kernel's own error shows, in float32 compute, the kernel path and the
+# plain scan were 0.000427 apart on the same card (float32 rounding
+# through the same 48 layers): they must agree within MAMBA_F32_TOL,
+# far below what a wrong scan gives (errors of the logits' own size)
+MAMBA_LOGIT_TOL = 1.0
+MAMBA_F32_RATIO = 1.5
+MAMBA_F32_TOL = 5e-3
 
 
 def _line(phase: str, seconds: float, **kw) -> None:
@@ -541,29 +599,30 @@ def phase_full_width():
           k1_launches=k1.launches, k2_launches=k2.launches)
 
 
-def _serve_run(cfg, params, prompts, feed=None):
+def _serve_run(cfg, params, prompts, kernel, feed=None):
     """Prefill, then decode: greedy for ``SERVE_NEW - 1`` steps, or the
     tokens of ``feed``. Returns (last-position logits of each step,
-    tokens, K4 launches in the prefill, in decode, prefill ms, decode ms).
+    tokens, launches of ``kernel`` (a kernel module) in the prefill, in
+    decode, prefill ms, decode ms).
     """
     from repro_torch.dist import stepfns
-    from repro_torch.kernels.attention import kernel as k4
     from repro_torch.models import lm
 
     prefill_step = stepfns.make_prefill_step(cfg)
     decode_step = stepfns.make_decode_step(cfg)
-    cache = lm.init_cache(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_NEW + 8)
+    batch, prompt = prompts.shape
+    cache = lm.init_cache(cfg, batch, prompt + SERVE_NEW + 8)
     with torch.inference_mode():
         torch.cuda.synchronize()
-        k4.launches = 0
+        kernel.launches = 0
         t0 = time.perf_counter()
         logits, cache = prefill_step(params, prompts, cache)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
-        n_prefill = k4.launches
+        n_prefill = kernel.launches
         steps = [logits[:, -1].float()]
         toks = [logits[:, -1:].argmax(-1)]
-        k4.launches = 0
+        kernel.launches = 0
         t1 = time.perf_counter()
         for i in range(SERVE_NEW - 1 if feed is None else len(feed)):
             tok = toks[-1] if feed is None else feed[i]
@@ -572,86 +631,267 @@ def _serve_run(cfg, params, prompts, feed=None):
             toks.append(logits[:, -1:].argmax(-1))
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t1) * 1e3
-    return steps, toks, n_prefill, k4.launches, prefill_ms, decode_ms
+    return steps, toks, n_prefill, kernel.launches, prefill_ms, decode_ms
+
+
+def _hold_logits(steps, want, exact, tol: float, ratio: float) -> dict:
+    """Hold the kernel path's logits (``steps``) to the plain path's
+    (``want``, both in bf16 compute) within ``tol``, and its distance
+    from the float32 path (``exact``) to ``ratio`` times the plain
+    path's. Returns the errors."""
+    def max_err(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    n_cmp = len(want)
+    errs = [float((a - b).abs().max()) for a, b in zip(steps[:n_cmp], want)]
+    err_kernel_f32 = max_err(steps[:n_cmp], exact)
+    err_plain_f32 = max_err(want, exact)
+    for logits in steps:
+        if not bool(torch.isfinite(logits).all()):
+            raise SystemExit("non-finite logits on the kernel path")
+    print(f"  logits: std {float(steps[0].std()):.4f}; kernel vs plain "
+          f"{errs}; vs the float32 path: kernel {err_kernel_f32:.4g}, "
+          f"plain {err_plain_f32:.4g}", flush=True)
+    if max(errs) > tol:
+        raise SystemExit(f"kernel path vs plain path: logits differ by "
+                         f"{max(errs)} (> {tol})")
+    if err_kernel_f32 > ratio * err_plain_f32:
+        raise SystemExit(f"kernel path {err_kernel_f32} from the float32 "
+                         f"path, plain path {err_plain_f32}")
+    return {"max_err_prefill": f"{errs[0]:.4g}",
+            "max_err_decode": f"{max(errs[1:]):.4g}",
+            "err_kernel_f32": f"{err_kernel_f32:.4g}",
+            "err_plain_f32": f"{err_plain_f32:.4g}"}
+
+
+def _serve_entry(arch: str, kernel, want: int):
+    """``serve()`` at full width, the entry point a user runs, with the
+    kernel's count set to 0 just before and read just after. Returns
+    (tokens, launches, peak GB)."""
+    from repro_torch.launch.serve import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    kernel.launches = 0
+    out = serve(arch=arch, smoke=False, batch=SERVE_BATCH,
+                prompt_len=SERVE_PROMPT, max_new_tokens=SERVE_NEW,
+                device="cuda")
+    torch.cuda.synchronize()
+    launches = kernel.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != want:
+        raise SystemExit(f"{arch}: the kernel ran {launches} times in "
+                         f"serve(), not {want}")
+    if out.shape != (SERVE_BATCH, SERVE_NEW):
+        raise SystemExit(f"serve() returned {out.shape}")
+    return out, launches, peak_gb
+
+
+def _same_weights(cfg):
+    """serve()'s parameters and prompts (seeds 0 and 1)."""
+    from repro_torch.models import lm
+
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    prompts = torch.randint(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    return params, prompts
+
+
+def _serve_line(phase, t0, cfg, kernel_name, n_pre, n_dec, prefill_ms,
+                decode_ms, peak_gb, held, generated, out):
+    n_dec_steps = SERVE_NEW - 1
+    _line(phase, time.time() - t0, arch=cfg.name, layers=cfg.n_layers,
+          batch=SERVE_BATCH, prompt=SERVE_PROMPT, new=SERVE_NEW,
+          **{f"{kernel_name}_prefill": n_pre, f"{kernel_name}_decode": n_dec},
+          prefill_ms=f"{prefill_ms:.3f}", decode_ms=f"{decode_ms:.3f}",
+          decode_ms_step=f"{decode_ms / n_dec_steps:.3f}",
+          decode_tok_s=f"{SERVE_BATCH * n_dec_steps / decode_ms * 1e3:.1f}",
+          prefill_tok_s=f"{SERVE_BATCH * SERVE_PROMPT / prefill_ms * 1e3:.0f}",
+          peak_gb=f"{peak_gb:.3f}", **held,
+          same_tokens_as_serve=bool((generated == out).all()),
+          tokens=generated[0, :8].tolist())
 
 
 def phase_serve():
     from repro_torch.configs import get_config
     from repro_torch.kernels.attention import kernel as k4
-    from repro_torch.launch.serve import serve
-    from repro_torch.models import lm
 
     t0 = time.time()
-    # the main path: the entry point a user runs
-    torch.cuda.reset_peak_memory_stats()
-    k4.launches = 0
-    out = serve(arch="olmo-1b", smoke=False, batch=SERVE_BATCH,
-                prompt_len=SERVE_PROMPT, max_new_tokens=SERVE_NEW,
-                device="cuda")
-    torch.cuda.synchronize()
-    launches = k4.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches != 16:
-        raise SystemExit(f"K4 ran {launches} times in serve(), not 16")
-    if out.shape != (SERVE_BATCH, SERVE_NEW):
-        raise SystemExit(f"serve() returned {out.shape}")
+    out, launches, peak_gb = _serve_entry("olmo-1b", k4, 16)
 
     # the same weights and prompts through the step functions: K4 per
     # layer in the prefill and never in decode, then the plain attention
     cfg = get_config("olmo-1b")
-    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-    prompts = torch.randint(
-        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device="cuda",
-        generator=torch.Generator(device="cuda").manual_seed(1))
-    _serve_run(cfg, params, prompts)                     # warm-up
+    params, prompts = _same_weights(cfg)
+    _serve_run(cfg, params, prompts, k4)                 # warm-up
     steps, toks, n_pre, n_dec, prefill_ms, decode_ms = _serve_run(
-        cfg, params, prompts)
+        cfg, params, prompts, k4)
     if (n_pre, n_dec) != (16, 0):
         raise SystemExit(f"K4 launches: prefill {n_pre}, decode {n_dec}; "
                          f"want 16 and 0")
     generated = torch.cat(toks, dim=1).cpu().numpy()
     feed = toks[:SERVE_FORCED]
     plain = cfg.replace(attn_impl="reference")
-    want = _serve_run(plain, params, prompts, feed)[0]
-    exact = _serve_run(plain.replace(dtype="float32"), params, prompts,
+    want = _serve_run(plain, params, prompts, k4, feed)[0]
+    exact = _serve_run(plain.replace(dtype="float32"), params, prompts, k4,
                        feed)[0]
+    held = _hold_logits(steps, want, exact, LOGIT_TOL, F32_RATIO)
+    _serve_line("serve", t0, cfg, "k4", n_pre, n_dec, prefill_ms, decode_ms,
+                peak_gb, held, generated, out)
+    return launches
 
-    def max_err(a, b):
-        return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
-    n_cmp = SERVE_FORCED + 1
-    errs = [float((a - b).abs().max())
-            for a, b in zip(steps[:n_cmp], want)]
-    err_kernel_f32 = max_err(steps[:n_cmp], exact)
-    err_plain_f32 = max_err(want, exact)
-    spread = float(steps[0].std())
-    for logits in steps:
-        if not bool(torch.isfinite(logits).all()):
-            raise SystemExit("non-finite logits on the kernel path")
-    print(f"  logits: std {spread:.4f}; kernel vs plain {errs}; vs the "
-          f"float32 path: kernel {err_kernel_f32:.4g}, plain "
-          f"{err_plain_f32:.4g}", flush=True)
-    if max(errs) > LOGIT_TOL:
-        raise SystemExit(f"kernel path vs plain attention: logits differ "
-                         f"by {max(errs)} (> {LOGIT_TOL})")
-    if err_kernel_f32 > F32_RATIO * err_plain_f32:
-        raise SystemExit(f"kernel path {err_kernel_f32} from the float32 "
-                         f"path, plain path {err_plain_f32}")
-    n_dec_steps = SERVE_NEW - 1
-    _line("serve", time.time() - t0, arch="olmo-1b", layers=cfg.n_layers,
-          batch=SERVE_BATCH, prompt=SERVE_PROMPT, new=SERVE_NEW,
-          k4_prefill=n_pre, k4_decode=n_dec, prefill_ms=f"{prefill_ms:.3f}",
-          decode_ms=f"{decode_ms:.3f}",
-          decode_ms_step=f"{decode_ms / n_dec_steps:.3f}",
-          decode_tok_s=f"{SERVE_BATCH * n_dec_steps / decode_ms * 1e3:.1f}",
-          prefill_tok_s=f"{SERVE_BATCH * SERVE_PROMPT / prefill_ms * 1e3:.0f}",
-          peak_gb=f"{peak_gb:.3f}",
-          max_err_prefill=f"{errs[0]:.4g}",
-          max_err_decode=f"{max(errs[1:]):.4g}",
-          err_kernel_f32=f"{err_kernel_f32:.4g}",
-          err_plain_f32=f"{err_plain_f32:.4g}",
-          same_tokens_as_serve=bool((generated == out).all()),
-          tokens=generated[0, :8].tolist())
+def _ssd_inputs(B, S, H, P, N, dtype, seed=0, h0=False):
+    """SSD scan inputs as the model passes them: x, B and C slices of one
+    xBC tensor in ``dtype``; float32 step sizes rising across heads."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=g, device="cuda")
+    xbc[..., H * P:] *= 0.3
+    xbc = xbc.to(dtype)
+    xh = xbc[..., :H * P].reshape(B, S, H, P)
+    bias = torch.linspace(-4.0, 1.0, H, device="cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device="cuda") + bias)
+    a = -torch.exp(torch.randn(H, generator=g, device="cuda") * 0.2)
+    h0 = (torch.randn((B, H, P, N), generator=g, device="cuda")
+          if h0 else None)
+    return (xh, xbc[..., H * P:H * P + N], xbc[..., H * P + N:], dt, a), h0
+
+
+def _chunk_sum(dt, a, chunk: int) -> float:
+    """The largest in-chunk sum of dt |a|."""
+    B, S, H = dt.shape
+    Q = min(chunk, S)
+    d = torch.nn.functional.pad(dt * -a, (0, 0, 0, -S % Q))
+    return float(d.reshape(B, -1, Q, H).sum(2).max())
+
+
+def _ssd_flops(B, S, H, P, N, chunk) -> int:
+    """Products the chunked scan needs for these shapes: C.B^T once per
+    (batch, chunk) and scores.x over the live s <= t only; C.h and the
+    chunk states in full."""
+    Q = min(chunk, S)
+    total = 0
+    for t0 in range(0, S, Q):
+        L = min(Q, S - t0)
+        tri = L * (L + 1) // 2
+        total += B * (2 * tri * N + H * (2 * tri * P + 4 * L * P * N))
+    return total
+
+
+def phase_k5():
+    from repro_torch.kernels.ssd import kernel, ref
+
+    t0 = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def rel_err(got, want):
+        return float((got - want).abs().max()) / (float(want.abs().max())
+                                                  + 1e-30)
+
+    grid_err = {"float32": 0.0, "bfloat16": 0.0}
+    largest_sum = 0.0
+    n_checks = 0
+    for B, S, H, P, N, chunk in K5_GRID:
+        for name, dtype in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            for with_h0 in (False, True):
+                args, h0 = _ssd_inputs(B, S, H, P, N, dtype, n_checks,
+                                       with_h0)
+                y, h = kernel.ssd_scan_cuda(*args, chunk, h0)
+                y_w, h_w = ref.ssd_chunked_ref(*args, chunk, h0)
+                torch.cuda.synchronize()
+                err = max(rel_err(y, y_w), rel_err(h, h_w))
+                if not (err <= K5_TOL and bool(torch.isfinite(y).all())):
+                    raise SystemExit(
+                        f"K5 differs from its plain version by {err} "
+                        f"(relative) at {(B, S, H, P, N, chunk)} {name} "
+                        f"h0={with_h0}")
+                grid_err[name] = max(grid_err[name], err)
+                largest_sum = max(largest_sum, _chunk_sum(*args[3:], chunk))
+                n_checks += 1
+    if largest_sum <= 88.8:
+        raise SystemExit(f"the K5 grid's chunk sums stop at {largest_sum}: "
+                         f"the masked exponent is not exercised")
+
+    B, S, H, P, N, chunk = MAMBA_PREFILL
+    args, _ = _ssd_inputs(B, S, H, P, N, torch.bfloat16, seed=99)
+    h0 = torch.zeros((B, H, P, N), device="cuda")     # as the prefill passes
+    y, h = kernel.ssd_scan_cuda(*args, chunk, h0)
+    y_w, h_w = ref.ssd_chunked_ref(*args, chunk, h0)
+    torch.cuda.synchronize()
+    err_y, err_h = rel_err(y, y_w), rel_err(h, h_w)
+    abs_err = float((y - y_w).abs().max())
+    if max(err_y, err_h) > K5_TOL:
+        raise SystemExit(f"K5 differs from its plain version by "
+                         f"{max(err_y, err_h)} (relative) at mamba2-780m's "
+                         f"prefill shape")
+    del y, h, y_w, h_w
+    ms = _time_ms(lambda: kernel.ssd_scan_cuda(*args, chunk, h0))
+    plain_ms = _time_ms(lambda: ref.ssd_chunked_ref(*args, chunk, h0),
+                        reps=5)
+    xh, bm, cm, dt, a = args
+    n_bytes = (xh.numel() * 2 + (bm.numel() + cm.numel()) * 2
+               + dt.numel() * 4 + a.numel() * 4 + 2 * h0.numel() * 4
+               + xh.numel() * 4)
+    n_ops = _ssd_flops(B, S, H, P, N, chunk)
+    bound = max(n_bytes / HBM_BYTES_S, n_ops / TF32_S) * 1e3
+    _line("k5", time.time() - t0, checks=n_checks + 1,
+          err_f32=f"{grid_err['float32']:.3g}",
+          err_bf16=f"{grid_err['bfloat16']:.3g}",
+          largest_chunk_sum=f"{largest_sum:.1f}",
+          err_mamba_y=f"{err_y:.3g}", err_mamba_h=f"{err_h:.3g}",
+          abs_err_mamba=f"{abs_err:.3g}", ms=f"{ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.5f}",
+          gflop=f"{n_ops / 1e9:.3f}", tflops=f"{n_ops / ms / 1e9:.2f}")
+    return {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:104",
+        "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": ("bytes" if n_bytes / HBM_BYTES_S >= n_ops / TF32_S
+                     else "operations"),
+        "library_ms": None,
+    }
+
+
+def phase_serve_mamba2():
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import kernel as k5
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    t0 = time.time()
+    cfg = get_config("mamba2-780m")
+    out, launches, peak_gb = _serve_entry(cfg.name, k5, cfg.n_layers)
+
+    params, prompts = _same_weights(cfg)
+    _serve_run(cfg, params, prompts, k5)                 # warm-up
+    steps, toks, n_pre, n_dec, prefill_ms, decode_ms = _serve_run(
+        cfg, params, prompts, k5)
+    if (n_pre, n_dec) != (cfg.n_layers, 0):
+        raise SystemExit(f"K5 launches: prefill {n_pre}, decode {n_dec}; "
+                         f"want {cfg.n_layers} and 0")
+    generated = torch.cat(toks, dim=1).cpu().numpy()
+    feed = toks[:SERVE_FORCED]
+    f32 = cfg.replace(dtype="float32")
+    exact_kernel = _serve_run(f32, params, prompts, k5, feed)[0]
+    # the plain scan in place of the dispatch, for this comparison only
+    with mock.patch.object(ssd_ops, "ssd_scan", ssd_ref.ssd_chunked_ref):
+        want = _serve_run(cfg, params, prompts, k5, feed)[0]
+        exact = _serve_run(f32, params, prompts, k5, feed)[0]
+    held = _hold_logits(steps, want, exact, MAMBA_LOGIT_TOL, MAMBA_F32_RATIO)
+    err_f32 = max(float((a - b).abs().max())
+                  for a, b in zip(exact_kernel, exact))
+    print(f"  float32 compute: kernel path vs plain scan {err_f32:.4g}",
+          flush=True)
+    if not err_f32 <= MAMBA_F32_TOL:
+        raise SystemExit(f"float32 compute: the kernel path is {err_f32} "
+                         f"from the plain scan (> {MAMBA_F32_TOL})")
+    held["err_f32_kernel_plain"] = f"{err_f32:.4g}"
+    _serve_line("serve_mamba2", t0, cfg, "k5", n_pre, n_dec, prefill_ms,
+                decode_ms, peak_gb, held, generated, out)
     return launches
 
 
@@ -660,10 +900,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     phase_build()
-    kernels = [phase_k1(), phase_k2(), phase_k4()]
+    kernels = [phase_k1(), phase_k2(), phase_k4(), phase_k5()]
     launches = phase_main()
     phase_full_width()
     launches["flash_attention"] = phase_serve()
+    launches["ssd_scan"] = phase_serve_mamba2()
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,18 +1,19 @@
-"""Where olmo-1b serving on the PyTorch port spends its time on a CUDA card.
+"""Where serving on the PyTorch port spends its time on a CUDA card.
 
     python3 scripts/profile_port_serve.py [--out chiprun_out/profile_serve.json]
+        [--arch olmo-1b|mamba2-780m]
 
-Full-width olmo-1b (16 layers, float32 parameters, bfloat16 compute,
-random weights from seed 0), batch 4, 2048-token prompts (seed 1): one
-prefill and 8 greedy decode steps to warm up, then the same unprofiled
-(host clock around work that ends in a synchronise) and under
-``torch.profiler``. For the prefill and the decode steps apart it
-reports the wall time, the device's busy share (summed kernel time over
-the unprofiled wall), the device time of the flash-attention kernel K4,
-of the matrix products (cuBLAS kernel names: gemm, gemv, xmma,
-cutlass, nvjet), of
-the rest, and the kernels that take the most device time. The JSON
-summary is printed and written to ``--out``.
+A full-width model (olmo-1b by default: 16 layers; mamba2-780m: 48 SSD
+layers; float32 parameters, bfloat16 compute, random weights from seed
+0), batch 4, 2048-token prompts (seed 1): one prefill and 8 greedy
+decode steps to warm up, then the same unprofiled (host clock around
+work that ends in a synchronise) and under ``torch.profiler``. For the
+prefill and the decode steps apart it reports the wall time, the
+device's busy share (summed kernel time over the unprofiled wall), the
+device time of the flash-attention kernel K4, of the SSD-scan kernel
+K5, of the matrix products (cuBLAS kernel names: gemm, gemv, xmma,
+cutlass, nvjet), of the rest, and the kernels that take the most device
+time. The JSON summary is printed and written to ``--out``.
 """
 from __future__ import annotations
 
@@ -68,6 +69,7 @@ def _breakdown(events, wall_s: float) -> dict:
                      reverse=True)
     busy = sum(t for t, _, _ in kernels)
     k4 = sum(t for t, name, _ in kernels if "flash_fwd_kernel" in name)
+    k5 = sum(t for t, name, _ in kernels if "ssd_scan_kernel" in name)
     gemm = sum(t for t, name, _ in kernels
                if any(m in name.lower() for m in GEMM_MARKS))
     return {
@@ -75,8 +77,9 @@ def _breakdown(events, wall_s: float) -> dict:
         "device_busy_ms": busy / 1e3,
         "device_busy_share": busy * 1e-6 / wall_s,
         "k4_ms": k4 / 1e3,
+        "k5_ms": k5 / 1e3,
         "gemm_ms": gemm / 1e3,
-        "other_ms": (busy - k4 - gemm) / 1e3,
+        "other_ms": (busy - k4 - k5 - gemm) / 1e3,
         "top_device_us": [[name[:120], t, n] for t, name, n in kernels[:10]],
     }
 
@@ -85,6 +88,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "profile_serve.json"))
+    ap.add_argument("--arch", default="olmo-1b",
+                    help="olmo-1b (K4 in the prefill) or mamba2-780m (K5)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port_serve: no CUDA device", file=sys.stderr)
@@ -92,7 +97,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.models import lm
 
-    cfg = get_config("olmo-1b")
+    cfg = get_config(args.arch)
     with torch.inference_mode():
         params = lm.init_params(
             cfg, torch.Generator(device="cuda").manual_seed(0))
@@ -106,7 +111,8 @@ def main() -> int:
                 ["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"], capture_output=True,
                 text=True).stdout.strip(),
-            "batch": BATCH, "prompt": PROMPT, "decode_steps": DECODE_STEPS,
+            "arch": args.arch, "batch": BATCH, "prompt": PROMPT,
+            "decode_steps": DECODE_STEPS,
         }
         logits, cache, wall = _prefill(cfg, params, prompts)
         with profile(activities=[ProfilerActivity.CPU,

@@ -13,16 +13,18 @@ Entry points:
   ``prefill``        — forward over the prompt, filling the KV caches
   ``decode_step``    — one token against the caches
 
-Only attention blocks with a dense MLP are ported; RG-LRU, SSD and MoE
-blocks raise ``NotImplementedError`` (ROADMAP Queue 1 item 10).
+Attention blocks with a dense MLP and Mamba-2 SSD blocks (no FFN) are
+ported; RG-LRU and MoE blocks raise ``NotImplementedError`` (ROADMAP
+Queue 1 item 10).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch._device import DEFAULT_DEVICE, resolve_device
-from repro_torch.configs.base import ATTN, LayerSpec, ModelConfig
+from repro_torch.configs.base import ATTN, SSD, LayerSpec, ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.layers import (
     apply_norm,
     embed_init,
@@ -35,11 +37,11 @@ from repro_torch.models.layers import (
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    kinds = {s.kind for s in cfg.pattern}
-    if kinds != {ATTN}:
+    kinds = {s.kind for s in cfg.pattern} - {ATTN, SSD}
+    if kinds:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(kinds - {ATTN})} are not "
-            "ported yet (ROADMAP Queue 1 item 10)")
+            f"{cfg.name}: block kinds {sorted(kinds)} are not ported yet "
+            "(ROADMAP Queue 1 item 10)")
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: MoE blocks are not ported yet (ROADMAP Queue 1 "
@@ -67,14 +69,17 @@ def _tree_stack(trees):
 
 
 # ---------------------------------------------------------------------------
-# block = attention mixer + MLP, with pre-norms
+# block = mixer (attention or SSD) + MLP, with pre-norms
 # ---------------------------------------------------------------------------
 
 
 def _block_init(generator, cfg: ModelConfig, spec: LayerSpec, device):
-    p = {"mix_norm": norm_init(cfg, device=device),
-         "mixer": attn_mod.attn_init(generator, cfg, device=device)}
-    if cfg.d_ff > 0:
+    p = {"mix_norm": norm_init(cfg, device=device)}
+    if spec.kind == SSD:
+        p["mixer"] = ssd_mod.ssd_block_init(generator, cfg, device=device)
+    else:
+        p["mixer"] = attn_mod.attn_init(generator, cfg, device=device)
+    if spec.kind != SSD and cfg.d_ff > 0:  # mamba2 blocks carry no FFN
         p["ffn_norm"] = norm_init(cfg, device=device)
         p["mlp"] = mlp_init(generator, cfg, device=device)
     return p
@@ -83,14 +88,18 @@ def _block_init(generator, cfg: ModelConfig, spec: LayerSpec, device):
 def _block_apply(params, x, cfg, spec, positions, mode, cache, pos):
     """The block's output; a prefill or decode writes ``cache`` in place."""
     h = apply_norm(params["mix_norm"], x, cfg)
-    if mode == "train":
-        mix = attn_mod.attn_full(params["mixer"], h, cfg, spec, positions)
-    elif mode == "prefill":
-        mix, _ = attn_mod.attn_prefill(params["mixer"], h, cfg, spec,
-                                       positions, cache)
+    if spec.kind == SSD:
+        full, fill, step = (ssd_mod.ssd_full, ssd_mod.ssd_prefill,
+                            ssd_mod.ssd_decode)
     else:
-        mix, _ = attn_mod.attn_decode(params["mixer"], h, cfg, spec, pos,
-                                      cache)
+        full, fill, step = (attn_mod.attn_full, attn_mod.attn_prefill,
+                            attn_mod.attn_decode)
+    if mode == "train":
+        mix = full(params["mixer"], h, cfg, spec, positions)
+    elif mode == "prefill":
+        mix, _ = fill(params["mixer"], h, cfg, spec, positions, cache)
+    else:
+        mix, _ = step(params["mixer"], h, cfg, spec, pos, cache)
     x = x + mix
     if "mlp" in params:
         h2 = apply_norm(params["ffn_norm"], x, cfg)
@@ -211,10 +220,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     _require_ported(cfg)
     dev = resolve_device(device)
 
+    def block(spec):
+        if spec.kind == SSD:
+            return ssd_mod.init_ssd_cache(cfg, batch, device=dev)
+        return attn_mod.init_layer_cache(cfg, spec, batch, max_len,
+                                         device=dev)
+
     def unit(pattern):
-        return {f"b{i}": attn_mod.init_layer_cache(cfg, spec, batch, max_len,
-                                                   device=dev)
-                for i, spec in enumerate(pattern)}
+        return {f"b{i}": block(spec) for i, spec in enumerate(pattern)}
 
     cache = {"units": _tree_stack([unit(cfg.pattern)
                                    for _ in range(cfg.n_units)]),

@@ -11,7 +11,10 @@ card (kernels, device-side queue state, the column-by-column prefix
 sums) to the same sweeps on the CPU. K1 and K2 are held bit for bit;
 K4 (flash attention) within 2e-5 in float32 (the same function summed in
 another order; the plain version's products run in full float32, TF32
-off) and 2e-2 in bfloat16 (both outputs rounded to bf16).
+off) and 2e-2 in bfloat16 (both outputs rounded to bf16). K5 (the SSD
+scan) computes in float32 from inputs of either type, like its plain
+version: y and the final state within 1e-4 of the plain version's
+largest value (the reference package's own kernel test measure).
 """
 import numpy as np
 import pytest
@@ -26,6 +29,9 @@ from repro_torch.kernels.attention import ref as k4_ref
 from repro_torch.launch.serve import serve
 from repro_torch.models import lm
 from repro_torch.kernels.ponsim import kernel as k2
+from repro_torch.kernels.ssd import kernel as k5
+from repro_torch.kernels.ssd import ops as k5_ops
+from repro_torch.kernels.ssd import ref as k5_ref
 from repro_torch.kernels.ponsim import ops as k2_ops
 from repro_torch.kernels.ponsim import ref as k2_ref
 from repro_torch.kernels.traffic import kernel as k1
@@ -271,31 +277,137 @@ def _serve_steps(cfg, params, tokens, feed, dev):
     return steps
 
 
-def test_smoke_model_on_card_equals_cpu(cuda_fp32):
-    """float32 smoke olmo: the card (K4 in the prefill) against the CPU
-    (plain attention), teacher-forced with the CPU's greedy tokens; 1e-4
-    for cuBLAS's float32 summation order."""
-    cfg = get_config("olmo-1b", smoke=True).replace(attn_impl="chunked")
+@pytest.mark.parametrize("arch,kernel,prompt", [
+    ("olmo-1b", k4, 24), ("mamba2-780m", k5, 29)])
+def test_smoke_model_on_card_equals_cpu(cuda_fp32, arch, kernel, prompt):
+    """float32 smoke model: the card (K4, or K5 over chunks of 8, in the
+    prefill) against the CPU (the plain versions), teacher-forced with the
+    CPU's greedy tokens; 1e-4 for cuBLAS's float32 summation order."""
+    cfg = get_config(arch, smoke=True).replace(attn_impl="chunked")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    tokens = torch.randint(0, cfg.vocab_size, (2, 24),
+    tokens = torch.randint(0, cfg.vocab_size, (2, prompt),
                            generator=torch.Generator().manual_seed(1))
     want = _serve_steps(cfg, params, tokens, [], "cpu")
     feed = []
     for _ in range(4):
         feed.append(want[-1][:, -1:].argmax(-1))
         want = _serve_steps(cfg, params, tokens, feed, "cpu")
-    before = k4.launches
+    before = kernel.launches
     got = _serve_steps(cfg, params, tokens, feed, cuda_fp32)
-    assert k4.launches == before + cfg.n_layers   # prefill only, one a layer
+    assert kernel.launches == before + cfg.n_layers   # prefill, one a layer
     for a, b in zip(want, got):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
 
 
-def test_serve_on_card(cuda):
+@pytest.mark.parametrize("arch,kernel,launches", [
+    ("olmo-1b", k4, 0), ("mamba2-780m", k5, 2)])
+def test_serve_on_card(cuda, arch, kernel, launches):
     """``serve()`` on the card at smoke size. ``smoke()`` selects the
     plain attention (as in the reference package), so K4 stays idle; the
-    full-width run through K4 is ``chip_smoke.py``'s serve phase."""
-    before = k4.launches
-    out = serve(smoke=True, batch=2, prompt_len=16, max_new_tokens=4)
+    SSD dispatch has no plain switch, so K5 runs in both smoke layers of
+    the prefill. The full-width runs are ``chip_smoke.py``'s."""
+    before = kernel.launches
+    out = serve(arch=arch, smoke=True, batch=2, prompt_len=16,
+                max_new_tokens=4)
     assert out.shape == (2, 4)
-    assert k4.launches == before
+    assert kernel.launches == before + launches
+
+
+# (B, S, H, P, N, chunk): the shapes of tests/test_kernels.py, ragged and
+# whole lengths at mamba2 widths, the smoke widths, S below one chunk
+K5_GRID = [
+    (2, 120, 3, 16, 32, 128),
+    (1, 256, 2, 64, 64, 64),
+    (1, 33, 1, 8, 16, 8),
+    (2, 2000, 2, 64, 128, 128),
+    (1, 512, 3, 16, 16, 8),
+    (1, 300, 2, 72, 200, 128),
+]
+
+
+def _ssd_args(B, S, H, P, N, dtype, dev, h0, strided, seed=0):
+    """x, B, C (as slices of one xBC tensor when ``strided``, as the
+    model passes them), dt rising across heads so that some chunks sum
+    dt |a| past 88.7, a, and h0 or None."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=g, device=dev)
+    xbc[..., H * P:] *= 0.3
+    xbc = xbc.to(dtype)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    bm, cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    if not strided:
+        x, bm, cm = x.contiguous(), bm.contiguous(), cm.contiguous()
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=dev)
+        + torch.linspace(-4.0, 1.0, H, device=dev))
+    a = -torch.exp(torch.randn(H, generator=g, device=dev) * 0.2)
+    h = torch.randn((B, H, P, N), generator=g, device=dev) if h0 else None
+    return x, bm, cm, dt, a, h
+
+
+def _assert_rel(got, want, tol=1e-4):
+    assert bool(torch.isfinite(got).all())
+    scale = float(want.abs().max()) + 1e-30
+    assert float((got - want).abs().max()) / scale <= tol
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", K5_GRID)
+def test_ssd_kernel_matches_plain(cuda_fp32, B, S, H, P, N, chunk, dtype,
+                                  h0, strided):
+    x, bm, cm, dt, a, h = _ssd_args(B, S, H, P, N, dtype, cuda_fp32, h0,
+                                    strided)
+    before = k5.launches
+    y, h_last = k5.ssd_scan_cuda(x, bm, cm, dt, a, chunk, h)
+    assert k5.launches == before + 1
+    y_w, h_w = k5_ref.ssd_chunked_ref(x, bm, cm, dt, a, chunk, h)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and y.shape == (B, S, H, P)
+    assert h_last.shape == (B, H, P, N)
+    _assert_rel(y, y_w)
+    _assert_rel(h_last, h_w)
+
+
+def test_ssd_kernel_equals_the_token_recurrence(cuda_fp32):
+    """K5 against the slow exact oracle, chunk sums past 88.7."""
+    x, bm, cm, dt, a, h = _ssd_args(1, 300, 3, 64, 128, torch.float32,
+                                    cuda_fp32, True, True, seed=4)
+    y, h_last = k5_ops.ssd_scan(x, bm, cm, dt, a, 128, h)
+    y_w, h_w = k5_ref.ssd_scan_ref(x, bm, cm, dt, a, h)
+    torch.cuda.synchronize()
+    _assert_rel(y, y_w)
+    _assert_rel(h_last, h_w)
+
+
+def test_ssd_kernel_at_mamba2_prefill(cuda_fp32):
+    x, bm, cm, dt, a, _ = _ssd_args(4, 2048, 48, 64, 128, torch.bfloat16,
+                                    cuda_fp32, False, True)
+    h = torch.zeros((4, 48, 64, 128), device=cuda_fp32)
+    y, h_last = k5_ops.ssd_scan(x, bm, cm, dt, a, 128, h)
+    y_w, h_w = k5_ref.ssd_chunked_ref(x, bm, cm, dt, a, 128, h)
+    torch.cuda.synchronize()
+    _assert_rel(y, y_w)
+    _assert_rel(h_last, h_w)
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    x, bm, cm, dt, a, h = _ssd_args(1, 16, 2, 16, 16, torch.float32, cuda,
+                                    True, False)
+    with pytest.raises(ValueError, match="chunk"):
+        k5.ssd_scan_cuda(x, bm, cm, dt, a, 0, h)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        k5.ssd_scan_cuda(x.half(), bm.half(), cm.half(), dt, a, 8, h)
+    with pytest.raises(ValueError, match="b_mat must be"):
+        k5.ssd_scan_cuda(x, bm.bfloat16(), cm, dt, a, 8, h)
+    with pytest.raises(ValueError, match="dense"):
+        k5.ssd_scan_cuda(x.transpose(2, 3), bm, cm, dt, a, 8, h)
+    with pytest.raises(ValueError, match="dt must be contiguous"):
+        k5.ssd_scan_cuda(x, bm, cm, torch.stack([dt, dt], -1)[..., 0], a,
+                         8, h)
+    with pytest.raises(ValueError, match="state size"):
+        big = torch.zeros((1, 16, 300), device=cuda)
+        k5.ssd_scan_cuda(x, big, big, dt, a, 8)
+    with pytest.raises(NotImplementedError, match="backward"):
+        k5_ops.ssd_scan(x.requires_grad_(), bm, cm, dt, a, 8, h)

@@ -37,7 +37,10 @@ def test_scan_covers_the_port():
                      "models/convert.py", "kernels/attention/ref.py",
                      "kernels/attention/kernel.py",
                      "kernels/attention/ops.py", "dist/stepfns.py",
-                     "launch/serve.py"):
+                     "launch/serve.py", "configs/mamba2_780m.py",
+                     "models/ssd.py", "models/rglru.py",
+                     "kernels/ssd/ref.py", "kernels/ssd/kernel.py",
+                     "kernels/ssd/ops.py"):
         assert expected in names
 
 

@@ -10,7 +10,13 @@ near tie cannot fork the sequences) must agree within 2e-5: the same
 float32 arithmetic summed in another order. Every ``attn_impl`` is run:
 the port sends ``pallas`` and ``chunked`` to its flash-attention op (the
 plain version on the CPU), the reference to its Pallas kernel (interpret
-mode) and its XLA flash scan.
+mode) and its XLA flash scan. mamba2-780m's smoke model (2 SSD layers,
+heads of 16, state 16, chunk 8) is held the same way, its ``h``/``conv``
+caches included, on ragged (12 tokens over chunks of 8) and whole (16)
+prompts: at chunk 8 the reference's in-chunk product is finite (caveat
+C5 shows only past ~88.7 of summed dt |a| in one chunk). On the CPU the
+port runs its plain chunked scan; K5 runs on a card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 import dataclasses
 
@@ -23,11 +29,13 @@ import torch
 from repro import configs as jcfgs
 from repro.models import layers as jlayers
 from repro.models import lm as jlm
+from repro.models import ssd as jssd
 from repro_torch import configs as tcfgs
 from repro_torch.configs.base import ATTN, RGLRU, SSD, LayerSpec, MoEConfig
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
+from repro_torch.models import ssd as tssd
 from repro_torch.models.convert import from_reference_params
 
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -56,20 +64,36 @@ def _torch_cfg(jcfg):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("smoke", [False, True])
-def test_olmo_config_equals_reference(smoke):
-    want = jcfgs.get_config("olmo-1b", smoke=smoke)
-    got = tcfgs.get_config("olmo-1b", smoke=smoke)
+def _assert_config_equals_reference(name, smoke):
+    want = jcfgs.get_config(name, smoke=smoke)
+    got = tcfgs.get_config(name, smoke=smoke)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     for prop in ("unit_len", "n_units", "n_remainder", "d_attn",
                  "has_attention", "max_window", "is_subquadratic",
                  "supports_long_context"):
         assert getattr(got, prop) == getattr(want, prop), prop
     assert tcfgs.param_count(got) == jcfgs.param_count(want)
+    return got, want
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_olmo_config_equals_reference(smoke):
+    _assert_config_equals_reference("olmo-1b", smoke)
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_mamba2_config_equals_reference(smoke):
+    got, want = _assert_config_equals_reference("mamba2-780m", smoke)
+    if smoke:
+        assert (got.ssm.d_state, got.ssm.d_head, got.ssm.chunk,
+                got.n_layers) == (16, 16, 8, 2)
+    else:
+        assert (got.n_layers, got.d_model, got.ssm.chunk) == (48, 1536, 128)
+        assert tssd.ssd_dims(got) == jssd.ssd_dims(want) == (3072, 48, 3328)
 
 
 def test_registry_and_shapes():
-    assert tcfgs.list_architectures() == ["olmo_1b"]
+    assert tcfgs.list_architectures() == ["mamba2_780m", "olmo_1b"]
     with pytest.raises(KeyError, match="port has"):
         tcfgs.get_config("llama3-8b")
     assert [dataclasses.asdict(s) for s in tcfgs.ALL_SHAPES] == [
@@ -188,6 +212,21 @@ def test_from_reference_params_round_trips_every_leaf():
     jcfg = jcfgs.get_config("olmo-1b", smoke=True)
     tree = _np_tree(jlm.init_params(jax.random.PRNGKey(0), jcfg))
     got = from_reference_params(tree, _torch_cfg(jcfg), device="cpu")
+    _assert_same_leaves(tree, got)
+
+
+def test_from_reference_params_carries_the_ssd_leaves():
+    jcfg = jcfgs.get_config("mamba2-780m", smoke=True)
+    tree = _np_tree(jlm.init_params(jax.random.PRNGKey(0), jcfg))
+    got = from_reference_params(tree, _torch_cfg(jcfg), device="cpu")
+    assert set(got["units"]["b0"]) == {"mix_norm", "mixer"}   # no FFN
+    assert set(got["units"]["b0"]["mixer"]) == {
+        "in_proj", "conv_w", "a_log", "dt_bias", "d_skip",
+        "gate_norm_scale", "out_proj"}
+    _assert_same_leaves(tree, got)
+
+
+def _assert_same_leaves(tree, got):
     leaves_w = jax.tree_util.tree_leaves_with_path(tree)
     leaves_g = jax.tree_util.tree_leaves_with_path(
         jax.tree.map(lambda t: t.numpy(), got))
@@ -244,7 +283,7 @@ def _run_reference(jcfg, tokens, extra=None):
            "max_len": max_len, "tokens": [], "decode": []}
     tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
     for _ in range(N_DECODE):
-        out["tokens"].append(np.asarray(tok))
+        out["tokens"].append(np.array(tok))
         logits, cache = dec(params, tok, cache)
         out["decode"].append(np.asarray(logits))
         tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
@@ -253,20 +292,17 @@ def _run_reference(jcfg, tokens, extra=None):
 
 
 def _assert_cache(got, want):
-    for key in ("k", "v"):
-        np.testing.assert_allclose(
-            got["units"]["b0"][key].numpy(),
-            want["units"]["b0"][key], **TOL)
+    """Every tensor of the first block's cache: k/v, or the SSD h/conv."""
+    assert set(got["units"]["b0"]) == set(want["units"]["b0"])
+    for key, value in want["units"]["b0"].items():
+        np.testing.assert_allclose(got["units"]["b0"][key].numpy(), value,
+                                   **TOL)
     assert got["pos"] == int(want["pos"])
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-@pytest.mark.parametrize("variant", list(VARIANTS))
-def test_model_matches_reference(variant, impl):
-    jcfg = VARIANTS[variant](jcfgs.get_config("olmo-1b", smoke=True)).replace(
-        attn_impl=impl)
-    tokens = np.random.default_rng(8).integers(
-        0, jcfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+def _assert_model_matches_reference(jcfg, tokens):
+    """forward_train, prefill (logits and caches) and teacher-forced
+    decode steps equal the reference's; returns the port's cache."""
     want = _run_reference(jcfg, jnp.asarray(tokens))
     cfg = _torch_cfg(jcfg)
     params = from_reference_params(want["params"], cfg, device="cpu")
@@ -283,8 +319,50 @@ def test_model_matches_reference(variant, impl):
                                             cache)
             np.testing.assert_allclose(logits.numpy(), want_logits, **TOL)
         _assert_cache(cache, want["final_cache"])
+    return cache
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_model_matches_reference(variant, impl):
+    jcfg = VARIANTS[variant](jcfgs.get_config("olmo-1b", smoke=True)).replace(
+        attn_impl=impl)
+    tokens = np.random.default_rng(8).integers(
+        0, jcfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    cache = _assert_model_matches_reference(jcfg, tokens)
     if variant == "gqa_window":
         assert cache["units"]["b0"]["k"].shape[2] == 8    # ring of 8 slots
+
+
+@pytest.mark.parametrize("prompt", [12, 16])
+def test_ssd_model_matches_reference(prompt):
+    jcfg = jcfgs.get_config("mamba2-780m", smoke=True)
+    tokens = np.random.default_rng(prompt).integers(
+        0, jcfg.vocab_size, (BATCH, prompt)).astype(np.int32)
+    cache = _assert_model_matches_reference(jcfg, tokens)
+    assert cache["units"]["b0"]["h"].shape == (2, BATCH, 8, 16, 16)
+
+
+def test_ssd_prefill_writes_the_caches_in_place():
+    """The per-layer caches are views of the stacked tensors: a prefill
+    fills them where they stand, and a prefill over 10 tokens then one
+    decode step leaves the state of a prefill over all 11."""
+    cfg = tcfgs.get_config("mamba2-780m", smoke=True)
+    params = tlm.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 11),
+                           generator=torch.Generator().manual_seed(3))
+    cache = tlm.init_cache(cfg, 2, 32, device="cpu")
+    h, conv = cache["units"]["b0"]["h"], cache["units"]["b0"]["conv"]
+    assert conv.shape == (2, 2, 3, 160) and cache["pos"] == 0
+    with torch.inference_mode():
+        _, new = tlm.prefill(params, cfg, tokens, cache)
+        assert new["units"]["b0"]["h"] is h and h.abs().sum() > 0
+        assert conv.abs().sum() > 0 and new["pos"] == 11
+        other = tlm.init_cache(cfg, 2, 32, device="cpu")
+        _, other = tlm.prefill(params, cfg, tokens[:, :10], other)
+        _, other = tlm.decode_step(params, cfg, tokens[:, 10:], other)
+    torch.testing.assert_close(other["units"]["b0"]["h"], h, **TOL)
+    torch.testing.assert_close(other["units"]["b0"]["conv"], conv, **TOL)
 
 
 def test_feature_variant_matches_reference():
@@ -328,7 +406,7 @@ def test_feature_variant_matches_reference():
 
 @pytest.mark.parametrize("pattern,moe", [
     ((LayerSpec(RGLRU),), None),
-    ((LayerSpec(SSD),), None),
+    ((LayerSpec(SSD), LayerSpec(RGLRU)), None),
     ((LayerSpec(ATTN),), MoEConfig(n_experts=4, top_k=2, d_ff_expert=64)),
 ])
 def test_unported_blocks_raise(pattern, moe):

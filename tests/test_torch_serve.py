@@ -4,8 +4,10 @@ The step functions of ``repro_torch.dist.stepfns`` on parameters carried
 across from the reference must equal the reference's jitted
 ``repro.dist.stepfns`` steps (float32 smoke config, 2e-5: the same
 arithmetic summed in another order), over a prefill and teacher-forced
-decode steps. ``repro_torch.launch.serve.serve`` runs end to end on
-the CPU when asked, and raises without a card otherwise.
+decode steps, for olmo-1b (both attention paths) and mamba2-780m (SSD
+blocks, whose caches hold a state and no KV).
+``repro_torch.launch.serve.serve`` runs end to end on the CPU when
+asked, and raises without a card otherwise.
 """
 import re
 
@@ -25,14 +27,23 @@ from repro_torch.models import lm
 from repro_torch.models.convert import from_reference_params
 
 TOL = dict(atol=2e-5, rtol=2e-5)
-ECHO = re.compile(r"^olmo-1b: prefill\((\d+)x(\d+)\)=[\d.]+ms decode (\d+) "
+ECHO = re.compile(r"^(\S+): prefill\((\d+)x(\d+)\)=[\d.]+ms decode (\d+) "
                   r"steps=[\d.]+ms \([\d.]+ tok/s batched\)$", re.M)
 
 
 @pytest.mark.parametrize("impl", ["reference", "chunked"])
 def test_step_functions_match_reference(impl):
-    jcfg = jcfgs.get_config("olmo-1b", smoke=True).replace(attn_impl=impl)
-    cfg = get_config("olmo-1b", smoke=True).replace(attn_impl=impl)
+    _assert_steps_match_reference(
+        jcfgs.get_config("olmo-1b", smoke=True).replace(attn_impl=impl),
+        get_config("olmo-1b", smoke=True).replace(attn_impl=impl))
+
+
+def test_ssd_step_functions_match_reference():
+    _assert_steps_match_reference(jcfgs.get_config("mamba2-780m", smoke=True),
+                                  get_config("mamba2-780m", smoke=True))
+
+
+def _assert_steps_match_reference(jcfg, cfg):
     jparams = jlm.init_params(jax.random.PRNGKey(3), jcfg)
     params = from_reference_params(jax.tree.map(np.array, jparams), cfg,
                                    device="cpu")
@@ -57,6 +68,9 @@ def test_step_functions_match_reference(impl):
             np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                        **TOL)
             assert cache["pos"] == int(jcache["pos"])
+    for key, value in jcache["units"]["b0"].items():   # k/v, or h/conv
+        np.testing.assert_allclose(cache["units"]["b0"][key].numpy(),
+                                   np.asarray(value), **TOL)
 
 
 def test_serve_on_cpu_returns_tokens_and_echoes(capsys):
@@ -66,7 +80,7 @@ def test_serve_on_cpu_returns_tokens_and_echoes(capsys):
     assert np.issubdtype(out.dtype, np.integer)
     assert ((out >= 0) & (out < 128)).all()
     m = ECHO.search(capsys.readouterr().out)
-    assert m and m.groups() == ("2", "8", "5")
+    assert m and m.groups() == ("olmo-1b", "2", "8", "5")
     again = serve_mod.serve(smoke=True, batch=2, prompt_len=8,
                             max_new_tokens=5, device="cpu")
     assert np.array_equal(out, again)             # seeded generators
@@ -102,7 +116,25 @@ def test_cli_on_cpu(capsys):
     serve_mod.main(["--device", "cpu", "--batch", "1", "--prompt-len", "5",
                     "--max-new-tokens", "3"])
     m = ECHO.search(capsys.readouterr().out)
-    assert m and m.groups() == ("1", "5", "3")
+    assert m and m.groups() == ("olmo-1b", "1", "5", "3")
+
+
+def test_mamba2_serve_and_cli_on_cpu(capsys):
+    """mamba2-780m through ``serve()`` and the CLI (a 13-token prompt over
+    chunks of 8); the seeded generators give the same tokens twice."""
+    out = serve_mod.serve(arch="mamba2-780m", batch=2, prompt_len=13,
+                          max_new_tokens=5, device="cpu")
+    assert out.shape == (2, 5) and ((out >= 0) & (out < 128)).all()
+    m = ECHO.search(capsys.readouterr().out)
+    assert m and m.groups() == ("mamba2-780m", "2", "13", "5")
+    assert np.array_equal(out, serve_mod.serve(
+        arch="mamba2-780m", batch=2, prompt_len=13, max_new_tokens=5,
+        device="cpu"))
+    capsys.readouterr()
+    serve_mod.main(["--arch", "mamba2-780m", "--device", "cpu", "--batch",
+                    "1", "--prompt-len", "9", "--max-new-tokens", "3"])
+    m = ECHO.search(capsys.readouterr().out)
+    assert m and m.groups() == ("mamba2-780m", "1", "9", "3")
 
 
 def test_log_jsonl_is_not_ported_yet(tmp_path):
@@ -115,3 +147,5 @@ def test_serve_defaults_to_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_mod.serve()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_mod.serve(arch="mamba2-780m")
