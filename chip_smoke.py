@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-The port has three paths, each driven through its user entry point with
+The port has four paths, each driven through its user entry point with
 the kernel counts set to 0 just before and read just after:
 
 * the Fig. 2b round engine (``repro_torch.net.simulate``), through K1
@@ -11,7 +11,10 @@ the kernel counts set to 0 just before and read just after:
 * olmo-1b serving (``repro_torch.launch.serve``: prefill, then greedy
   decode), through K4 (flash attention) in every layer of the prefill;
 * mamba2-780m serving (the same entry point), through K5 (the chunked
-  SSD scan) in every layer of the prefill.
+  SSD scan) in every layer of the prefill;
+* recurrentgemma-2b serving (the same entry point), through K6 (the
+  RG-LRU linear scan) in every recurrent layer and K4 at head dim 256 in
+  every attention layer of the prefill.
 
 Phases, each printing its own line with its seconds; any failure exits
 nonzero:
@@ -25,10 +28,14 @@ nonzero:
 3. ``k2``: the waterfill grant against its plain version run on CPU
    copies of the same inputs, bit for bit;
 4. ``k4``: flash attention against its plain version on the card over
-   the test grid (float32 within 2e-5, bfloat16 within 2e-2) and at
-   olmo-1b's prefill shape (4, 2048, 16, 16, 128) bf16 causal, timed
-   there beside its plain version and ``scaled_dot_product_attention``
-   (a yardstick only: the port never calls it);
+   the test grid (float32 within 2e-5, bfloat16 within 2e-2; head dims
+   16 to 256) and at olmo-1b's prefill shape (4, 2048, 16, 16, 128) bf16
+   causal, timed there beside its plain version and
+   ``scaled_dot_product_attention`` (a yardstick only: the port never
+   calls it); the same at recurrentgemma-2b's prefill shape
+   (4, 2048, 10 heads, 1 kv head, 256) bf16 with window 2048 (SDPA given
+   k/v for all 10 heads), and held at (4, 4096, 10, 1, 256) with window
+   2048, where the window cuts;
 5. ``k5``: the SSD scan against its plain chunked version on the card
    over a grid (float32 and bf16 inputs, whole and ragged lengths, with
    and without an initial state, mamba2 widths and small ones, chunk
@@ -37,6 +44,12 @@ nonzero:
    largest value; timed at mamba2-780m's prefill shape
    (4, 2048, 48, 64), N 128, chunk 128, bf16, beside its plain version
    (no single PyTorch call computes the scan);
+5b. ``k6``: the RG-LRU scan against its plain version on the card over a
+   grid (float32 and bf16 inputs, with and without h0, ragged S and R,
+   recurrentgemma's width, decays near 1 and near 0) within ``K6_TOL``
+   of the plain version's largest value; timed at recurrentgemma-2b's
+   prefill shape (4, 2048, 2560) float32 beside its plain version (no
+   single PyTorch call computes the recurrence);
 6. ``main``: the 16-case Fig. 2b sweep (128 ONUs, {fcfs, bs} x load
    {0.3, 0.8} x involvement {0.1, 0.4, 0.7, 1.0}) on the card; every sync
    time must match the JAX engine's value within 1e-9 s and both kernels
@@ -70,7 +83,18 @@ nonzero:
    kernel path in float32 compute must agree with the plain scan's
    within ``MAMBA_F32_TOL``. Parity with the JAX package is carried by
    ``tests/test_torch_lm.py`` and ``tests/test_torch_serve.py`` at smoke
-   size on the CPU.
+   size on the CPU;
+10. ``serve_recurrentgemma``: recurrentgemma-2b at full width and depth
+   (26 layers: 8 units of (RG-LRU, RG-LRU, local attention with window
+   2048) and a remainder of two RG-LRU layers; float32 parameters, bf16
+   compute, random weights from a seed), the same traffic, through
+   ``serve()``; K6 must run 18 times and K4 8 times in the prefill and
+   neither in decode, and every logit must be finite. The same weights
+   then run with the plain scan (patching
+   ``kernels.rglru.ops.rglru_scan``, here only) and the plain attention
+   (``attn_impl="reference"``) in bf16 and in float32 compute, held
+   with ``RG_LOGIT_TOL``, ``RG_F32_RATIO`` and ``RG_F32_TOL`` as in
+   ``serve_mamba2``.
 
 Before the last line it prints one JSON object with each kernel's
 launches on its path, its error against the plain version, its time,
@@ -147,9 +171,16 @@ K4_GRID = [
     (2, 40, 40, 4, 2, 16, True, 8),
     (1, 50, 70, 4, 2, 32, True, None),
     (1, 70, 50, 2, 1, 16, False, 24),
+    (1, 300, 300, 10, 1, 256, True, 64),
+    (2, 128, 128, 4, 1, 256, True, None),
+    (1, 100, 100, 2, 2, 256, False, None),
+    (1, 200, 200, 10, 1, 256, True, 8),
 ]
 K4_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 OLMO_PREFILL = (4, 2048, 2048, 16, 16, 128)   # B, S, T, H, K, D
+RG_PREFILL = (4, 2048, 2048, 10, 1, 256)      # recurrentgemma-2b, MQA
+RG_WINDOW = 2048
+RG_WINDOW_CUT = (4, 4096, 4096, 10, 1, 256)   # the window cuts here
 
 # serve phase: olmo-1b, batch 4, 2048-token prompts, 32 greedy tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
@@ -199,6 +230,36 @@ MAMBA_PREFILL = (4, 2048, 48, 64, 128, 128)   # B, S, H, P, N, chunk
 MAMBA_LOGIT_TOL = 1.0
 MAMBA_F32_RATIO = 1.5
 MAMBA_F32_TOL = 5e-3
+
+# K6 grid (B, S, R, a_lo, a_hi): ragged S and R, recurrentgemma's width,
+# slow decay (long memory) and fast, one step, one channel; a drawn
+# uniform in [a_lo, a_hi], b ~ 0.1 N(0, 1). Both versions compute in
+# float32 from the same (upcast) inputs; the kernel fuses each multiply
+# and add: within K6_TOL of the plain version's largest value
+K6_GRID = [
+    (1, 333, 200, 0.0, 1.0),
+    (2, 300, 96, 0.2, 0.8),
+    (4, 2048, 2560, 0.99, 0.9999),
+    (4, 2048, 2560, 0.0, 0.05),
+    (3, 17, 33, 0.0, 1.0),
+    (1, 1, 5, 0.5, 0.5),
+    (2, 9, 1, 0.9, 1.0),
+]
+K6_TOL = 1e-5
+RG_SCAN = (4, 2048, 2560)                     # B, S, R of the prefill
+# serve_recurrentgemma phase: the same traffic as serve and serve_mamba2.
+# Logits spread ~1.01. Set from the first reading on an NVIDIA H100 80GB
+# HBM3 (700 W): in bf16 compute the kernel path (K6, K4) and the plain
+# path (plain scan, plain attention) were 0.147 apart, each 0.166-0.171
+# from the float32 path (bf16 rounding through 26 random-weight layers);
+# in float32 compute the two paths were 2.8e-5 apart. So the bf16 paths
+# agree within RG_LOGIT_TOL, the kernel path is no farther from the
+# float32 path than RG_F32_RATIO times the plain path is, and in float32
+# compute they agree within RG_F32_TOL, far below what a wrong scan or
+# attention gives (errors of the logits' own size)
+RG_LOGIT_TOL = 0.3
+RG_F32_RATIO = 1.5
+RG_F32_TOL = 5e-4
 
 
 def _line(phase: str, seconds: float, **kw) -> None:
@@ -459,6 +520,12 @@ def phase_k2():
     }
 
 
+def _rel_err(got, want) -> float:
+    """Largest absolute difference over the largest absolute value."""
+    return float((got - want).abs().max()) / (float(want.abs().max())
+                                              + 1e-30)
+
+
 def _live_keys(S: int, T: int, causal: bool, window) -> int:
     """Sum over queries of the keys the mask leaves live."""
     qi = np.arange(S)
@@ -477,6 +544,42 @@ def _qkv(B, S, T, H, K, D, dtype, seed=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
                  for shape in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+
+
+def _k4_timed(shape, window, seed):
+    """K4 at ``shape`` (B, S, T, H, K, D) bf16, causal, with ``window``:
+    held to its plain version, then timed beside it and beside
+    ``scaled_dot_product_attention`` (k/v given to every query head).
+    Returns (max abs error, ms, plain ms, library ms, bound ms, bound by,
+    operations)."""
+    from repro_torch.kernels.attention import kernel, ref
+
+    B, S, T, H, K, D = shape
+    if window is not None and window < S:
+        raise ValueError("the SDPA yardstick is causal only")
+    q, k, v = _qkv(B, S, T, H, K, D, torch.bfloat16, seed=seed)
+    got = kernel.flash_attention_cuda(q, k, v, True, window)
+    want = ref.attention_ref(q, k, v, True, window)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if not _close(got, want, K4_TOL["bfloat16"]):
+        raise SystemExit(f"K4 differs from its plain version by {err} at "
+                         f"{shape} window={window}")
+    del got, want
+    ms = _time_ms(lambda: kernel.flash_attention_cuda(q, k, v, True,
+                                                      window))
+    plain_ms = _time_ms(lambda: ref.attention_ref(q, k, v, True, window),
+                        reps=5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if K != H:
+        kt, vt = (x.repeat_interleave(H // K, dim=1) for x in (kt, vt))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = _time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    n_ops = 4 * B * H * D * _live_keys(S, T, True, window)
+    bound = max(n_bytes / HBM_BYTES_S, n_ops / BF16_S) * 1e3
+    by = "bytes" if n_bytes / HBM_BYTES_S >= n_ops / BF16_S else "operations"
+    return err, ms, plain_ms, library_ms, bound, by, n_ops
 
 
 def phase_k4():
@@ -499,40 +602,44 @@ def phase_k4():
                     f"{(B, S, T, H, K, D, causal, window)} {name}")
             grid_err[name] = max(grid_err[name], err)
 
-    B, S, T, H, K, D = OLMO_PREFILL
-    q, k, v = _qkv(B, S, T, H, K, D, torch.bfloat16, seed=1)
-    got = kernel.flash_attention_cuda(q, k, v, True, None)
-    want = ref.attention_ref(q, k, v, True, None)
+    err, ms, plain_ms, library_ms, bound, by, n_ops = _k4_timed(
+        OLMO_PREFILL, None, 1)
+    err_rg, ms_rg, plain_rg, library_rg, bound_rg, by_rg, ops_rg = \
+        _k4_timed(RG_PREFILL, RG_WINDOW, 2)
+
+    # recurrentgemma's heads where the window cuts
+    B, S, T, H, K, D = RG_WINDOW_CUT
+    q, k, v = _qkv(B, S, T, H, K, D, torch.bfloat16, seed=3)
+    got = kernel.flash_attention_cuda(q, k, v, True, RG_WINDOW)
+    want = ref.attention_ref(q, k, v, True, RG_WINDOW)
     torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
+    err_cut = float((got.float() - want.float()).abs().max())
     if not _close(got, want, K4_TOL["bfloat16"]):
-        raise SystemExit(f"K4 differs from its plain version by {err} at "
-                         f"olmo-1b's prefill shape")
-    del got, want
-    ms = _time_ms(lambda: kernel.flash_attention_cuda(q, k, v, True, None))
-    plain_ms = _time_ms(lambda: ref.attention_ref(q, k, v, True, None),
-                        reps=5)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = _time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
-    n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    n_ops = 4 * B * H * D * _live_keys(S, T, True, None)
-    bound = max(n_bytes / HBM_BYTES_S, n_ops / BF16_S) * 1e3
-    _line("k4", time.time() - t0, checks=2 * len(K4_GRID) + 1,
+        raise SystemExit(f"K4 differs from its plain version by {err_cut} "
+                         f"at {RG_WINDOW_CUT} window={RG_WINDOW}")
+    del q, k, v, got, want
+
+    _line("k4", time.time() - t0, checks=2 * len(K4_GRID) + 3,
           err_f32=f"{grid_err['float32']:.3g}",
           err_bf16=f"{grid_err['bfloat16']:.3g}", err_olmo=f"{err:.3g}",
           ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
           library_ms=f"{library_ms:.4f}", bound_ms=f"{bound:.5f}",
-          tflops=f"{n_ops / ms / 1e9:.2f}")
+          tflops=f"{n_ops / ms / 1e9:.2f}", err_d256=f"{err_rg:.3g}",
+          err_d256_window_cut=f"{err_cut:.3g}", ms_d256=f"{ms_rg:.4f}",
+          plain_ms_d256=f"{plain_rg:.4f}",
+          library_ms_d256=f"{library_rg:.4f}",
+          bound_ms_d256=f"{bound_rg:.5f}",
+          tflops_d256=f"{ops_rg / ms_rg / 1e9:.2f}")
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attn.cu",
         "replaces": "src/repro/kernels/attention/kernel.py:139",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound,
-        "bound_by": ("bytes" if n_bytes / HBM_BYTES_S >= n_ops / BF16_S
-                     else "operations"),
-        "library_ms": library_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+        # recurrentgemma-2b's prefill shape, D 256
+        "max_abs_err_d256": max(err_rg, err_cut), "ms_d256": ms_rg,
+        "plain_ms_d256": plain_rg, "bound_ms_d256": bound_rg,
+        "bound_by_d256": by_rg, "library_ms_d256": library_rg,
     }
 
 
@@ -599,11 +706,11 @@ def phase_full_width():
           k1_launches=k1.launches, k2_launches=k2.launches)
 
 
-def _serve_run(cfg, params, prompts, kernel, feed=None):
+def _serve_run(cfg, params, prompts, kernels, feed=None):
     """Prefill, then decode: greedy for ``SERVE_NEW - 1`` steps, or the
     tokens of ``feed``. Returns (last-position logits of each step,
-    tokens, launches of ``kernel`` (a kernel module) in the prefill, in
-    decode, prefill ms, decode ms).
+    tokens, launches of each of ``kernels`` (name -> kernel module) in
+    the prefill and in decode, prefill ms, decode ms).
     """
     from repro_torch.dist import stepfns
     from repro_torch.models import lm
@@ -614,15 +721,17 @@ def _serve_run(cfg, params, prompts, kernel, feed=None):
     cache = lm.init_cache(cfg, batch, prompt + SERVE_NEW + 8)
     with torch.inference_mode():
         torch.cuda.synchronize()
-        kernel.launches = 0
+        for kernel in kernels.values():
+            kernel.launches = 0
         t0 = time.perf_counter()
         logits, cache = prefill_step(params, prompts, cache)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
-        n_prefill = kernel.launches
+        n_prefill = {name: k.launches for name, k in kernels.items()}
         steps = [logits[:, -1].float()]
         toks = [logits[:, -1:].argmax(-1)]
-        kernel.launches = 0
+        for kernel in kernels.values():
+            kernel.launches = 0
         t1 = time.perf_counter()
         for i in range(SERVE_NEW - 1 if feed is None else len(feed)):
             tok = toks[-1] if feed is None else feed[i]
@@ -631,7 +740,8 @@ def _serve_run(cfg, params, prompts, kernel, feed=None):
             toks.append(logits[:, -1:].argmax(-1))
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t1) * 1e3
-    return steps, toks, n_prefill, kernel.launches, prefill_ms, decode_ms
+    n_decode = {name: k.launches for name, k in kernels.items()}
+    return steps, toks, n_prefill, n_decode, prefill_ms, decode_ms
 
 
 def _hold_logits(steps, want, exact, tol: float, ratio: float) -> dict:
@@ -664,22 +774,23 @@ def _hold_logits(steps, want, exact, tol: float, ratio: float) -> dict:
             "err_plain_f32": f"{err_plain_f32:.4g}"}
 
 
-def _serve_entry(arch: str, kernel, want: int):
+def _serve_entry(arch: str, kernels: dict, want: dict):
     """``serve()`` at full width, the entry point a user runs, with the
-    kernel's count set to 0 just before and read just after. Returns
-    (tokens, launches, peak GB)."""
+    kernels' counts set to 0 just before and read just after; each must
+    equal ``want``. Returns (tokens, launches, peak GB)."""
     from repro_torch.launch.serve import serve
 
     torch.cuda.reset_peak_memory_stats()
-    kernel.launches = 0
+    for kernel in kernels.values():
+        kernel.launches = 0
     out = serve(arch=arch, smoke=False, batch=SERVE_BATCH,
                 prompt_len=SERVE_PROMPT, max_new_tokens=SERVE_NEW,
                 device="cuda")
     torch.cuda.synchronize()
-    launches = kernel.launches
+    launches = {name: k.launches for name, k in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if launches != want:
-        raise SystemExit(f"{arch}: the kernel ran {launches} times in "
+        raise SystemExit(f"{arch}: the kernels ran {launches} times in "
                          f"serve(), not {want}")
     if out.shape != (SERVE_BATCH, SERVE_NEW):
         raise SystemExit(f"serve() returned {out.shape}")
@@ -697,12 +808,13 @@ def _same_weights(cfg):
     return params, prompts
 
 
-def _serve_line(phase, t0, cfg, kernel_name, n_pre, n_dec, prefill_ms,
-                decode_ms, peak_gb, held, generated, out):
+def _serve_line(phase, t0, cfg, n_pre, n_dec, prefill_ms, decode_ms,
+                peak_gb, held, generated, out):
     n_dec_steps = SERVE_NEW - 1
     _line(phase, time.time() - t0, arch=cfg.name, layers=cfg.n_layers,
           batch=SERVE_BATCH, prompt=SERVE_PROMPT, new=SERVE_NEW,
-          **{f"{kernel_name}_prefill": n_pre, f"{kernel_name}_decode": n_dec},
+          **{f"{name}_prefill": n for name, n in n_pre.items()},
+          **{f"{name}_decode": n for name, n in n_dec.items()},
           prefill_ms=f"{prefill_ms:.3f}", decode_ms=f"{decode_ms:.3f}",
           decode_ms_step=f"{decode_ms / n_dec_steps:.3f}",
           decode_tok_s=f"{SERVE_BATCH * n_dec_steps / decode_ms * 1e3:.1f}",
@@ -717,28 +829,29 @@ def phase_serve():
     from repro_torch.kernels.attention import kernel as k4
 
     t0 = time.time()
-    out, launches, peak_gb = _serve_entry("olmo-1b", k4, 16)
+    kernels = {"k4": k4}
+    out, launches, peak_gb = _serve_entry("olmo-1b", kernels, {"k4": 16})
 
     # the same weights and prompts through the step functions: K4 per
     # layer in the prefill and never in decode, then the plain attention
     cfg = get_config("olmo-1b")
     params, prompts = _same_weights(cfg)
-    _serve_run(cfg, params, prompts, k4)                 # warm-up
+    _serve_run(cfg, params, prompts, kernels)            # warm-up
     steps, toks, n_pre, n_dec, prefill_ms, decode_ms = _serve_run(
-        cfg, params, prompts, k4)
-    if (n_pre, n_dec) != (16, 0):
+        cfg, params, prompts, kernels)
+    if (n_pre, n_dec) != ({"k4": 16}, {"k4": 0}):
         raise SystemExit(f"K4 launches: prefill {n_pre}, decode {n_dec}; "
                          f"want 16 and 0")
     generated = torch.cat(toks, dim=1).cpu().numpy()
     feed = toks[:SERVE_FORCED]
     plain = cfg.replace(attn_impl="reference")
-    want = _serve_run(plain, params, prompts, k4, feed)[0]
-    exact = _serve_run(plain.replace(dtype="float32"), params, prompts, k4,
-                       feed)[0]
+    want = _serve_run(plain, params, prompts, kernels, feed)[0]
+    exact = _serve_run(plain.replace(dtype="float32"), params, prompts,
+                       kernels, feed)[0]
     held = _hold_logits(steps, want, exact, LOGIT_TOL, F32_RATIO)
-    _serve_line("serve", t0, cfg, "k4", n_pre, n_dec, prefill_ms, decode_ms,
+    _serve_line("serve", t0, cfg, n_pre, n_dec, prefill_ms, decode_ms,
                 peak_gb, held, generated, out)
-    return launches
+    return launches["k4"]
 
 
 def _ssd_inputs(B, S, H, P, N, dtype, seed=0, h0=False):
@@ -784,11 +897,6 @@ def phase_k5():
 
     t0 = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
-
-    def rel_err(got, want):
-        return float((got - want).abs().max()) / (float(want.abs().max())
-                                                  + 1e-30)
-
     grid_err = {"float32": 0.0, "bfloat16": 0.0}
     largest_sum = 0.0
     n_checks = 0
@@ -801,7 +909,7 @@ def phase_k5():
                 y, h = kernel.ssd_scan_cuda(*args, chunk, h0)
                 y_w, h_w = ref.ssd_chunked_ref(*args, chunk, h0)
                 torch.cuda.synchronize()
-                err = max(rel_err(y, y_w), rel_err(h, h_w))
+                err = max(_rel_err(y, y_w), _rel_err(h, h_w))
                 if not (err <= K5_TOL and bool(torch.isfinite(y).all())):
                     raise SystemExit(
                         f"K5 differs from its plain version by {err} "
@@ -820,7 +928,7 @@ def phase_k5():
     y, h = kernel.ssd_scan_cuda(*args, chunk, h0)
     y_w, h_w = ref.ssd_chunked_ref(*args, chunk, h0)
     torch.cuda.synchronize()
-    err_y, err_h = rel_err(y, y_w), rel_err(h, h_w)
+    err_y, err_h = _rel_err(y, y_w), _rel_err(h, h_w)
     abs_err = float((y - y_w).abs().max())
     if max(err_y, err_h) > K5_TOL:
         raise SystemExit(f"K5 differs from its plain version by "
@@ -864,23 +972,25 @@ def phase_serve_mamba2():
 
     t0 = time.time()
     cfg = get_config("mamba2-780m")
-    out, launches, peak_gb = _serve_entry(cfg.name, k5, cfg.n_layers)
+    kernels = {"k5": k5}
+    out, launches, peak_gb = _serve_entry(cfg.name, kernels,
+                                          {"k5": cfg.n_layers})
 
     params, prompts = _same_weights(cfg)
-    _serve_run(cfg, params, prompts, k5)                 # warm-up
+    _serve_run(cfg, params, prompts, kernels)            # warm-up
     steps, toks, n_pre, n_dec, prefill_ms, decode_ms = _serve_run(
-        cfg, params, prompts, k5)
-    if (n_pre, n_dec) != (cfg.n_layers, 0):
+        cfg, params, prompts, kernels)
+    if (n_pre, n_dec) != ({"k5": cfg.n_layers}, {"k5": 0}):
         raise SystemExit(f"K5 launches: prefill {n_pre}, decode {n_dec}; "
                          f"want {cfg.n_layers} and 0")
     generated = torch.cat(toks, dim=1).cpu().numpy()
     feed = toks[:SERVE_FORCED]
     f32 = cfg.replace(dtype="float32")
-    exact_kernel = _serve_run(f32, params, prompts, k5, feed)[0]
+    exact_kernel = _serve_run(f32, params, prompts, kernels, feed)[0]
     # the plain scan in place of the dispatch, for this comparison only
     with mock.patch.object(ssd_ops, "ssd_scan", ssd_ref.ssd_chunked_ref):
-        want = _serve_run(cfg, params, prompts, k5, feed)[0]
-        exact = _serve_run(f32, params, prompts, k5, feed)[0]
+        want = _serve_run(cfg, params, prompts, kernels, feed)[0]
+        exact = _serve_run(f32, params, prompts, kernels, feed)[0]
     held = _hold_logits(steps, want, exact, MAMBA_LOGIT_TOL, MAMBA_F32_RATIO)
     err_f32 = max(float((a - b).abs().max())
                   for a, b in zip(exact_kernel, exact))
@@ -890,7 +1000,121 @@ def phase_serve_mamba2():
         raise SystemExit(f"float32 compute: the kernel path is {err_f32} "
                          f"from the plain scan (> {MAMBA_F32_TOL})")
     held["err_f32_kernel_plain"] = f"{err_f32:.4g}"
-    _serve_line("serve_mamba2", t0, cfg, "k5", n_pre, n_dec, prefill_ms,
+    _serve_line("serve_mamba2", t0, cfg, n_pre, n_dec, prefill_ms,
+                decode_ms, peak_gb, held, generated, out)
+    return launches["k5"]
+
+
+def _k6_args(B, S, R, lo, hi, dtype, h0, seed=0):
+    """a uniform in [lo, hi] and b ~ 0.1 N(0, 1) in ``dtype``; h0 ~ N(0, 1)
+    float32 or None."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = lo + (hi - lo) * torch.rand((B, S, R), generator=g, device="cuda")
+    b = torch.randn((B, S, R), generator=g, device="cuda") * 0.1
+    h = torch.randn((B, R), generator=g, device="cuda") if h0 else None
+    return a.to(dtype), b.to(dtype), h
+
+
+def phase_k6():
+    from repro_torch.kernels.rglru import kernel, ref
+
+    t0 = time.time()
+    grid_err = {"float32": 0.0, "bfloat16": 0.0}
+    n_checks = 0
+    for B, S, R, lo, hi in K6_GRID:
+        for name, dtype in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            for with_h0 in (False, True):
+                a, b, h = _k6_args(B, S, R, lo, hi, dtype, with_h0, n_checks)
+                got = kernel.rglru_scan_cuda(a, b, h)
+                want = ref.rglru_scan_ref(a, b, h)
+                torch.cuda.synchronize()
+                err = _rel_err(got, want)
+                if not (err <= K6_TOL and bool(torch.isfinite(got).all())):
+                    raise SystemExit(
+                        f"K6 differs from its plain version by {err} "
+                        f"(relative) at {(B, S, R, lo, hi)} {name} "
+                        f"h0={with_h0}")
+                grid_err[name] = max(grid_err[name], err)
+                n_checks += 1
+
+    B, S, R = RG_SCAN
+    a, b, _ = _k6_args(B, S, R, 0.0, 1.0, torch.float32, False, seed=99)
+    h0 = torch.zeros((B, R), device="cuda")          # as the prefill passes
+    got = kernel.rglru_scan_cuda(a, b, h0)
+    want = ref.rglru_scan_ref(a, b, h0)
+    torch.cuda.synchronize()
+    err = _rel_err(got, want)
+    abs_err = float((got - want).abs().max())
+    if err > K6_TOL:
+        raise SystemExit(f"K6 differs from its plain version by {err} "
+                         f"(relative) at recurrentgemma-2b's prefill shape")
+    del got, want
+    ms = _time_ms(lambda: kernel.rglru_scan_cuda(a, b, h0))
+    plain_ms = _time_ms(lambda: ref.rglru_scan_ref(a, b, h0), reps=5)
+    n_bytes = (a.numel() + b.numel() + h0.numel() + a.numel()) * 4
+    n_ops = 2 * a.numel()                            # one FMA an element
+    bound = max(n_bytes / HBM_BYTES_S, n_ops / OPS32_S) * 1e3
+    _line("k6", time.time() - t0, checks=n_checks + 1,
+          err_f32=f"{grid_err['float32']:.3g}",
+          err_bf16=f"{grid_err['bfloat16']:.3g}", err_rg=f"{err:.3g}",
+          abs_err_rg=f"{abs_err:.3g}", ms=f"{ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.5f}",
+          gb_s=f"{n_bytes / ms / 1e6:.1f}")
+    return {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru/kernel.py:69",
+        "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": ("bytes" if n_bytes / HBM_BYTES_S >= n_ops / OPS32_S
+                     else "operations"),
+        "library_ms": None,
+    }
+
+
+def phase_serve_recurrentgemma():
+    from repro_torch.configs import RGLRU, get_config
+    from repro_torch.kernels.attention import kernel as k4
+    from repro_torch.kernels.rglru import kernel as k6
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    from repro_torch.kernels.rglru import ref as rglru_ref
+
+    t0 = time.time()
+    cfg = get_config("recurrentgemma-2b")
+    n_rec = sum(s.kind == RGLRU for s in
+                cfg.pattern * cfg.n_units + cfg.remainder_pattern)
+    kernels = {"k6": k6, "k4": k4}
+    want_pre = {"k6": n_rec, "k4": cfg.n_layers - n_rec}
+    out, launches, peak_gb = _serve_entry(cfg.name, kernels, want_pre)
+
+    params, prompts = _same_weights(cfg)
+    _serve_run(cfg, params, prompts, kernels)            # warm-up
+    steps, toks, n_pre, n_dec, prefill_ms, decode_ms = _serve_run(
+        cfg, params, prompts, kernels)
+    if (n_pre, n_dec) != (want_pre, {"k6": 0, "k4": 0}):
+        raise SystemExit(f"K6/K4 launches: prefill {n_pre}, decode {n_dec}; "
+                         f"want {want_pre} and none")
+    generated = torch.cat(toks, dim=1).cpu().numpy()
+    feed = toks[:SERVE_FORCED]
+    f32 = cfg.replace(dtype="float32")
+    exact_kernel = _serve_run(f32, params, prompts, kernels, feed)[0]
+    # the plain scan and the plain attention, for this comparison only
+    plain = cfg.replace(attn_impl="reference")
+    with mock.patch.object(rglru_ops, "rglru_scan", rglru_ref.rglru_scan_ref):
+        want = _serve_run(plain, params, prompts, kernels, feed)[0]
+        exact = _serve_run(plain.replace(dtype="float32"), params, prompts,
+                           kernels, feed)[0]
+    held = _hold_logits(steps, want, exact, RG_LOGIT_TOL, RG_F32_RATIO)
+    err_f32 = max(float((a - b).abs().max())
+                  for a, b in zip(exact_kernel, exact))
+    print(f"  float32 compute: kernel path vs plain path {err_f32:.4g}",
+          flush=True)
+    if not err_f32 <= RG_F32_TOL:
+        raise SystemExit(f"float32 compute: the kernel path is {err_f32} "
+                         f"from the plain path (> {RG_F32_TOL})")
+    held["err_f32_kernel_plain"] = f"{err_f32:.4g}"
+    _serve_line("serve_recurrentgemma", t0, cfg, n_pre, n_dec, prefill_ms,
                 decode_ms, peak_gb, held, generated, out)
     return launches
 
@@ -899,14 +1123,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t0 = time.time()
     phase_build()
-    kernels = [phase_k1(), phase_k2(), phase_k4(), phase_k5()]
+    kernels = [phase_k1(), phase_k2(), phase_k4(), phase_k5(), phase_k6()]
     launches = phase_main()
     phase_full_width()
-    launches["flash_attention"] = phase_serve()
+    k4_olmo = phase_serve()
     launches["ssd_scan"] = phase_serve_mamba2()
+    rg = phase_serve_recurrentgemma()
+    # K4 runs on two serving paths: olmo-1b's and recurrentgemma-2b's
+    launches["flash_attention"] = k4_olmo + rg["k4"]
+    launches["rglru_scan"] = rg["k6"]
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
+        if entry["name"] == "flash_attention":
+            entry["launches_by_path"] = {"olmo-1b": k4_olmo,
+                                         "recurrentgemma-2b": rg["k4"]}
+    _line("total", time.time() - t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,19 +1,24 @@
 """Where serving on the PyTorch port spends its time on a CUDA card.
 
     python3 scripts/profile_port_serve.py [--out chiprun_out/profile_serve.json]
-        [--arch olmo-1b|mamba2-780m]
+        [--arch olmo-1b|mamba2-780m|recurrentgemma-2b]
 
 A full-width model (olmo-1b by default: 16 layers; mamba2-780m: 48 SSD
-layers; float32 parameters, bfloat16 compute, random weights from seed
-0), batch 4, 2048-token prompts (seed 1): one prefill and 8 greedy
-decode steps to warm up, then the same unprofiled (host clock around
-work that ends in a synchronise) and under ``torch.profiler``. For the
-prefill and the decode steps apart it reports the wall time, the
-device's busy share (summed kernel time over the unprofiled wall), the
-device time of the flash-attention kernel K4, of the SSD-scan kernel
-K5, of the matrix products (cuBLAS kernel names: gemm, gemv, xmma,
-cutlass, nvjet), of the rest, and the kernels that take the most device
-time. The JSON summary is printed and written to ``--out``.
+layers; recurrentgemma-2b: 18 RG-LRU and 8 local-attention layers;
+float32 parameters, bfloat16 compute, random weights from seed 0),
+batch 4, 2048-token prompts (seed 1): one prefill and 8 greedy decode
+steps to warm up, then the same unprofiled (host clock around work that
+ends in a synchronise) and under ``torch.profiler``. For the prefill and
+the decode steps apart it reports the wall time, the device's busy
+share (summed kernel time over the unprofiled wall), the device time of
+the flash-attention kernel K4, the SSD-scan kernel K5, the RG-LRU scan
+K6, the matrix products (cuBLAS kernel names: gemm, gemv, xmma, cutlass,
+nvjet), split into float32 ones (sgemm, f32f32, simt) and the rest, of
+copies and casts (``copy`` in the name), of the rest, and the kernels
+that take the most device time. Where the model has RG-LRU layers it
+also times one float32 gate product ((B·S, R) @ (R, R), CUDA events)
+and scales it to the prefill's 2 a layer. The JSON summary is printed
+and written to ``--out``.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 BATCH, PROMPT, DECODE_STEPS = 4, 2048, 8
 GEMM_MARKS = ("gemm", "gemv", "xmma", "cutlass", "nvjet")
+F32_GEMM_MARKS = ("sgemm", "f32f32", "simt")
 
 
 def _prefill(cfg, params, prompts):
@@ -68,20 +74,54 @@ def _breakdown(events, wall_s: float) -> dict:
                       for e in events if e.device_type == DeviceType.CUDA),
                      reverse=True)
     busy = sum(t for t, _, _ in kernels)
-    k4 = sum(t for t, name, _ in kernels if "flash_fwd_kernel" in name)
-    k5 = sum(t for t, name, _ in kernels if "ssd_scan_kernel" in name)
-    gemm = sum(t for t, name, _ in kernels
-               if any(m in name.lower() for m in GEMM_MARKS))
+    def total(pick):
+        return sum(t for t, name, _ in kernels if pick(name.lower()))
+
+    k4 = total(lambda n: "flash_fwd_kernel" in n)
+    k5 = total(lambda n: "ssd_scan_kernel" in n)
+    k6 = total(lambda n: "rglru_scan_kernel" in n)
+    gemm = total(lambda n: any(m in n for m in GEMM_MARKS))
+    gemm_f32 = total(lambda n: any(m in n for m in GEMM_MARKS)
+                     and any(m in n for m in F32_GEMM_MARKS))
+    copy = total(lambda n: "copy" in n and not any(m in n for m in
+                                                   GEMM_MARKS))
     return {
         "wall_ms": wall_s * 1e3,
         "device_busy_ms": busy / 1e3,
         "device_busy_share": busy * 1e-6 / wall_s,
         "k4_ms": k4 / 1e3,
         "k5_ms": k5 / 1e3,
+        "k6_ms": k6 / 1e3,
         "gemm_ms": gemm / 1e3,
-        "other_ms": (busy - k4 - k5 - gemm) / 1e3,
-        "top_device_us": [[name[:120], t, n] for t, name, n in kernels[:10]],
+        "gemm_f32_ms": gemm_f32 / 1e3,
+        "copy_ms": copy / 1e3,
+        "other_ms": (busy - k4 - k5 - k6 - gemm - copy) / 1e3,
+        "top_device_us": [[name[:120], t, n] for t, name, n in kernels[:15]],
     }
+
+
+def _gate_products_ms(cfg) -> float | None:
+    """CUDA-event time of one float32 gate product at the prefill's
+    shape, times the prefill's count (2 a RG-LRU layer); None without
+    RG-LRU layers."""
+    from repro_torch.configs import RGLRU
+
+    layers = list(cfg.pattern) * cfg.n_units + list(cfg.remainder_pattern)
+    n_rec = sum(s.kind == RGLRU for s in layers)
+    if not n_rec:
+        return None
+    R = cfg.recurrent.rnn_width
+    u = torch.randn((BATCH * PROMPT, R), device="cuda")
+    w = torch.randn((R, R), device="cuda")
+    u @ w
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(10):
+        u @ w
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 10 * 2 * n_rec
 
 
 def main() -> int:
@@ -89,7 +129,8 @@ def main() -> int:
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "profile_serve.json"))
     ap.add_argument("--arch", default="olmo-1b",
-                    help="olmo-1b (K4 in the prefill) or mamba2-780m (K5)")
+                    help="olmo-1b (K4 in the prefill), mamba2-780m (K5) or "
+                    "recurrentgemma-2b (K6 and K4)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port_serve: no CUDA device", file=sys.stderr)
@@ -125,6 +166,7 @@ def main() -> int:
                                  ProfilerActivity.CUDA]) as prof:
             _decode(cfg, params, logits, cache)
         summary["decode"] = _breakdown(prof.key_averages(), wall)
+        summary["prefill"]["gate_gemm_f32_ms_timed"] = _gate_products_ms(cfg)
     summary["decode_ms_per_step"] = (summary["decode"]["wall_ms"]
                                      / DECODE_STEPS)
     summary["decode_tok_s"] = BATCH * DECODE_STEPS / (

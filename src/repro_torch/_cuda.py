@@ -23,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("traffic.cu", "waterfill.cu", "flash_attn.cu", "ssd_scan.cu")
+SOURCES = ("traffic.cu", "waterfill.cu", "flash_attn.cu", "ssd_scan.cu",
+           "rglru_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -106,6 +107,8 @@ def library() -> ctypes.CDLL:
         lib.repro_ssd_scan_fwd.argtypes = [
             p, p, p, p, p, p, p, p, i, i, i, i, i, i, q, q, q, q, q, q, i, p]
         lib.repro_ssd_scan_fwd.restype = i
+        lib.repro_rglru_scan_fwd.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.repro_rglru_scan_fwd.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -3,7 +3,7 @@
 ``get_config(name)`` returns the full-size config; ``get_config(name,
 smoke=True)`` the reduced same-family config for CPU tests. Only the
 architectures whose blocks the port runs are registered (olmo-1b,
-mamba2-780m).
+mamba2-780m, recurrentgemma-2b).
 """
 from __future__ import annotations
 
@@ -33,7 +33,11 @@ def register(fn):
 
 def _load_all():
     # import side-effect registers each arch
-    from repro_torch.configs import mamba2_780m, olmo_1b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        mamba2_780m,
+        olmo_1b,
+        recurrentgemma_2b,
+    )
 
 
 def list_architectures():

@@ -21,6 +21,9 @@
 //     registers; row max and row sum are shuffle reductions over the 16 lanes of a row;
 //   * masked entries get p = 0 from the mask itself (not through exp(-1e30 - -1e30)),
 //     so a row whose first tiles are all masked carries m = -inf, alpha = 1, l = 0.
+//   * shared memory is 4 * (64 (D + 1) + 32 (D + 1) + 32 D + 64 * 33) bytes, opted in
+//     above 48 KB: at D = 256 (recurrentgemma-2b's heads) 139,904 B, one block an SM,
+//     and each thread holds 4 x 16 output accumulators.
 // Products run on CUDA cores in fp32 (no tensor cores: wgmma / mma.sync and TMA are
 // later work). What bounds it on this card: at the olmo-1b prefill shape
 // (4, 2048, 16 heads, d 128, bf16) the work is ~69 GFLOP against ~134 MB of q/k/v/o,
@@ -210,6 +213,7 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o, int B,
     case 32: return launch<32, T>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, stream);
     case 64: return launch<64, T>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, stream);
     case 128: return launch<128, T>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, stream);
+    case 256: return launch<256, T>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -217,7 +221,7 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q, o: (B, S, H, D); k, v: (B, T, KH, D); contiguous, all float32 (bf16 = 0) or all
-// bfloat16 (bf16 = 1); H % KH == 0; D in {16, 32, 64, 128}; window <= 0 means none.
+// bfloat16 (bf16 = 1); H % KH == 0; D in {16, 32, 64, 128, 256}; window <= 0 means none.
 extern "C" int repro_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                                     int B, int S, int n_keys, int H, int KH, int D,
                                     int causal, int window, float scale, int bf16,

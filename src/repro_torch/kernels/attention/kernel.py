@@ -19,7 +19,7 @@ import torch
 
 from repro_torch import _cuda
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 launches = 0                      # kernel launches since the last reset
 

@@ -1,0 +1,50 @@
+"""Hopper kernel K6: the RG-LRU linear scan.
+
+Binds ``csrc/rglru_scan.cu`` (the port of the TPU kernel
+``repro/kernels/rglru/kernel.py::rglru_scan_fwd``): one thread per
+(batch, channel) carries ``h`` in a register over the time axis, its
+loads issued eight steps ahead of the serial FMAs; neighbouring threads
+read neighbouring channels. It reads a and b ``(B, S, R)`` in float32 or
+bfloat16 in place, masks ragged S and R itself and writes float32.
+``ref.rglru_scan_ref`` is its plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import _cuda
+
+DTYPES = (torch.float32, torch.bfloat16)
+launches = 0                      # kernel launches since the last reset
+
+
+def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
+                    h0: torch.Tensor | None = None) -> torch.Tensor:
+    """``h (B, S, R)`` float32, as ``ref.rglru_scan_ref``.
+
+    ``a``, ``b`` ``(B, S, R)``: contiguous CUDA tensors of one dtype
+    (float32 or bfloat16) on one device; ``h0`` ``(B, R)`` contiguous
+    float32, or None (zeros).
+    """
+    global launches
+    if a.dtype not in DTYPES:
+        raise ValueError(f"a must be float32 or bfloat16; got {a.dtype}")
+    _cuda.require(a, "a", a.dtype, (None,) * 3)
+    B, S, R = a.shape
+    _cuda.require(b, "b", a.dtype, (B, S, R))
+    if h0 is not None:
+        _cuda.require(h0, "h0", torch.float32, (B, R))
+    if b.device != a.device or (h0 is not None and h0.device != a.device):
+        raise ValueError("a, b and h0 must lie on one device")
+    out = torch.empty((B, S, R), dtype=torch.float32, device=a.device)
+    if out.numel():
+        lib = _cuda.library()
+        with torch.cuda.device(a.device):
+            rc = lib.repro_rglru_scan_fwd(
+                a.data_ptr(), b.data_ptr(),
+                None if h0 is None else h0.data_ptr(), out.data_ptr(),
+                B, S, R, int(a.dtype == torch.bfloat16),
+                _cuda.stream_handle(a))
+        _cuda.check(rc, "rglru scan")
+        launches += 1
+    return out

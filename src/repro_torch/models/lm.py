@@ -13,17 +13,18 @@ Entry points:
   ``prefill``        — forward over the prompt, filling the KV caches
   ``decode_step``    — one token against the caches
 
-Attention blocks with a dense MLP and Mamba-2 SSD blocks (no FFN) are
-ported; RG-LRU and MoE blocks raise ``NotImplementedError`` (ROADMAP
-Queue 1 item 10).
+Attention and RG-LRU blocks with a dense MLP and Mamba-2 SSD blocks (no
+FFN) are ported; MoE blocks raise ``NotImplementedError`` (ROADMAP Queue
+1 item 10).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch._device import DEFAULT_DEVICE, resolve_device
-from repro_torch.configs.base import ATTN, SSD, LayerSpec, ModelConfig
+from repro_torch.configs.base import ATTN, RGLRU, SSD, LayerSpec, ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.layers import (
     apply_norm,
@@ -37,7 +38,7 @@ from repro_torch.models.layers import (
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    kinds = {s.kind for s in cfg.pattern} - {ATTN, SSD}
+    kinds = {s.kind for s in cfg.pattern} - {ATTN, RGLRU, SSD}
     if kinds:
         raise NotImplementedError(
             f"{cfg.name}: block kinds {sorted(kinds)} are not ported yet "
@@ -69,7 +70,7 @@ def _tree_stack(trees):
 
 
 # ---------------------------------------------------------------------------
-# block = mixer (attention or SSD) + MLP, with pre-norms
+# block = mixer (attention, RG-LRU or SSD) + MLP, with pre-norms
 # ---------------------------------------------------------------------------
 
 
@@ -77,6 +78,9 @@ def _block_init(generator, cfg: ModelConfig, spec: LayerSpec, device):
     p = {"mix_norm": norm_init(cfg, device=device)}
     if spec.kind == SSD:
         p["mixer"] = ssd_mod.ssd_block_init(generator, cfg, device=device)
+    elif spec.kind == RGLRU:
+        p["mixer"] = rglru_mod.rglru_block_init(generator, cfg,
+                                                device=device)
     else:
         p["mixer"] = attn_mod.attn_init(generator, cfg, device=device)
     if spec.kind != SSD and cfg.d_ff > 0:  # mamba2 blocks carry no FFN
@@ -91,6 +95,9 @@ def _block_apply(params, x, cfg, spec, positions, mode, cache, pos):
     if spec.kind == SSD:
         full, fill, step = (ssd_mod.ssd_full, ssd_mod.ssd_prefill,
                             ssd_mod.ssd_decode)
+    elif spec.kind == RGLRU:
+        full, fill, step = (rglru_mod.rglru_full, rglru_mod.rglru_prefill,
+                            rglru_mod.rglru_decode)
     else:
         full, fill, step = (attn_mod.attn_full, attn_mod.attn_prefill,
                             attn_mod.attn_decode)
@@ -223,6 +230,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     def block(spec):
         if spec.kind == SSD:
             return ssd_mod.init_ssd_cache(cfg, batch, device=dev)
+        if spec.kind == RGLRU:
+            return rglru_mod.init_rglru_cache(cfg, batch, device=dev)
         return attn_mod.init_layer_cache(cfg, spec, batch, max_len,
                                          device=dev)
 

@@ -5,7 +5,8 @@ port's ``attention_ref`` (the plain version of the Hopper kernel K4) is
 held to the JAX ``attention_ref`` and to the Pallas kernel
 ``flash_attention_fwd`` run in interpret mode, over the grid of
 ``tests/test_kernels.py`` plus a few port-only shapes (unequal S and T,
-small head dims). Tolerances: float32 2e-5 (the same function summed in
+small head dims) and recurrentgemma-2b's heads (head dim 256, MQA, a
+window shorter than the sequence). Tolerances: float32 2e-5 (the same function summed in
 another order); bfloat16 2e-2 (inputs rounded to bf16 identically on
 both sides, outputs rounded to bf16, as ``tests/test_kernels.py``).
 """
@@ -33,6 +34,11 @@ PORT_ONLY = [
     (1, 50, 70, 4, 2, 32, True, None),       # more keys than queries
     (1, 70, 50, 2, 1, 16, False, 24),        # fewer keys, window only
 ]
+D256 = [
+    (1, 40, 40, 4, 1, 256, True, 16),        # MQA at D 256, window
+    (2, 24, 24, 10, 1, 256, True, 8),        # recurrentgemma's 10 heads
+    (1, 33, 33, 2, 1, 256, True, None),      # ragged, causal only
+]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 
@@ -56,7 +62,8 @@ def _f32(x):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("B,S,T,H,K,D,causal,window", GRID + PORT_ONLY)
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window",
+                         GRID + PORT_ONLY + D256)
 def test_ref_matches_jax_ref(B, S, T, H, K, D, causal, window, dtype):
     jdt, tdt, tol = DTYPES[dtype]
     (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, S, T, H, K, D), jdt, tdt)
@@ -67,7 +74,7 @@ def test_ref_matches_jax_ref(B, S, T, H, K, D, causal, window, dtype):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("B,S,T,H,K,D,causal,window", GRID)
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window", GRID + D256[:2])
 def test_ref_matches_pallas_kernel(B, S, T, H, K, D, causal, window, dtype):
     jdt, tdt, tol = DTYPES[dtype]
     (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, S, T, H, K, D, seed=1),
@@ -104,5 +111,6 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_flash_source_is_built():
+    assert 256 in kernel.HEAD_DIMS
     assert "flash_attn.cu" in _cuda.SOURCES
     assert (_cuda.CSRC / "flash_attn.cu").exists()

@@ -14,7 +14,10 @@ another order; the plain version's products run in full float32, TF32
 off) and 2e-2 in bfloat16 (both outputs rounded to bf16). K5 (the SSD
 scan) computes in float32 from inputs of either type, like its plain
 version: y and the final state within 1e-4 of the plain version's
-largest value (the reference package's own kernel test measure).
+largest value (the reference package's own kernel test measure). K6 (the
+RG-LRU scan) computes in float32 from inputs of either type, like its
+plain version, and differs from it only by a fused multiply-add: within
+1e-5 of the plain version's largest value.
 """
 import numpy as np
 import pytest
@@ -29,6 +32,9 @@ from repro_torch.kernels.attention import ref as k4_ref
 from repro_torch.launch.serve import serve
 from repro_torch.models import lm
 from repro_torch.kernels.ponsim import kernel as k2
+from repro_torch.kernels.rglru import kernel as k6
+from repro_torch.kernels.rglru import ops as k6_ops
+from repro_torch.kernels.rglru import ref as k6_ref
 from repro_torch.kernels.ssd import kernel as k5
 from repro_torch.kernels.ssd import ops as k5_ops
 from repro_torch.kernels.ssd import ref as k5_ref
@@ -189,7 +195,7 @@ def test_sweep_on_card_equals_cpu(cuda, name):
 
 
 # (B, S, T, H, K, D, causal, window): the grid of tests/test_kernels.py,
-# port-only shapes, and olmo-1b's prefill
+# port-only shapes, and recurrentgemma-2b's heads (D 256, MQA, windows)
 K4_GRID = [
     (2, 256, 256, 4, 2, 64, True, None),
     (1, 128, 128, 8, 8, 32, True, None),
@@ -200,6 +206,10 @@ K4_GRID = [
     (2, 40, 40, 4, 2, 16, True, 8),
     (1, 50, 70, 4, 2, 32, True, None),
     (1, 70, 50, 2, 1, 16, False, 24),
+    (1, 300, 300, 10, 1, 256, True, 64),
+    (2, 128, 128, 4, 1, 256, True, None),
+    (1, 100, 100, 2, 2, 256, False, None),
+    (1, 200, 200, 10, 1, 256, True, 8),
 ]
 K4_DTYPES = {"float32": (torch.float32, 2e-5),
              "bfloat16": (torch.bfloat16, 2e-2)}
@@ -241,6 +251,18 @@ def test_flash_kernel_at_olmo_prefill(cuda_fp32):
                                rtol=2e-2)
 
 
+@pytest.mark.parametrize("S", [2048, 4096])
+def test_flash_kernel_at_recurrentgemma_prefill(cuda_fp32, S):
+    """MQA, heads of 256, window 2048: at 2048 tokens the window never
+    cuts, at 4096 it does."""
+    q, k, v = _qkv(4, S, S, 10, 1, 256, torch.bfloat16, cuda_fp32)
+    got = k4_ops.flash_attention(q, k, v, causal=True, window=2048)
+    want = k4_ref.attention_ref(q, k, v, True, 2048)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv(1, 8, 8, 2, 1, 16, torch.float32, cuda)
     with pytest.raises(ValueError, match="head dim"):
@@ -277,12 +299,14 @@ def _serve_steps(cfg, params, tokens, feed, dev):
     return steps
 
 
-@pytest.mark.parametrize("arch,kernel,prompt", [
-    ("olmo-1b", k4, 24), ("mamba2-780m", k5, 29)])
-def test_smoke_model_on_card_equals_cpu(cuda_fp32, arch, kernel, prompt):
-    """float32 smoke model: the card (K4, or K5 over chunks of 8, in the
-    prefill) against the CPU (the plain versions), teacher-forced with the
-    CPU's greedy tokens; 1e-4 for cuBLAS's float32 summation order."""
+@pytest.mark.parametrize("arch,kernels,prompt", [
+    ("olmo-1b", {k4: 2}, 24), ("mamba2-780m", {k5: 2}, 29),
+    ("recurrentgemma-2b", {k6: 4, k4: 2}, 21)])
+def test_smoke_model_on_card_equals_cpu(cuda_fp32, arch, kernels, prompt):
+    """float32 smoke model: the card (K4, K5 over chunks of 8, or K6 and
+    K4 with windows of 8, in the prefill) against the CPU (the plain
+    versions), teacher-forced with the CPU's greedy tokens; 1e-4 for
+    cuBLAS's float32 summation order."""
     cfg = get_config(arch, smoke=True).replace(attn_impl="chunked")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     tokens = torch.randint(0, cfg.vocab_size, (2, prompt),
@@ -292,25 +316,29 @@ def test_smoke_model_on_card_equals_cpu(cuda_fp32, arch, kernel, prompt):
     for _ in range(4):
         feed.append(want[-1][:, -1:].argmax(-1))
         want = _serve_steps(cfg, params, tokens, feed, "cpu")
-    before = kernel.launches
+    before = {kernel: kernel.launches for kernel in kernels}
     got = _serve_steps(cfg, params, tokens, feed, cuda_fp32)
-    assert kernel.launches == before + cfg.n_layers   # prefill, one a layer
+    for kernel, n in kernels.items():                 # prefill, one a layer
+        assert kernel.launches == before[kernel] + n
     for a, b in zip(want, got):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("arch,kernel,launches", [
-    ("olmo-1b", k4, 0), ("mamba2-780m", k5, 2)])
-def test_serve_on_card(cuda, arch, kernel, launches):
+@pytest.mark.parametrize("arch,kernels", [
+    ("olmo-1b", {k4: 0}), ("mamba2-780m", {k5: 2}),
+    ("recurrentgemma-2b", {k6: 4, k4: 0})])
+def test_serve_on_card(cuda, arch, kernels):
     """``serve()`` on the card at smoke size. ``smoke()`` selects the
     plain attention (as in the reference package), so K4 stays idle; the
-    SSD dispatch has no plain switch, so K5 runs in both smoke layers of
-    the prefill. The full-width runs are ``chip_smoke.py``'s."""
-    before = kernel.launches
+    SSD and RG-LRU dispatches have no plain switch, so K5 runs in both
+    smoke layers of the prefill and K6 in all four RG-LRU ones. The
+    full-width runs are ``chip_smoke.py``'s."""
+    before = {kernel: kernel.launches for kernel in kernels}
     out = serve(arch=arch, smoke=True, batch=2, prompt_len=16,
                 max_new_tokens=4)
     assert out.shape == (2, 4)
-    assert kernel.launches == before + launches
+    for kernel, n in kernels.items():
+        assert kernel.launches == before[kernel] + n
 
 
 # (B, S, H, P, N, chunk): the shapes of tests/test_kernels.py, ragged and
@@ -411,3 +439,57 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
         k5.ssd_scan_cuda(x, big, big, dt, a, 8)
     with pytest.raises(NotImplementedError, match="backward"):
         k5_ops.ssd_scan(x.requires_grad_(), bm, cm, dt, a, 8, h)
+
+
+# (B, S, R, a_lo, a_hi): ragged S and R, recurrentgemma's width, slow
+# decay (long memory) and fast, one step, one channel
+K6_GRID = [
+    (1, 333, 200, 0.0, 1.0),
+    (2, 300, 96, 0.2, 0.8),
+    (4, 2048, 2560, 0.99, 0.9999),
+    (4, 2048, 2560, 0.0, 0.05),
+    (3, 17, 33, 0.0, 1.0),
+    (1, 1, 5, 0.5, 0.5),
+    (2, 9, 1, 0.9, 1.0),
+]
+
+
+def _k6_args(B, S, R, lo, hi, dtype, dev, h0, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = lo + (hi - lo) * torch.rand((B, S, R), generator=g, device=dev)
+    b = torch.randn((B, S, R), generator=g, device=dev) * 0.1
+    h = torch.randn((B, R), generator=g, device=dev) if h0 else None
+    return a.to(dtype), b.to(dtype), h
+
+
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,R,lo,hi", K6_GRID)
+def test_rglru_kernel_matches_plain(cuda_fp32, B, S, R, lo, hi, dtype, h0):
+    a, b, h = _k6_args(B, S, R, lo, hi, dtype, cuda_fp32, h0)
+    before = k6.launches
+    got = k6.rglru_scan_cuda(a, b, h)
+    assert k6.launches == before + 1
+    want = k6_ref.rglru_scan_ref(a, b, h)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (B, S, R)
+    _assert_rel(got, want, 1e-5)
+
+
+def test_rglru_kernel_refuses_what_it_does_not_take(cuda):
+    a, b, h = _k6_args(2, 16, 8, 0.0, 1.0, torch.float32, cuda, True)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        k6.rglru_scan_cuda(a.half(), b.half(), h)
+    with pytest.raises(ValueError, match="b must be"):
+        k6.rglru_scan_cuda(a, b.bfloat16(), h)
+    with pytest.raises(ValueError, match="contiguous"):
+        k6.rglru_scan_cuda(a.transpose(0, 1).contiguous().transpose(0, 1),
+                           b, h)
+    with pytest.raises(ValueError, match="h0 must be"):
+        k6.rglru_scan_cuda(a, b, h.bfloat16())
+    with pytest.raises(ValueError, match="h0 must have shape"):
+        k6.rglru_scan_cuda(a, b, h[:1])
+    with pytest.raises(ValueError, match="CUDA"):
+        k6.rglru_scan_cuda(a, b.cpu(), h)
+    with pytest.raises(NotImplementedError, match="backward"):
+        k6_ops.rglru_scan(a, b.requires_grad_(), h)

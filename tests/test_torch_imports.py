@@ -40,7 +40,9 @@ def test_scan_covers_the_port():
                      "launch/serve.py", "configs/mamba2_780m.py",
                      "models/ssd.py", "models/rglru.py",
                      "kernels/ssd/ref.py", "kernels/ssd/kernel.py",
-                     "kernels/ssd/ops.py"):
+                     "kernels/ssd/ops.py", "configs/recurrentgemma_2b.py",
+                     "kernels/rglru/ref.py", "kernels/rglru/kernel.py",
+                     "kernels/rglru/ops.py"):
         assert expected in names
 
 

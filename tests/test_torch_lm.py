@@ -16,7 +16,13 @@ caches included, on ragged (12 tokens over chunks of 8) and whole (16)
 prompts: at chunk 8 the reference's in-chunk product is finite (caveat
 C5 shows only past ~88.7 of summed dt |a| in one chunk). On the CPU the
 port runs its plain chunked scan; K5 runs on a card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``). recurrentgemma-2b's
+smoke model (rec, rec, local attention with a window of 8, MQA, heads of
+16, RNN width 64) and its ``n_layers=8`` variant (two units and a
+remainder unit of two RG-LRU layers, as the full model has) are held
+the same way under ``reference`` and ``chunked`` attention, every cache
+of every layer included, on 12-token prompts and 8 decode steps, so the
+windowed layers' ring buffer of 8 slots wraps.
 """
 import dataclasses
 
@@ -92,8 +98,22 @@ def test_mamba2_config_equals_reference(smoke):
         assert tssd.ssd_dims(got) == jssd.ssd_dims(want) == (3072, 48, 3328)
 
 
+@pytest.mark.parametrize("smoke", [False, True])
+def test_recurrentgemma_config_equals_reference(smoke):
+    got, want = _assert_config_equals_reference("recurrentgemma-2b", smoke)
+    assert [s.kind for s in got.pattern] == [RGLRU, RGLRU, ATTN]
+    if smoke:
+        assert (got.n_layers, got.n_remainder, got.recurrent.rnn_width,
+                got.pattern[2].window) == (6, 0, 64, 8)
+    else:
+        assert (got.n_layers, got.n_units, got.n_remainder, got.d_head,
+                got.n_kv_heads, got.pattern[2].window) == (26, 8, 2, 256, 1,
+                                                           2048)
+
+
 def test_registry_and_shapes():
-    assert tcfgs.list_architectures() == ["mamba2_780m", "olmo_1b"]
+    assert tcfgs.list_architectures() == ["mamba2_780m", "olmo_1b",
+                                          "recurrentgemma_2b"]
     with pytest.raises(KeyError, match="port has"):
         tcfgs.get_config("llama3-8b")
     assert [dataclasses.asdict(s) for s in tcfgs.ALL_SHAPES] == [
@@ -226,6 +246,28 @@ def test_from_reference_params_carries_the_ssd_leaves():
     _assert_same_leaves(tree, got)
 
 
+@pytest.mark.parametrize("n_layers", [6, 8])
+def test_from_reference_params_carries_the_rglru_leaves(n_layers):
+    """Stacked under ``units`` and, with 8 layers, unstacked under
+    ``rem`` (a unit of two RG-LRU layers)."""
+    jcfg = jcfgs.get_config("recurrentgemma-2b", smoke=True).replace(
+        n_layers=n_layers)
+    tree = _np_tree(jlm.init_params(jax.random.PRNGKey(0), jcfg))
+    got = from_reference_params(tree, _torch_cfg(jcfg), device="cpu")
+    leaves = {"w_branch1", "w_branch2", "conv_w", "w_a", "b_a", "w_i", "b_i",
+              "lam", "w_out"}
+    assert set(got["units"]["b0"]) == {"mix_norm", "mixer", "ffn_norm",
+                                       "mlp"}
+    assert set(got["units"]["b0"]["mixer"]) == leaves
+    assert got["units"]["b1"]["mixer"]["w_a"].shape == (2, 64, 64)
+    assert ("rem" in got) == (n_layers == 8)
+    if n_layers == 8:
+        assert set(got["rem"]) == {"b0", "b1"}
+        assert set(got["rem"]["b1"]["mixer"]) == leaves
+        assert got["rem"]["b1"]["mixer"]["w_a"].shape == (64, 64)
+    _assert_same_leaves(tree, got)
+
+
 def _assert_same_leaves(tree, got):
     leaves_w = jax.tree_util.tree_leaves_with_path(tree)
     leaves_g = jax.tree_util.tree_leaves_with_path(
@@ -292,11 +334,18 @@ def _run_reference(jcfg, tokens, extra=None):
 
 
 def _assert_cache(got, want):
-    """Every tensor of the first block's cache: k/v, or the SSD h/conv."""
-    assert set(got["units"]["b0"]) == set(want["units"]["b0"])
-    for key, value in want["units"]["b0"].items():
-        np.testing.assert_allclose(got["units"]["b0"][key].numpy(), value,
-                                   **TOL)
+    """Every tensor of every block's cache (k/v, or the SSD or RG-LRU
+    h/conv), the stacked units' and the remainder unit's."""
+    assert set(got) == set(want)
+    for part in ("units", "rem"):
+        if part not in want:
+            continue
+        assert set(got[part]) == set(want[part])
+        for block, tensors in want[part].items():
+            assert set(got[part][block]) == set(tensors)
+            for key, value in tensors.items():
+                np.testing.assert_allclose(got[part][block][key].numpy(),
+                                           value, **TOL)
     assert got["pos"] == int(want["pos"])
 
 
@@ -341,6 +390,23 @@ def test_ssd_model_matches_reference(prompt):
         0, jcfg.vocab_size, (BATCH, prompt)).astype(np.int32)
     cache = _assert_model_matches_reference(jcfg, tokens)
     assert cache["units"]["b0"]["h"].shape == (2, BATCH, 8, 16, 16)
+
+
+RG_VARIANTS = {"smoke": 6, "remainder": 8}
+
+
+@pytest.mark.parametrize("impl", ["reference", "chunked"])
+@pytest.mark.parametrize("variant", list(RG_VARIANTS))
+def test_rglru_model_matches_reference(variant, impl):
+    jcfg = jcfgs.get_config("recurrentgemma-2b", smoke=True).replace(
+        n_layers=RG_VARIANTS[variant], attn_impl=impl)
+    tokens = np.random.default_rng(10).integers(
+        0, jcfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    cache = _assert_model_matches_reference(jcfg, tokens)
+    assert cache["units"]["b0"]["h"].shape == (2, BATCH, 64)
+    assert cache["units"]["b2"]["k"].shape == (2, BATCH, 8, 16)  # ring of 8
+    assert cache["pos"] == PROMPT + N_DECODE > 8                 # wrapped
+    assert ("rem" in cache) == (variant == "remainder")
 
 
 def test_ssd_prefill_writes_the_caches_in_place():
@@ -404,10 +470,13 @@ def test_feature_variant_matches_reference():
     np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), **TOL)
 
 
+MOE = MoEConfig(n_experts=4, top_k=2, d_ff_expert=64)
+
+
 @pytest.mark.parametrize("pattern,moe", [
-    ((LayerSpec(RGLRU),), None),
-    ((LayerSpec(SSD), LayerSpec(RGLRU)), None),
-    ((LayerSpec(ATTN),), MoEConfig(n_experts=4, top_k=2, d_ff_expert=64)),
+    ((LayerSpec(RGLRU),), MOE),
+    ((LayerSpec(SSD), LayerSpec(RGLRU)), MOE),
+    ((LayerSpec(ATTN),), MOE),
 ])
 def test_unported_blocks_raise(pattern, moe):
     cfg = tcfgs.get_config("olmo-1b", smoke=True).replace(pattern=pattern,

@@ -4,8 +4,10 @@ The step functions of ``repro_torch.dist.stepfns`` on parameters carried
 across from the reference must equal the reference's jitted
 ``repro.dist.stepfns`` steps (float32 smoke config, 2e-5: the same
 arithmetic summed in another order), over a prefill and teacher-forced
-decode steps, for olmo-1b (both attention paths) and mamba2-780m (SSD
-blocks, whose caches hold a state and no KV).
+decode steps, for olmo-1b (both attention paths), mamba2-780m (SSD
+blocks, whose caches hold a state and no KV) and recurrentgemma-2b
+(RG-LRU and windowed MQA blocks, both attention paths, with and without
+a remainder unit; a 10-token prompt and 6 steps wrap the ring of 8).
 ``repro_torch.launch.serve.serve`` runs end to end on the CPU when
 asked, and raises without a card otherwise.
 """
@@ -43,6 +45,16 @@ def test_ssd_step_functions_match_reference():
                                   get_config("mamba2-780m", smoke=True))
 
 
+@pytest.mark.parametrize("impl", ["reference", "chunked"])
+@pytest.mark.parametrize("n_layers", [6, 8])
+def test_rglru_step_functions_match_reference(n_layers, impl):
+    _assert_steps_match_reference(
+        jcfgs.get_config("recurrentgemma-2b", smoke=True).replace(
+            n_layers=n_layers, attn_impl=impl),
+        get_config("recurrentgemma-2b", smoke=True).replace(
+            n_layers=n_layers, attn_impl=impl))
+
+
 def _assert_steps_match_reference(jcfg, cfg):
     jparams = jlm.init_params(jax.random.PRNGKey(3), jcfg)
     params = from_reference_params(jax.tree.map(np.array, jparams), cfg,
@@ -68,9 +80,11 @@ def _assert_steps_match_reference(jcfg, cfg):
             np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                        **TOL)
             assert cache["pos"] == int(jcache["pos"])
-    for key, value in jcache["units"]["b0"].items():   # k/v, or h/conv
-        np.testing.assert_allclose(cache["units"]["b0"][key].numpy(),
-                                   np.asarray(value), **TOL)
+    for part in ("units", "rem"):              # k/v, or h/conv
+        for block, tensors in jcache.get(part, {}).items():
+            for key, value in tensors.items():
+                np.testing.assert_allclose(cache[part][block][key].numpy(),
+                                           np.asarray(value), **TOL)
 
 
 def test_serve_on_cpu_returns_tokens_and_echoes(capsys):
@@ -137,6 +151,30 @@ def test_mamba2_serve_and_cli_on_cpu(capsys):
     assert m and m.groups() == ("mamba2-780m", "1", "9", "3")
 
 
+def test_recurrentgemma_serve_and_cli_on_cpu(capsys):
+    """recurrentgemma-2b through ``serve()`` and the CLI: a 13-token
+    prompt over windowed layers of 8 slots, so decode writes a wrapped
+    ring; the seeded generators give the same tokens twice. ``--full``
+    asks for the full-width config, which the CLI reaches on the card."""
+    out = serve_mod.serve(arch="recurrentgemma-2b", batch=2, prompt_len=13,
+                          max_new_tokens=5, device="cpu")
+    assert out.shape == (2, 5) and ((out >= 0) & (out < 128)).all()
+    m = ECHO.search(capsys.readouterr().out)
+    assert m and m.groups() == ("recurrentgemma-2b", "2", "13", "5")
+    assert np.array_equal(out, serve_mod.serve(
+        arch="recurrentgemma-2b", batch=2, prompt_len=13, max_new_tokens=5,
+        device="cpu"))
+    capsys.readouterr()
+    serve_mod.main(["--arch", "recurrentgemma-2b", "--device", "cpu",
+                    "--batch", "1", "--prompt-len", "9",
+                    "--max-new-tokens", "3"])
+    m = ECHO.search(capsys.readouterr().out)
+    assert m and m.groups() == ("recurrentgemma-2b", "1", "9", "3")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve_mod.main(["--arch", "recurrentgemma-2b", "--full"])
+
+
 def test_log_jsonl_is_not_ported_yet(tmp_path):
     with pytest.raises(NotImplementedError, match="obs"):
         serve_mod.serve(device="cpu", log_jsonl=str(tmp_path / "ev.jsonl"))
@@ -149,3 +187,5 @@ def test_serve_defaults_to_cuda():
         serve_mod.serve()
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_mod.serve(arch="mamba2-780m")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_mod.serve(arch="recurrentgemma-2b")
