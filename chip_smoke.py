@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-The port has four paths, each driven through its user entry point with
+The port has five paths, each driven through its user entry point with
 the kernel counts set to 0 just before and read just after:
 
 * the Fig. 2b round engine (``repro_torch.net.simulate``), through K1
@@ -14,7 +14,11 @@ the kernel counts set to 0 just before and read just after:
   SSD scan) in every layer of the prefill;
 * recurrentgemma-2b serving (the same entry point), through K6 (the
   RG-LRU linear scan) in every recurrent layer and K4 at head dim 256 in
-  every attention layer of the prefill.
+  every attention layer of the prefill;
+* the Fig. 2a FL round (``repro_torch.fl.CPSServer.run_round``: LEAF
+  CNN clients' local SGD, int8 update compression with error feedback,
+  FedAvg), through K3 and K3' (int8 quantise, dequantise) on every leaf
+  of every arrived update.
 
 Phases, each printing its own line with its seconds; any failure exits
 nonzero:
@@ -27,6 +31,16 @@ nonzero:
    shapes and two pinned stream fingerprints;
 3. ``k2``: the waterfill grant against its plain version run on CPU
    copies of the same inputs, bit for bit;
+3b. ``k3``: int8 quantise (K3) and dequantise (K3') against their plain
+   versions on the card, bit for bit (q, scales, dequantised values):
+   ``K3_GRID`` in float32 and bfloat16, as drawn, half zero and on exact
+   .5 ties; every CNN leaf at block = n; the whole 6,603,710-element
+   update at block 4096; K3' against its library call (one ``torch.mul``
+   of q by the scales) too. Timed on the fc1 weight at block = n and on
+   the update at block 4096, each from HBM (``COLD_COPIES`` copies in
+   turn) and warm in L2, beside the plain versions, the library call for
+   K3' and the bound (no single PyTorch call computes amax-scaled
+   symmetric int8);
 4. ``k4``: flash attention against its plain version on the card over
    the test grid (float32 within 2e-5, bfloat16 within 2e-2; head dims
    16 to 256) and at olmo-1b's prefill shape (4, 2048, 16, 16, 128) bf16
@@ -57,6 +71,22 @@ nonzero:
    of 3;
 7. ``full_width``: one FCFS load-0.8 round at 2048 ONUs (line rate scaled
    10 Gb/s * n / 128) held against the JAX engine's sync time;
+7b. ``fl_fig2a``: ``benchmarks/fig2a_accuracy.py``'s settings (16
+   clients x 64 samples, lr 0.04, batch 16, 2 local epochs, data seed 0,
+   server seed 1, 10 rounds, fractions {0.25, 0.5, 1.0}, 512 test images)
+   through the port's ``CPSServer``, the CNN at width 1 from a torch
+   seed, once with int8 compression (error feedback on) and once
+   uncompressed. First one batch's loss and gradients on the card
+   against the port's CPU run (``CNN_CARD_TOL``, ``CNN_WGRAD_TOL``),
+   which the same batch with TF32 on must fail; every client step of
+   the runs, forward and backward, must run with TF32 off. K3 and K3' must each
+   run 8 times an arrived update in the int8 run and never in the other;
+   ``update_bits`` must be exactly the arrived count times 52,829,936
+   (int8) or 211,318,720 (none) bits; in the first round of each
+   fraction every K3/K3' call is held to its plain version on the same
+   input, bit for bit; the final accuracies are gated (``FL_ACC_MIN``,
+   ``FL_REF_GAP`` to the JAX package's own run, ``FL_INT8_GAP``).
+   Prints the accuracy curves, ms a round and the bits;
 8. ``serve``: olmo-1b at full width and depth (16 layers, float32
    parameters, bfloat16 compute, random weights from a seed), batch 4,
    2048-token prompts (OLMo-1B's context length), 32 greedy new tokens,
@@ -104,6 +134,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -260,6 +291,55 @@ RG_SCAN = (4, 2048, 2560)                     # B, S, R of the prefill
 RG_LOGIT_TOL = 0.3
 RG_F32_RATIO = 1.5
 RG_F32_TOL = 5e-4
+
+# K3/K3' grid (shape, block): tests/test_kernels.py's shapes x {64, 256,
+# 4096}, ragged tails, block >= n, blocks past one CTA's 4096-element tile;
+# each in float32 and bfloat16, as drawn, with half its elements zero
+# (all-zero blocks) and on exact .5 ties. Then every CNN leaf at block = n
+# and the whole update at block 4096. q, scales and the dequantised values
+# must equal the plain versions' bit for bit
+K3_GRID = ([(s, b) for s in [(100,), (1000, 37), (5, 5, 5)]
+            for b in (64, 256, 4096)]
+           + [((4097,), 4096), ((300,), 4096), ((1,), 4096),
+              ((3 * 8193 + 5,), 8193), ((100_000,), 100_000)])
+K3_BLOCK = 4096
+UPDATE_N = 6_603_710            # the CNN's parameters at width 1
+INT8_BITS = 52_829_936          # 8 bits an element and 32 a leaf's scale
+NONE_BITS = 211_318_720         # 32 bits an element
+# fl_fig2a phase: benchmarks/fig2a_accuracy.py's settings
+FL_CLIENTS, FL_SAMPLES, FL_ROUNDS, FL_TEST = 16, 64, 10, 512
+FL_FRACTIONS = (0.25, 0.5, 1.0)
+FL_LR, FL_BATCH, FL_EPOCHS = 0.04, 16, 2
+# K3/K3' are timed on one input, warm in L2, and over COLD_COPIES copies
+# of it in turn (8 x 26 MB, past the card's 50 MB L2), read from HBM
+COLD_COPIES = 8
+# one batch's CNN loss and gradients on the card against the port's CPU
+# run, both in full float32 (TF32 off), each leaf's gradient relative to
+# its largest value (the loss relative to itself). Measured on an NVIDIA
+# H100 80GB HBM3 (700 W) by scripts/check_cnn_grads.py: the loss within
+# 1.2e-7 and every leaf within 7.6e-7 but conv1's weight gradient, 2.2e-4
+# to 3.9e-4 off the CPU's over runs and as far off a float64 run (3.4e-4
+# with cudnn.deterministic): cuDNN's weight-gradient kernel sums each tap
+# over the batch's 12,544 positions of one input channel in long float32
+# chains; with cuDNN off it is 4.9e-7. So conv1's weight is held to
+# CNN_WGRAD_TOL and the loss and every other leaf to CNN_CARD_TOL, which
+# TF32 (about three decimal digits) must fail: the phase runs the batch
+# with TF32 on too and fails if that run passes the gate
+CNN_CARD_TOL = 1e-5
+CNN_WGRAD_TOL = 1e-3
+CNN_WGRAD_LEAF = 1              # conv1/w in tree order (conv1/b first)
+# Fig. 2a accuracy gates, set from the first reading on an NVIDIA H100
+# 80GB HBM3 (700 W): final accuracies (round 10) int8 0.9766 / 0.9531 /
+# 0.9688 and none 0.9727 / 0.9570 / 0.9688 at fractions 0.25 / 0.5 / 1.0;
+# the JAX package's own benchmarks/fig2a_accuracy.py (uncompressed, its
+# own init, on the CPU) ends at FIG2A_JAX_FINAL. The curves swing by up
+# to 0.03 between late rounds (0.9609 -> 0.9297 at fraction 0.5). So:
+# every final accuracy at least FL_ACC_MIN and within FL_REF_GAP of the
+# JAX package's, and int8 within FL_INT8_GAP of none (measured 0.0039)
+FIG2A_JAX_FINAL = {0.25: 0.957, 0.5: 0.961, 1.0: 0.977}
+FL_ACC_MIN = 0.9
+FL_REF_GAP = 0.05
+FL_INT8_GAP = 0.05
 
 
 def _line(phase: str, seconds: float, **kw) -> None:
@@ -518,6 +598,430 @@ def phase_k2():
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": by, "library_ms": None,
     }
+
+
+def _k3_input(shape, dtype, seed: int, kind: str = "normal"):
+    """~0.01 N(0, 1) in ``dtype``; ``zeros``: the first half zero;
+    ``ties``: halves and wholes with 127 every 64 elements, so a block's
+    scale is 1 and half its x / scale land on .5."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=g, device="cuda") * 1e-2
+    flat = x.view(-1)
+    if kind == "zeros":
+        flat[: flat.numel() // 2] = 0.0
+    elif kind == "ties":
+        flat.copy_(torch.round(flat * 4e3) / 2 + 0.5)
+        flat[::64] = 127.0
+    return x.to(dtype)
+
+
+def _k3_equal(q, s, qr, sr) -> bool:
+    return torch.equal(q, qr) and torch.equal(s.view(torch.int32),
+                                              sr.view(torch.int32))
+
+
+def _dequantize_library(q, scales, block: int):
+    """K3' as one PyTorch call: int8 times float32 promotes to float32,
+    the int8 converts exactly and the product rounds once."""
+    return torch.mul(q.view(-1, block), scales[:, None])
+
+
+def _k3_hold(x, block: int, what: str) -> None:
+    """K3, then K3' on its output, against the plain versions on the same
+    inputs, bit for bit; the library's dequantisation too."""
+    from repro_torch.kernels.quant import kernel, ref
+
+    q, s = kernel.quantize_int8_cuda(x, block)
+    qr, sr = ref.quantize_int8_ref(x, block)
+    out = kernel.dequantize_int8_cuda(q, s, block)
+    want = ref.dequantize_int8_ref(q, s, block)
+    lib = _dequantize_library(q, s, ref.block_size(block, x.numel()))
+    torch.cuda.synchronize()
+    if not _k3_equal(q, s, qr, sr):
+        raise SystemExit(f"K3 differs from its plain version at {what}")
+    if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+        raise SystemExit(f"K3' differs from its plain version at {what}")
+    if not torch.equal(out.view(torch.int32),
+                       lib.reshape(-1).view(torch.int32)):
+        raise SystemExit(f"K3' differs from the library's torch.mul at "
+                         f"{what}")
+
+
+def _cnn_update(seed: int):
+    """A CNN-shaped update (leaves ~ 1e-3 N(0, 1)) in the tree order."""
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.models import cnn
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = cnn._init(None, cnn.N_CLASSES, 1, torch.device("meta"))
+    tree = tree_map(lambda t: torch.randn(t.shape, generator=g,
+                                          device="cuda") * 1e-3, shapes)
+    return tree, tree_leaves(tree)
+
+
+def _k3_bounds(n: int, block: int, in_bytes: int):
+    """(K3 bound ms, K3' bound ms, bound by) for n elements of
+    ``in_bytes`` each: K3 reads x once and writes q and the scales, K3'
+    the reverse in float32; 5 and 1 float32 operations an element."""
+    n_blocks = -(-n // block)
+    n_pad = n_blocks * block
+    q_bytes = in_bytes * n + n_pad + 4 * n_blocks
+    d_bytes = n_pad + 4 * n_blocks + 4 * n_pad
+    by = "bytes" if q_bytes / HBM_BYTES_S >= 5 * n / OPS32_S \
+        else "operations"
+    return (max(q_bytes / HBM_BYTES_S, 5 * n / OPS32_S) * 1e3,
+            max(d_bytes / HBM_BYTES_S, n_pad / OPS32_S) * 1e3, by)
+
+
+def _device_ms(fn, args, reps: int = 16) -> float:
+    """Device milliseconds a call of ``fn``: ``reps`` calls, the i-th on
+    ``args[i % len(args)]``, enqueued behind a ~25 ms sleep kernel,
+    between CUDA events recorded after the sleep, so that the card runs
+    them back to back and the host's enqueue (tens of microseconds a
+    call through the wrapper) stays out of the window; the median of 3
+    windows. For kernels shorter than their launch, where ``_time_ms``
+    would time the host."""
+    fn(*args[0])
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        torch.cuda._sleep(50_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(reps):
+            fn(*args[i % len(args)])
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def _k3_timed(xs, block: int) -> dict:
+    """Device ms a call of K3, its plain version, K3', its plain version
+    and the library's dequantisation, each over the inputs ``xs`` in
+    turn: one input stays warm in L2; ``COLD_COPIES`` copies of one are
+    read from HBM."""
+    from repro_torch.kernels.quant import kernel, ref
+
+    whole = ref.block_size(block, xs[0].numel())
+    xa = [(x, block) for x in xs]
+    qa = [(*kernel.quantize_int8_cuda(x, block), block) for x in xs]
+    return {
+        "ms": _device_ms(kernel.quantize_int8_cuda, xa),
+        "plain_ms": _device_ms(ref.quantize_int8_ref, xa, reps=8),
+        "dq_ms": _device_ms(kernel.dequantize_int8_cuda, qa),
+        "dq_plain_ms": _device_ms(ref.dequantize_int8_ref, qa, reps=8),
+        "dq_library_ms": _device_ms(_dequantize_library,
+                                    [(q, s, whole) for q, s, _ in qa]),
+    }
+
+
+def _k3_readings(x, block: int):
+    """``_k3_timed`` on ``x`` warm in L2, and on copies from HBM."""
+    warm = _k3_timed([x], block)
+    cold = _k3_timed([x.clone() for _ in range(COLD_COPIES)], block)
+    return warm, cold
+
+
+def phase_k3():
+    t0 = time.time()
+    n_checks = 0
+    for i, (shape, block) in enumerate(K3_GRID):
+        for dtype in (torch.float32, torch.bfloat16):
+            for kind in ("normal", "zeros", "ties"):
+                _k3_hold(_k3_input(shape, dtype, i, kind), block,
+                         f"{shape} block={block} {dtype} {kind}")
+                n_checks += 1
+    tree, leaves = _cnn_update(7)
+    for leaf in leaves:
+        for dtype in (torch.float32, torch.bfloat16):
+            _k3_hold(leaf.to(dtype), leaf.numel(),
+                     f"CNN leaf {tuple(leaf.shape)} {dtype} block=n")
+            n_checks += 1
+    update = torch.cat([leaf.reshape(-1) for leaf in leaves])
+    if update.numel() != UPDATE_N:
+        raise SystemExit(f"the CNN update has {update.numel()} elements")
+    _k3_hold(update, K3_BLOCK, f"the update at block {K3_BLOCK}")
+    n_checks += 1
+
+    fc1 = tree["fc1"]["w"]
+    n = fc1.numel()
+    bound, d_bound, by = _k3_bounds(n, n, 4)
+    u_bound, ud_bound, _ = _k3_bounds(UPDATE_N, K3_BLOCK, 4)
+    warm, cold = _k3_readings(fc1, n)
+    u_warm, u_cold = _k3_readings(update, K3_BLOCK)
+
+    def fmt(times, tag):
+        return {f"{k}{tag}": f"{v:.5f}" for k, v in times.items()}
+
+    # ms from HBM; _l2 the input warm in L2
+    _line("k3", time.time() - t0, checks=n_checks, bitwise="yes",
+          fc1_n=n, bound_ms=f"{bound:.5f}", dq_bound_ms=f"{d_bound:.5f}",
+          **fmt(cold, ""), **fmt(warm, "_l2"),
+          update_blocks=-(-UPDATE_N // K3_BLOCK),
+          bound_ms_update=f"{u_bound:.5f}",
+          dq_bound_ms_update=f"{ud_bound:.5f}",
+          **fmt(u_cold, "_update"), **fmt(u_warm, "_l2_update"))
+    common = {"route": "cuda", "source": "src/repro_torch/csrc/quant_int8.cu",
+              "max_abs_err": 0.0, "bound_by": by}
+
+    def entry(name, line, key, lib, bounds):
+        """A kernels-line entry: fc1's weight at block = n, then the
+        update at block 4096; times from HBM, ``_l2`` warm in L2."""
+        out = {"name": name,
+               "replaces": f"src/repro/kernels/quant/kernel.py:{line}",
+               **common, "bound_ms": bounds[0],
+               "bound_ms_update_4096": bounds[1]}
+        for tag, times in (("", cold), ("_l2", warm),
+                           ("_update_4096", u_cold),
+                           ("_l2_update_4096", u_warm)):
+            out[f"ms{tag}"] = times[f"{key}ms"]
+            out[f"plain_ms{tag}"] = times[f"{key}plain_ms"]
+            out[f"library_ms{tag}"] = (times["dq_library_ms"] if lib
+                                       else None)
+        return out
+
+    # no single PyTorch call quantises by amax / 127; K3' is one torch.mul
+    return [entry("quantize_int8", 46, "", False, (bound, u_bound)),
+            entry("dequantize_int8", 69, "dq_", True, (d_bound, ud_bound))]
+
+
+def _k3_checked():
+    """A patch under which every K3 and K3' launch is held to its plain
+    version on the same input, bit for bit, and counted in ``held``."""
+    from repro_torch.kernels.quant import kernel, ref
+
+    quantize, dequantize = kernel.quantize_int8_cuda, \
+        kernel.dequantize_int8_cuda
+    held = {"quantize_int8": 0, "dequantize_int8": 0}
+
+    def quantize_held(x, block=K3_BLOCK):
+        q, s = quantize(x, block)
+        if not _k3_equal(q, s, *ref.quantize_int8_ref(x, block)):
+            raise SystemExit(f"K3 differs from its plain version in the "
+                             f"round at {tuple(x.shape)}")
+        held["quantize_int8"] += 1
+        return q, s
+
+    def dequantize_held(q, s, block=K3_BLOCK):
+        out = dequantize(q, s, block)
+        want = ref.dequantize_int8_ref(q, s, block)
+        if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+            raise SystemExit(f"K3' differs from its plain version in the "
+                             f"round at {tuple(q.shape)}")
+        held["dequantize_int8"] += 1
+        return out
+
+    return mock.patch.multiple(kernel, quantize_int8_cuda=quantize_held,
+                               dequantize_int8_cuda=dequantize_held), held
+
+
+def _tf32_flags():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+@contextlib.contextmanager
+def _tf32_on():
+    """TF32 for cuDNN's convolutions and cuBLAS's products: the fault
+    the CNN gate must see."""
+    saved = _tf32_flags()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _cnn_grads(params, batch, precision=None):
+    """(loss, gradients) of one batch, in full float32 as a client step
+    (or under the ``precision`` context)."""
+    from repro_torch._device import full_float32
+    from repro_torch._tree import tree_leaves, tree_unflatten
+    from repro_torch.models import cnn
+
+    live = [p.detach().clone().requires_grad_(True)
+            for p in tree_leaves(params)]
+    with (precision or full_float32)():
+        loss = cnn.loss_fn(tree_unflatten(params, live), batch)
+        grads = torch.autograd.grad(loss, live)
+    return loss.item(), grads
+
+
+def _cnn_off(card, cpu) -> list:
+    """The loss's and each gradient leaf's error of a card run against
+    the CPU's, and the names of those past their gate."""
+    loss_err = abs(card[0] - cpu[0]) / abs(cpu[0])
+    errs = [_rel_err(g.cpu(), w) for g, w in zip(card[1], cpu[1])]
+    past = ["loss"] if loss_err > CNN_CARD_TOL else []
+    past += [f"leaf {i}" for i, e in enumerate(errs)
+             if e > (CNN_WGRAD_TOL if i == CNN_WGRAD_LEAF else CNN_CARD_TOL)]
+    return loss_err, errs, past
+
+
+def _tf32_spy(loss_fn, seen: dict):
+    """``loss_fn`` that counts in ``seen`` the client steps, their
+    backwards (a hook on the loss) and those of either with TF32 on."""
+    def check(_grad):
+        seen["backwards"] += 1
+        seen["tf32"] += any(_tf32_flags())
+
+    def spied(params, batch):
+        seen["steps"] += 1
+        seen["tf32"] += any(_tf32_flags())
+        loss = loss_fn(params, batch)
+        if loss.requires_grad:
+            loss.register_hook(check)
+        return loss
+    return spied
+
+
+def _fl_run(scheme: str, clients, test_batch):
+    """The three fractions through ``CPSServer`` at width 1: returns, per
+    fraction, (accuracies, ms a round, logs, K3 and K3' launches), and
+    the K3/K3' calls held to their plain versions in first rounds."""
+    from repro_torch import fl
+    from repro_torch.kernels.quant import kernel as k3
+    from repro_torch.models import cnn
+
+    runs, held_total = {}, 0
+    for frac in FL_FRACTIONS:
+        params = cnn.init_params(
+            torch.Generator(device="cuda").manual_seed(0))
+        server = fl.CPSServer(
+            global_params=params, clients=clients,
+            selection=fl.SelectionConfig(strategy="fraction", fraction=frac),
+            compression=fl.CompressorConfig(scheme=scheme), seed=1)
+        accs, ms, logs = [], [], []
+        k3.quantize_launches = k3.dequantize_launches = 0
+        for r in range(FL_ROUNDS):
+            patch, held = _k3_checked()
+            torch.cuda.synchronize()
+            t_round = time.perf_counter()
+            with patch if r == 0 else contextlib.nullcontext():
+                log = server.run_round(
+                    eval_fn=lambda p: cnn.accuracy(p, test_batch))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t_round) * 1e3)
+            accs.append(log.eval_metric)
+            logs.append(log)
+            held_total += held["quantize_int8"] + held["dequantize_int8"]
+        runs[frac] = (accs, ms, logs,
+                      (k3.quantize_launches, k3.dequantize_launches))
+    return runs, held_total
+
+
+def phase_fl_fig2a():
+    from repro_torch._tree import tree_map
+    from repro_torch.data import build_federated_cnn_clients
+    from repro_torch.fl import LocalTrainConfig
+    from repro_torch.models import cnn
+
+    t0 = time.time()
+    tf32_seen = {"steps": 0, "backwards": 0, "tf32": 0}
+    clients, test = build_federated_cnn_clients(
+        n_clients=FL_CLIENTS, samples_per_client=FL_SAMPLES,
+        loss_fn=_tf32_spy(cnn.loss_fn, tf32_seen),
+        train_cfg=LocalTrainConfig(lr=FL_LR, batch_size=FL_BATCH,
+                                   local_epochs=FL_EPOCHS), seed=0)
+    test_batch = {k: v[:FL_TEST] for k, v in test.items()}
+
+    # one batch's loss and gradients on the card against the CPU, in full
+    # float32 and, as the gate's control, with TF32 on
+    params = cnn.init_params(torch.Generator(device="cuda").manual_seed(0))
+    batch = {k: v[:FL_BATCH] for k, v in clients[0].data.items()}
+    flags = _tf32_flags()
+    cpu = _cnn_grads(tree_map(lambda t: t.cpu(), params), batch)
+    loss_err, errs, past = _cnn_off(_cnn_grads(params, batch), cpu)
+    tf32_loss_err, tf32_errs, tf32_past = _cnn_off(
+        _cnn_grads(params, batch, _tf32_on), cpu)
+    for label, l_err, e in (("full float32", loss_err, errs),
+                            ("TF32 on", tf32_loss_err, tf32_errs)):
+        print(f"  CNN on the card ({label}) vs the CPU, one batch of "
+              f"{FL_BATCH}: loss rel {l_err:.3g}, gradients (tree order) "
+              f"{' '.join(f'{x:.3g}' for x in e)} of each leaf's largest",
+              flush=True)
+    if past:
+        raise SystemExit(f"CNN loss/gradients on the card differ from the "
+                         f"CPU's past the gate at {past}")
+    if not tf32_past:
+        raise SystemExit("the CNN gate passes a TF32 run: it cannot see "
+                         "TF32 leak into the float32 path")
+    if _tf32_flags() != flags:
+        raise SystemExit("full_float32 did not restore the TF32 flags")
+    grad_err = max(errs)
+    del params
+
+    result, launches = {}, 0
+    for scheme, bits in (("int8", INT8_BITS), ("none", NONE_BITS)):
+        t_run = time.time()
+        runs, held = _fl_run(scheme, clients, test_batch)
+        for frac, (accs, ms, logs, (n_q, n_d)) in runs.items():
+            arrived = sum(log.n_arrived for log in logs)
+            want = 8 * arrived if scheme == "int8" else 0
+            if (n_q, n_d) != (want, want):
+                raise SystemExit(f"{scheme} fraction {frac}: K3/K3' ran "
+                                 f"{n_q}/{n_d} times, not {want}")
+            for log in logs:
+                if log.update_bits != log.n_arrived * bits:
+                    raise SystemExit(f"{scheme} fraction {frac} round "
+                                     f"{log.round_index}: update_bits "
+                                     f"{log.update_bits} != "
+                                     f"{log.n_arrived} x {bits}")
+            if not all(0.0 <= a <= 1.0 for a in accs):
+                raise SystemExit(f"{scheme} fraction {frac}: accuracy "
+                                 f"{accs}")
+            if scheme == "int8":
+                launches += n_q
+            print(f"  {scheme} fraction {frac}: acc "
+                  f"{'/'.join(f'{a:.4f}' for a in accs)}; ms a round "
+                  f"first {ms[0]:.1f}, median of the rest "
+                  f"{statistics.median(ms[1:]):.3f}; arrived "
+                  f"{[log.n_arrived for log in logs]}; update_bits a round "
+                  f"{logs[0].update_bits:.0f}; k3 {n_q} k3' {n_d}; loss "
+                  f"{'/'.join(f'{log.mean_loss:.3f}' for log in logs)}",
+                  flush=True)
+        if held != (16 * sum(runs[f][2][0].n_arrived for f in runs)
+                    if scheme == "int8" else 0):
+            raise SystemExit(f"{scheme}: {held} K3/K3' calls held in the "
+                             f"first rounds")
+        result[scheme] = {f: r[0] for f, r in runs.items()}
+        print(f"  {scheme}: {time.time() - t_run:.1f}s for the "
+              f"fractions; {held} K3/K3' calls held bit for bit in first "
+              f"rounds", flush=True)
+    _hold_accuracy(result)
+    if tf32_seen["tf32"] or not (tf32_seen["steps"]
+                                 == tf32_seen["backwards"] > 0):
+        raise SystemExit(f"client steps with TF32 on: {tf32_seen}")
+    final = {f"acc_final_{s}_{f}": f"{result[s][f][-1]:.4f}"
+             for s in result for f in FL_FRACTIONS}
+    _line("fl_fig2a", time.time() - t0, clients=FL_CLIENTS,
+          rounds=FL_ROUNDS, grad_err=f"{grad_err:.3g}",
+          tf32_grad_err=f"{max(tf32_errs):.3g}",
+          steps_tf32=f"{tf32_seen['tf32']}/{tf32_seen['steps']}",
+          k3_launches=launches, **final)
+    return launches
+
+
+def _hold_accuracy(result) -> None:
+    """The Fig. 2a gates on the final accuracies (``FL_ACC_MIN``,
+    ``FL_REF_GAP``, ``FL_INT8_GAP``)."""
+    for scheme, curves in result.items():
+        for frac, accs in curves.items():
+            ref_gap = abs(accs[-1] - FIG2A_JAX_FINAL[frac])
+            if accs[-1] < FL_ACC_MIN or ref_gap > FL_REF_GAP:
+                raise SystemExit(
+                    f"{scheme} fraction {frac}: final accuracy {accs[-1]} "
+                    f"(at least {FL_ACC_MIN}, within {FL_REF_GAP} of the "
+                    f"JAX package's {FIG2A_JAX_FINAL[frac]})")
+    gap = max(abs(result["int8"][f][-1] - result["none"][f][-1])
+              for f in FL_FRACTIONS)
+    if gap > FL_INT8_GAP:
+        raise SystemExit(f"int8 and uncompressed final accuracies {gap} "
+                         f"apart (> {FL_INT8_GAP})")
 
 
 def _rel_err(got, want) -> float:
@@ -1125,9 +1629,13 @@ def main() -> int:
         return 1
     t0 = time.time()
     phase_build()
-    kernels = [phase_k1(), phase_k2(), phase_k4(), phase_k5(), phase_k6()]
+    kernels = [phase_k1(), phase_k2(), *phase_k3(), phase_k4(), phase_k5(),
+               phase_k6()]
     launches = phase_main()
     phase_full_width()
+    # K3 and K3' run once a leaf of every arrived update of the int8 run
+    launches["quantize_int8"] = launches["dequantize_int8"] = \
+        phase_fl_fig2a()
     k4_olmo = phase_serve()
     launches["ssd_scan"] = phase_serve_mamba2()
     rg = phase_serve_recurrentgemma()

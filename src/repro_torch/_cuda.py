@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("traffic.cu", "waterfill.cu", "flash_attn.cu", "ssd_scan.cu",
-           "rglru_scan.cu")
+           "rglru_scan.cu", "quant_int8.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -109,6 +109,10 @@ def library() -> ctypes.CDLL:
         lib.repro_ssd_scan_fwd.restype = i
         lib.repro_rglru_scan_fwd.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.repro_rglru_scan_fwd.restype = i
+        lib.repro_quant_int8_fwd.argtypes = [p, q, q, i, p, p, p, p]
+        lib.repro_quant_int8_fwd.restype = i
+        lib.repro_dequant_int8_fwd.argtypes = [p, p, q, q, p, p]
+        lib.repro_dequant_int8_fwd.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -9,8 +9,13 @@
 * 32-bit counter words (threefry keys, counters, outputs) ride in int64
   tensors masked with ``& MASK32``: PyTorch on the CPU has no uint32
   add, shift or compare.
+* The FL model's float32 math (convolutions, products, their backward)
+  runs inside :func:`full_float32`, with TF32 off, as the reference
+  computes it.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -52,3 +57,25 @@ def seq_cumsum(x: torch.Tensor) -> torch.Tensor:
         acc = acc + x[:, j]
         out[:, j] = acc
     return out
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Float32 products and convolutions in full float32 inside the block.
+
+    cuDNN runs float32 convolutions in TF32 by default
+    (``torch.backends.cudnn.allow_tf32`` is True), which keeps about
+    three decimal digits; the reference computes them in float32. The
+    flags in force before are restored on the way out. Autograd reads
+    the flags when the backward runs, so a training step enters this
+    around its backward too.
+    """
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved

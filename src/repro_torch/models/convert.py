@@ -1,10 +1,11 @@
-"""Carry the reference package's LM parameters into the port.
+"""Carry the reference package's parameters into the port.
 
-``from_reference_params`` takes the reference parameter pytree as nested
-dicts of numpy arrays (``jax.tree.map(np.asarray, params)``), with the
-leading ``n_units`` axis on the leaves of ``units``, and returns the
-port's parameter dict with the same keys, shapes and dtypes, so that both
-packages compute the same function in the tests.
+``from_reference_params`` takes the reference LM's parameter pytree as
+nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``),
+with the leading ``n_units`` axis on the leaves of ``units``, and returns
+the port's parameter dict with the same keys, shapes and dtypes, so that
+both packages compute the same function in the tests.
+``cnn_params_from_reference`` does the same for the FL CNN's dict.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 
 from repro_torch._device import DEFAULT_DEVICE, resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import cnn, lm
 
 
 def _tensor(a) -> torch.Tensor:
@@ -45,4 +46,14 @@ def from_reference_params(tree, cfg: ModelConfig,
     what ``lm.init_params(cfg)`` would build."""
     dev = resolve_device(device)
     want = lm._init(cfg, None, torch.device("meta"))
+    return _convert(tree, want, "", dev)
+
+
+def cnn_params_from_reference(tree, device=DEFAULT_DEVICE) -> dict:
+    """The port's CNN params on ``device`` from the reference's CNN
+    params (the paper's model: 62 classes, width 1) as nested dicts of
+    numpy arrays; raises ``ValueError`` if a key, shape or dtype does not
+    match what ``cnn.init_params`` would build."""
+    dev = resolve_device(device)
+    want = cnn._init(None, cnn.N_CLASSES, 1, torch.device("meta"))
     return _convert(tree, want, "", dev)

@@ -158,3 +158,26 @@ def mlp_apply(params: dict, x: torch.Tensor,
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(x @ params["w_in"].to(dt), approximate="tanh")
     return h @ params["w_down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          weights: torch.Tensor | None = None,
+                          z_loss: float = 0.0) -> torch.Tensor:
+    """Mean cross-entropy in float32: logits (..., V) of any float dtype,
+    integer labels (...), optional weights (...) for a weighted mean over
+    at least 1; ``z_loss`` adds ``z_loss * logsumexp**2``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - label_logit
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    if weights is None:
+        return torch.mean(loss)
+    total = torch.clamp(torch.sum(weights), min=1.0)
+    return torch.sum(loss * weights) / total

@@ -17,12 +17,16 @@ version: y and the final state within 1e-4 of the plain version's
 largest value (the reference package's own kernel test measure). K6 (the
 RG-LRU scan) computes in float32 from inputs of either type, like its
 plain version, and differs from it only by a fused multiply-add: within
-1e-5 of the plain version's largest value.
+1e-5 of the plain version's largest value. K3 and K3' (int8 quantise and
+dequantise) are held bit for bit: the same IEEE divisions, roundings and
+products in both.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import data as fl_data
+from repro_torch import fl
 from repro_torch.configs import get_config
 from repro_torch.core.slicing import ClientProfile
 from repro_torch.dist import stepfns
@@ -30,7 +34,10 @@ from repro_torch.kernels.attention import kernel as k4
 from repro_torch.kernels.attention import ops as k4_ops
 from repro_torch.kernels.attention import ref as k4_ref
 from repro_torch.launch.serve import serve
-from repro_torch.models import lm
+from repro_torch.kernels.quant import kernel as k3
+from repro_torch.kernels.quant import ops as k3_ops
+from repro_torch.kernels.quant import ref as k3_ref
+from repro_torch.models import cnn, lm
 from repro_torch.kernels.ponsim import kernel as k2
 from repro_torch.kernels.rglru import kernel as k6
 from repro_torch.kernels.rglru import ops as k6_ops
@@ -493,3 +500,99 @@ def test_rglru_kernel_refuses_what_it_does_not_take(cuda):
         k6.rglru_scan_cuda(a, b.cpu(), h)
     with pytest.raises(NotImplementedError, match="backward"):
         k6_ops.rglru_scan(a, b.requires_grad_(), h)
+
+
+# K3/K3' grid (shape, block): tests/test_kernels.py's shapes x {64, 256,
+# 4096}, ragged tails, block >= n, and blocks past one CTA's 4096-element
+# tile (the two-pass path): every CNN leaf at block = n, ragged many-tile
+# blocks, one element
+K3_GRID = ([(s, b) for s in [(100,), (1000, 37), (5, 5, 5)]
+            for b in (64, 256, 4096)]
+           + [((4097,), 4096), ((300,), 4096), ((1,), 4096), ((62,), 62),
+              ((3136, 2048), 3136 * 2048), ((5, 5, 32, 64), 51200),
+              ((2048,), 2048), ((2048, 62), 2048 * 62), ((5, 5, 1, 32), 800),
+              ((3 * 8193 + 5,), 8193), ((6_603_710,), 4096),
+              ((40_000,), 40_000), ((4099, 3), 4099)])
+
+
+def _k3_input(shape, dtype, dev, seed=0, kind="normal"):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev) * 1e-2
+    if kind == "zeros":
+        x.view(-1)[: x.numel() // 2] = 0.0
+    elif kind == "ties":
+        # powers-of-two amax per 64-block put x / scale on exact .5 ties
+        flat = x.view(-1)
+        flat.copy_(torch.round(flat * 4e3) / 2 + 0.5)
+        flat[::64] = 127.0
+    return x.to(dtype)
+
+
+def _k3_check(x, block):
+    before = (k3.quantize_launches, k3.dequantize_launches)
+    q, s = k3.quantize_int8_cuda(x, block)
+    qr, sr = k3_ref.quantize_int8_ref(x, block)
+    deq = k3.dequantize_int8_cuda(q, s, block)
+    deq_r = k3_ref.dequantize_int8_ref(qr, sr, block)
+    torch.cuda.synchronize()
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert torch.equal(deq.view(torch.int32), deq_r.view(torch.int32))
+    n = int(x.numel() > 0)
+    assert (k3.quantize_launches, k3.dequantize_launches) == (
+        before[0] + n, before[1] + n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,block", K3_GRID)
+def test_quant_kernels_match_plain(cuda, shape, block, dtype):
+    _k3_check(_k3_input(shape, dtype, cuda), block)
+
+
+@pytest.mark.parametrize("kind", ["zeros", "ties"])
+@pytest.mark.parametrize("shape,block", [((1000, 37), 64), ((100_000,), 4096),
+                                         ((100_000,), 100_000)])
+def test_quant_kernels_zeros_and_ties(cuda, shape, block, kind):
+    _k3_check(_k3_input(shape, torch.float32, cuda, kind=kind), block)
+
+
+def test_quant_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.randn(100, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        k3.quantize_int8_cuda(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.quantize_int8_cuda(x.view(10, 10).t())
+    with pytest.raises(ValueError, match="at least 1"):
+        k3.quantize_int8_cuda(x, 0)
+    q, s = k3.quantize_int8_cuda(x, 32)
+    with pytest.raises(ValueError, match="whole blocks"):
+        k3.dequantize_int8_cuda(q[:-1], s, 32)
+    with pytest.raises(ValueError, match="scales must have shape"):
+        k3.dequantize_int8_cuda(q, s[:-1], 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        k3.dequantize_int8_cuda(q, s.cpu(), 32)
+    with pytest.raises(NotImplementedError, match="backward"):
+        k3_ops.quantize_int8(x.requires_grad_())
+    q, s = k3.quantize_int8_cuda(torch.zeros(0, device=cuda))
+    assert q.numel() == 0 and s.numel() == 0
+
+
+def test_fl_round_on_card_runs_k3(cuda):
+    """Two int8 rounds of the CNN at full width on the card: K3 and K3'
+    once per leaf of every arrived update, wire bits exact."""
+    clients, _ = fl_data.build_federated_cnn_clients(
+        4, 16, cnn.loss_fn, fl.LocalTrainConfig(lr=0.04, batch_size=8),
+        seed=0)
+    params = cnn.init_params(torch.Generator(device=cuda).manual_seed(0))
+    server = fl.CPSServer(global_params=params, clients=clients,
+                          compression=fl.CompressorConfig(scheme="int8"),
+                          failure_prob=0.3, seed=1)
+    k3.quantize_launches = k3.dequantize_launches = 0
+    arrived = 0
+    for _ in range(2):
+        log = server.run_round()
+        arrived += log.n_arrived
+        assert log.update_bits == log.n_arrived * 52_829_936
+    assert k3.quantize_launches == k3.dequantize_launches == 8 * arrived
+    for leaf in server.global_params.values():
+        for t in leaf.values():
+            assert t.is_cuda and bool(torch.isfinite(t).all())
