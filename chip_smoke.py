@@ -30,7 +30,10 @@ nonzero:
    card, bit for bit: the sampler parity shapes, the engine's chunk
    shapes and two pinned stream fingerprints;
 3. ``k2``: the waterfill grant against its plain version run on CPU
-   copies of the same inputs, bit for bit;
+   copies of the same inputs, bit for bit, at the engine's rows (128,
+   2048 and 4096 queues), at the widest row held in shared memory
+   (16,384) and at one past it (20,000, through the wrapper's global
+   scratch); timed at 8 x 128, 1 x 2048, 1 x 4096 and 1 x 20,000;
 3b. ``k3``: int8 quantise (K3) and dequantise (K3') against their plain
    versions on the card, bit for bit (q, scales, dequantised values):
    ``K3_GRID`` in float32 and bfloat16, as drawn, half zero and on exact
@@ -43,10 +46,13 @@ nonzero:
    symmetric int8);
 4. ``k4``: flash attention against its plain version on the card over
    the test grid (float32 within 2e-5, bfloat16 within 2e-2; head dims
-   16 to 256) and at olmo-1b's prefill shape (4, 2048, 16, 16, 128) bf16
-   causal, timed there beside its plain version and
-   ``scaled_dot_product_attention`` (a yardstick only: the port never
-   calls it); the same at recurrentgemma-2b's prefill shape
+   16 to 256), each call through the kernel ``route`` names (bf16 at
+   head dims 64, 128 and 256 on the tensor-core kernel, the rest on the
+   CUDA-core one), over bf16 shapes at the tensor-core kernel's tile
+   edges (``K4_TC_EDGES``), and at olmo-1b's prefill shape
+   (4, 2048, 16, 16, 128) bf16 causal, timed there beside its plain
+   version and ``scaled_dot_product_attention`` (a yardstick only: the
+   port never calls it); the same at recurrentgemma-2b's prefill shape
    (4, 2048, 10 heads, 1 kv head, 256) bf16 with window 2048 (SDPA given
    k/v for all 10 heads), and held at (4, 4096, 10, 1, 256) with window
    2048, where the window cuts;
@@ -69,8 +75,9 @@ nonzero:
    time must match the JAX engine's value within 1e-9 s and both kernels
    must have been launched; one warm-up run, then the median wall time
    of 3;
-7. ``full_width``: one FCFS load-0.8 round at 2048 ONUs (line rate scaled
-   10 Gb/s * n / 128) held against the JAX engine's sync time;
+7. ``full_width``: one FCFS load-0.8 round at 2048 ONUs, then at 4096
+   (line rate scaled 10 Gb/s * n / 128; one PON, so K2 rows of 2048 and
+   4096 queues), each held against the JAX engine's sync time;
 7b. ``fl_fig2a``: ``benchmarks/fig2a_accuracy.py``'s settings (16
    clients x 64 samples, lr 0.04, batch 16, 2 local epochs, data seed 0,
    server seed 1, 10 rounds, fractions {0.25, 0.5, 1.0}, 512 test images)
@@ -91,10 +98,10 @@ nonzero:
    parameters, bfloat16 compute, random weights from a seed), batch 4,
    2048-token prompts (OLMo-1B's context length), 32 greedy new tokens,
    through ``serve()``; K4 must run 16 times (one a layer) in the
-   prefill and never in decode. The same weights and prompts then run
-   through the step functions with the plain attention
-   (``attn_impl="reference"``) and with the plain attention in float32
-   compute: the last position's prefill logits and 8 teacher-forced
+   prefill, all on the tensor-core kernel, and never in decode. The
+   same weights and prompts then run through the step functions with
+   the plain attention (``attn_impl="reference"``) and with the plain
+   attention in float32 compute: the last position's prefill logits and 8 teacher-forced
    decode steps of the two bf16 paths must agree within ``LOGIT_TOL``,
    and the kernel path may stand no farther from the float32 path than
    ``F32_RATIO`` times the plain path does. Decode never runs K4. JAX
@@ -118,18 +125,22 @@ nonzero:
    (26 layers: 8 units of (RG-LRU, RG-LRU, local attention with window
    2048) and a remainder of two RG-LRU layers; float32 parameters, bf16
    compute, random weights from a seed), the same traffic, through
-   ``serve()``; K6 must run 18 times and K4 8 times in the prefill and
-   neither in decode, and every logit must be finite. The same weights
-   then run with the plain scan (patching
+   ``serve()``; K6 must run 18 times and K4 8 times (all on the
+   tensor-core kernel) in the prefill and neither in decode, and every
+   logit must be finite. The same weights then run with the plain scan
+   (patching
    ``kernels.rglru.ops.rglru_scan``, here only) and the plain attention
    (``attn_impl="reference"``) in bf16 and in float32 compute, held
    with ``RG_LOGIT_TOL``, ``RG_F32_RATIO`` and ``RG_F32_TOL`` as in
    ``serve_mamba2``.
 
 Before the last line it prints one JSON object with each kernel's
-launches on its path, its error against the plain version, its time,
-the plain version's time, a library call's time where one computes the
-same function, and the least time the card could take (``bound_ms``).
+launches on its path (K4's ``launches_tc`` of them on the tensor-core
+kernel), its error against the plain version, its time, the plain
+version's time, a library call's time where one computes the same
+function, and the least time the card could take (``bound_ms``). Every
+time is ``_device_ms``'s: launches queued back to back behind a sleep
+kernel, between CUDA events.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -151,8 +162,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # Fig. 2b sync times (s) of the JAX package's numpy engine for the cases
-# of fig2b_cases(), and of its 2048-ONU FCFS load-0.8 round (seed 0);
-# tests/test_torch_engine.py recomputes both from the JAX package
+# of fig2b_cases(), and of its 2048- and 4096-ONU FCFS load-0.8 rounds
+# (seed 0); tests/test_torch_engine.py recomputes them from the JAX
+# package
 SYNC_TABLE = {
     "fcfs_load0.3_n12": 4.933099999999982,
     "fcfs_load0.3_n51": 5.005100000000006,
@@ -172,10 +184,17 @@ SYNC_TABLE = {
     "bs_load0.8_n128": 4.909099999999974,
 }
 SYNC_2048 = 6.735100000000584
+# the same round on one PON of 4096 ONUs (line rate 320 Gb/s): K2 at
+# 4096 queues a row
+SYNC_4096 = 6.750100000000589
 SYNC_TOL = 1e-9
 
 M_BITS = 26.416e6
 N_ONUS = 128
+# K2 rows: the widest held in shared memory (12 bytes a queue, padded to
+# a power of two, in 227 KB) and one past it
+K2_SMEM_QUEUES = 16_384
+K2_PAST_SMEM = 20_000
 FRACTIONS = (0.1, 0.4, 0.7, 1.0)
 GRID = (("fcfs", 0.3), ("fcfs", 0.8), ("bs", 0.3), ("bs", 0.8))
 
@@ -208,6 +227,23 @@ K4_GRID = [
     (1, 200, 200, 10, 1, 256, True, 8),
 ]
 K4_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# bf16 shapes at the tensor-core kernel's tile edges (64 query rows, 64
+# keys): one row, rows either side of a tile, T != S both ways, window 1,
+# windows that cut inside a tile, MQA 10:1 at D 256. No row is left
+# without a live key (S < T + window), where the kernel writes 0 and the
+# plain version averages v
+K4_TC_EDGES = [
+    (1, 1, 1, 2, 1, 64, True, None),
+    (2, 63, 63, 4, 2, 128, True, None),
+    (1, 65, 65, 4, 4, 128, False, None),
+    (1, 129, 129, 10, 1, 256, True, None),
+    (1, 65, 100, 4, 2, 64, True, None),
+    (1, 129, 70, 4, 2, 128, True, None),
+    (2, 129, 129, 4, 2, 64, True, 1),
+    (1, 63, 90, 2, 1, 64, False, 30),
+    (1, 200, 200, 10, 1, 256, True, 37),
+    (2, 300, 300, 10, 1, 256, True, 100),
+]
 OLMO_PREFILL = (4, 2048, 2048, 16, 16, 128)   # B, S, T, H, K, D
 RG_PREFILL = (4, 2048, 2048, 10, 1, 256)      # recurrentgemma-2b, MQA
 RG_WINDOW = 2048
@@ -386,19 +422,28 @@ def full_width_spec(n: int = 2048):
                                       policy="fcfs", seed=0),), pon=cfg)
 
 
-def _time_ms(fn, reps: int = 20) -> float:
-    """Median milliseconds of ``fn`` on the card (CUDA events)."""
-    fn()
+def _device_ms(fn, args, reps: int = 16) -> float:
+    """Device milliseconds a call of ``fn``: ``reps`` calls, the i-th on
+    ``args[i % len(args)]``, enqueued behind a ~25 ms sleep kernel,
+    between CUDA events recorded after the sleep, so that the card runs
+    them back to back and the host's enqueue (tens of microseconds a
+    call through the wrapper) stays out of the window; the median of 3
+    windows. Every kernel, its plain version and its library call are
+    timed so: CUDA events around one launch would time the host's
+    enqueue for a kernel shorter than it."""
+    fn(*args[0])
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(3):
+        torch.cuda._sleep(50_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for i in range(reps):
+            fn(*args[i % len(args)])
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -501,9 +546,10 @@ def phase_k1():
     kt, thr, st, ln = _k1_inputs(k8, l8, dev)
     args = (kt, 0, thr, st, ln, pkt)
     kw = dict(n_cycles=1024, n_onus=N_ONUS)
-    ms = _time_ms(lambda: kernel.sample_arrival_bits_cuda(*args, **kw))
-    plain_ms = _time_ms(lambda: ref.sample_arrival_bits_ref(*args, **kw),
-                        reps=5)
+    ms = _device_ms(lambda: kernel.sample_arrival_bits_cuda(*args, **kw),
+                    [()])
+    plain_ms = _device_ms(lambda: ref.sample_arrival_bits_ref(*args, **kw),
+                          [()], reps=4)
     cells = kt.shape[0] * ref._windows(0, 1024)[1] * N_ONUS
     bursts = int(ref.window_counts(kt, 0, 1024, N_ONUS, thr).sum())
     n_bytes = (kt.numel() * 8 + thr.numel() * 4 + st.numel() * 8
@@ -554,10 +600,13 @@ def phase_k2():
     rng = np.random.default_rng(11)
     err = 0.0
     n_checks = 0
-    for N in (1, 37, 128, 2048):
+    # the engine's rows (128, 2048 and 4096 ONUs a PON), up to the card's
+    # shared memory (16,384) and past it (the wrapper's global scratch)
+    for R, N in ((8, 1), (8, 37), (8, 128), (8, 2048), (2, 4096),
+                 (2, K2_SMEM_QUEUES), (2, K2_PAST_SMEM)):
         for int_keys in (False, True):
             b, k, c = (torch.as_tensor(a)
-                       for a in k2_case(rng, 8, N, int_keys))
+                       for a in k2_case(rng, R, N, int_keys))
             # one hard mask for both: the row sums of the card and the CPU
             # may round apart on the row that sits at cap - 1
             hard = ref.hard_rows(b, c)
@@ -575,8 +624,9 @@ def phase_k2():
                    for a in k2_case(rng, R, N, False))
         c = b.sum(dim=1) * 0.5           # every row hard
         hard = ref.hard_rows(b, c)
-        ms = _time_ms(lambda: kernel.waterfill_grants_cuda(b, k, c, hard))
-        plain = _time_ms(lambda: ref.waterfill_grants_ref(b, k, c, hard))
+        args = [(b, k, c, hard)]
+        ms = _device_ms(kernel.waterfill_grants_cuda, args)
+        plain = _device_ms(ref.waterfill_grants_ref, args, reps=8)
         n_bytes = 3 * b.numel() * 8 + R * 9
         n_ops = R * (N * max(1, math.ceil(math.log2(N))) + 3 * N)
         bound = max(n_bytes / HBM_BYTES_S, n_ops / FP64_S) * 1e3
@@ -585,18 +635,22 @@ def phase_k2():
         return ms, plain, bound, by
 
     ms, plain_ms, bound, by = timed(8, N_ONUS)
-    ms_w, plain_w, bound_w, _ = timed(1, 2048)
+    wide = {}
+    for N in (2048, 4096, K2_PAST_SMEM):
+        ms_w, plain_w, bound_w, _ = timed(1, N)
+        wide.update({f"ms_1x{N}": f"{ms_w:.5f}",
+                     f"plain_ms_1x{N}": f"{plain_w:.5f}",
+                     f"bound_ms_1x{N}": f"{bound_w:.6f}"})
     _line("k2", time.time() - t0, checks=n_checks, bitwise="yes",
-          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-          bound_ms=f"{bound:.6f}", ms_1x2048=f"{ms_w:.4f}",
-          plain_ms_1x2048=f"{plain_w:.4f}",
-          bound_ms_1x2048=f"{bound_w:.6f}")
+          ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+          bound_ms=f"{bound:.6f}", **wide)
     return {
         "name": "waterfill_grants", "route": "cuda",
         "source": "src/repro_torch/csrc/waterfill.cu",
         "replaces": "src/repro/kernels/ponsim/kernel.py:86",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": by, "library_ms": None,
+        **{key: float(val) for key, val in wide.items()},
     }
 
 
@@ -671,30 +725,6 @@ def _k3_bounds(n: int, block: int, in_bytes: int):
         else "operations"
     return (max(q_bytes / HBM_BYTES_S, 5 * n / OPS32_S) * 1e3,
             max(d_bytes / HBM_BYTES_S, n_pad / OPS32_S) * 1e3, by)
-
-
-def _device_ms(fn, args, reps: int = 16) -> float:
-    """Device milliseconds a call of ``fn``: ``reps`` calls, the i-th on
-    ``args[i % len(args)]``, enqueued behind a ~25 ms sleep kernel,
-    between CUDA events recorded after the sleep, so that the card runs
-    them back to back and the host's enqueue (tens of microseconds a
-    call through the wrapper) stays out of the window; the median of 3
-    windows. For kernels shorter than their launch, where ``_time_ms``
-    would time the host."""
-    fn(*args[0])
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        torch.cuda._sleep(50_000_000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for i in range(reps):
-            fn(*args[i % len(args)])
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
 
 
 def _k3_timed(xs, block: int) -> dict:
@@ -1050,35 +1080,57 @@ def _qkv(B, S, T, H, K, D, dtype, seed=0):
                  for shape in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
 
 
+def _k4_hold(shape, causal, window, dtype, seed=0) -> float:
+    """K4 once at ``shape`` (B, S, T, H, K, D) against its plain version
+    within ``K4_TOL``, through the kernel ``route`` names (the
+    tensor-core counter must move exactly when it names the tensor
+    cores). Returns the largest absolute error."""
+    from repro_torch.kernels.attention import kernel, ref
+
+    B, S, T, H, K, D = shape
+    q, k, v = _qkv(B, S, T, H, K, D, dtype, seed=seed)
+    tc = kernel.route(dtype, D) == "tensor_cores"
+    before = (kernel.launches, kernel.launches_tc)
+    got = kernel.flash_attention_cuda(q, k, v, causal, window)
+    want = ref.attention_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    if (kernel.launches, kernel.launches_tc) != (before[0] + 1,
+                                                 before[1] + tc):
+        raise SystemExit(f"K4 at {shape} {dtype}: not one launch of the "
+                         f"{'tensor' if tc else 'CUDA'}-core kernel")
+    err = float((got.float() - want.float()).abs().max())
+    name = str(dtype).removeprefix("torch.")
+    if not _close(got, want, K4_TOL[name]):
+        raise SystemExit(f"K4 differs from its plain version by {err} at "
+                         f"{shape} causal={causal} window={window} {name}")
+    return err
+
+
 def _k4_timed(shape, window, seed):
     """K4 at ``shape`` (B, S, T, H, K, D) bf16, causal, with ``window``:
-    held to its plain version, then timed beside it and beside
-    ``scaled_dot_product_attention`` (k/v given to every query head).
-    Returns (max abs error, ms, plain ms, library ms, bound ms, bound by,
-    operations)."""
+    held to its plain version through the tensor-core kernel, then timed
+    beside it and beside ``scaled_dot_product_attention`` (k/v given to
+    every query head). Returns (max abs error, ms, plain ms, library ms,
+    bound ms, bound by, operations)."""
     from repro_torch.kernels.attention import kernel, ref
 
     B, S, T, H, K, D = shape
     if window is not None and window < S:
         raise ValueError("the SDPA yardstick is causal only")
+    if kernel.route(torch.bfloat16, D) != "tensor_cores":
+        raise SystemExit(f"K4 at {shape} bf16 does not route to the "
+                         f"tensor cores")
+    err = _k4_hold(shape, True, window, torch.bfloat16, seed)
     q, k, v = _qkv(B, S, T, H, K, D, torch.bfloat16, seed=seed)
-    got = kernel.flash_attention_cuda(q, k, v, True, window)
-    want = ref.attention_ref(q, k, v, True, window)
-    torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    if not _close(got, want, K4_TOL["bfloat16"]):
-        raise SystemExit(f"K4 differs from its plain version by {err} at "
-                         f"{shape} window={window}")
-    del got, want
-    ms = _time_ms(lambda: kernel.flash_attention_cuda(q, k, v, True,
-                                                      window))
-    plain_ms = _time_ms(lambda: ref.attention_ref(q, k, v, True, window),
-                        reps=5)
+    ms = _device_ms(kernel.flash_attention_cuda, [(q, k, v, True, window)])
+    plain_ms = _device_ms(ref.attention_ref, [(q, k, v, True, window)],
+                          reps=4)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if K != H:
         kt, vt = (x.repeat_interleave(H // K, dim=1) for x in (kt, vt))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = _time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+    library_ms = _device_ms(lambda a, b, c: sdpa(a, b, c, is_causal=True),
+                            [(qt, kt, vt)])
     n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     n_ops = 4 * B * H * D * _live_keys(S, T, True, window)
     bound = max(n_bytes / HBM_BYTES_S, n_ops / BF16_S) * 1e3
@@ -1087,51 +1139,42 @@ def _k4_timed(shape, window, seed):
 
 
 def phase_k4():
-    from repro_torch.kernels.attention import kernel, ref
+    from repro_torch.kernels.attention import kernel
 
     t0 = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     grid_err = {"float32": 0.0, "bfloat16": 0.0}
+    tc_before = kernel.launches_tc
     for B, S, T, H, K, D, causal, window in K4_GRID:
         for name, dtype in (("float32", torch.float32),
                             ("bfloat16", torch.bfloat16)):
-            q, k, v = _qkv(B, S, T, H, K, D, dtype)
-            got = kernel.flash_attention_cuda(q, k, v, causal, window)
-            want = ref.attention_ref(q, k, v, causal, window)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            if not _close(got, want, K4_TOL[name]):
-                raise SystemExit(
-                    f"K4 differs from its plain version by {err} at "
-                    f"{(B, S, T, H, K, D, causal, window)} {name}")
-            grid_err[name] = max(grid_err[name], err)
+            grid_err[name] = max(grid_err[name], _k4_hold(
+                (B, S, T, H, K, D), causal, window, dtype))
+    err_edges = max(_k4_hold((B, S, T, H, K, D), causal, window,
+                             torch.bfloat16, seed=i)
+                    for i, (B, S, T, H, K, D, causal, window)
+                    in enumerate(K4_TC_EDGES))
+    # holds on the tensor-core kernel: these, the two prefills, the cut
+    tc_held = kernel.launches_tc - tc_before + 3
 
     err, ms, plain_ms, library_ms, bound, by, n_ops = _k4_timed(
         OLMO_PREFILL, None, 1)
     err_rg, ms_rg, plain_rg, library_rg, bound_rg, by_rg, ops_rg = \
         _k4_timed(RG_PREFILL, RG_WINDOW, 2)
-
     # recurrentgemma's heads where the window cuts
-    B, S, T, H, K, D = RG_WINDOW_CUT
-    q, k, v = _qkv(B, S, T, H, K, D, torch.bfloat16, seed=3)
-    got = kernel.flash_attention_cuda(q, k, v, True, RG_WINDOW)
-    want = ref.attention_ref(q, k, v, True, RG_WINDOW)
-    torch.cuda.synchronize()
-    err_cut = float((got.float() - want.float()).abs().max())
-    if not _close(got, want, K4_TOL["bfloat16"]):
-        raise SystemExit(f"K4 differs from its plain version by {err_cut} "
-                         f"at {RG_WINDOW_CUT} window={RG_WINDOW}")
-    del q, k, v, got, want
+    err_cut = _k4_hold(RG_WINDOW_CUT, True, RG_WINDOW, torch.bfloat16, 3)
 
-    _line("k4", time.time() - t0, checks=2 * len(K4_GRID) + 3,
-          err_f32=f"{grid_err['float32']:.3g}",
-          err_bf16=f"{grid_err['bfloat16']:.3g}", err_olmo=f"{err:.3g}",
-          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-          library_ms=f"{library_ms:.4f}", bound_ms=f"{bound:.5f}",
+    _line("k4", time.time() - t0,
+          checks=2 * len(K4_GRID) + len(K4_TC_EDGES) + 3,
+          tensor_core_checks=tc_held, err_f32=f"{grid_err['float32']:.3g}",
+          err_bf16=f"{grid_err['bfloat16']:.3g}",
+          err_tc_edges=f"{err_edges:.3g}", err_olmo=f"{err:.3g}",
+          ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.4f}",
+          library_ms=f"{library_ms:.5f}", bound_ms=f"{bound:.5f}",
           tflops=f"{n_ops / ms / 1e9:.2f}", err_d256=f"{err_rg:.3g}",
-          err_d256_window_cut=f"{err_cut:.3g}", ms_d256=f"{ms_rg:.4f}",
+          err_d256_window_cut=f"{err_cut:.3g}", ms_d256=f"{ms_rg:.5f}",
           plain_ms_d256=f"{plain_rg:.4f}",
-          library_ms_d256=f"{library_rg:.4f}",
+          library_ms_d256=f"{library_rg:.5f}",
           bound_ms_d256=f"{bound_rg:.5f}",
           tflops_d256=f"{ops_rg / ms_rg / 1e9:.2f}")
     return {
@@ -1192,22 +1235,31 @@ def phase_main():
 
 
 def phase_full_width():
+    """One FCFS load-0.8 round on one PON of 2048 ONUs, then of 4096 (K2
+    at 4096 queues a row), each held to the numpy engine's sync."""
     from repro_torch.kernels.ponsim import kernel as k2
     from repro_torch.kernels.traffic import kernel as k1
     from repro_torch.net import simulate
 
     t0 = time.time()
-    spec = full_width_spec()
-    k1.launches = 0
-    k2.launches = 0
-    res = simulate(spec, device="cuda")[0]
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    if abs(res.sync_time - SYNC_2048) > SYNC_TOL:
-        raise SystemExit(f"2048-ONU sync {res.sync_time!r} != "
-                         f"{SYNC_2048!r}")
-    _line("full_width", wall, n_onus=2048, sync=repr(res.sync_time),
-          k1_launches=k1.launches, k2_launches=k2.launches)
+    out = {}
+    for n, want in ((2048, SYNC_2048), (4096, SYNC_4096)):
+        t_run = time.time()
+        k1.launches = 0
+        k2.launches = 0
+        res = simulate(full_width_spec(n), device="cuda")[0]
+        torch.cuda.synchronize()
+        wall = time.time() - t_run
+        if abs(res.sync_time - want) > SYNC_TOL:
+            raise SystemExit(f"{n}-ONU sync {res.sync_time!r} != {want!r}")
+        if not (k1.launches and k2.launches):
+            raise SystemExit(f"{n}-ONU round: K1 {k1.launches}, K2 "
+                             f"{k2.launches} launches")
+        out.update({f"wall_s_{n}": f"{wall:.3f}",
+                    f"sync_{n}": repr(res.sync_time),
+                    f"k1_launches_{n}": k1.launches,
+                    f"k2_launches_{n}": k2.launches})
+    _line("full_width", time.time() - t0, **out)
 
 
 def _serve_run(cfg, params, prompts, kernels, feed=None):
@@ -1328,13 +1380,30 @@ def _serve_line(phase, t0, cfg, n_pre, n_dec, prefill_ms, decode_ms,
           tokens=generated[0, :8].tolist())
 
 
+class _TensorCoreCount:
+    """K4's tensor-core counter (``launches_tc``) as a kernel count of its
+    own, set and read where the serve phases set and read ``launches``."""
+
+    def __init__(self, module):
+        self.module = module
+
+    @property
+    def launches(self) -> int:
+        return self.module.launches_tc
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.module.launches_tc = value
+
+
 def phase_serve():
     from repro_torch.configs import get_config
     from repro_torch.kernels.attention import kernel as k4
 
     t0 = time.time()
-    kernels = {"k4": k4}
-    out, launches, peak_gb = _serve_entry("olmo-1b", kernels, {"k4": 16})
+    kernels = {"k4": k4, "k4_tc": _TensorCoreCount(k4)}
+    out, launches, peak_gb = _serve_entry("olmo-1b", kernels,
+                                          {"k4": 16, "k4_tc": 16})
 
     # the same weights and prompts through the step functions: K4 per
     # layer in the prefill and never in decode, then the plain attention
@@ -1343,9 +1412,10 @@ def phase_serve():
     _serve_run(cfg, params, prompts, kernels)            # warm-up
     steps, toks, n_pre, n_dec, prefill_ms, decode_ms = _serve_run(
         cfg, params, prompts, kernels)
-    if (n_pre, n_dec) != ({"k4": 16}, {"k4": 0}):
+    if (n_pre, n_dec) != ({"k4": 16, "k4_tc": 16},
+                          {"k4": 0, "k4_tc": 0}):
         raise SystemExit(f"K4 launches: prefill {n_pre}, decode {n_dec}; "
-                         f"want 16 and 0")
+                         f"want 16 (all on the tensor cores) and 0")
     generated = torch.cat(toks, dim=1).cpu().numpy()
     feed = toks[:SERVE_FORCED]
     plain = cfg.replace(attn_impl="reference")
@@ -1355,7 +1425,7 @@ def phase_serve():
     held = _hold_logits(steps, want, exact, LOGIT_TOL, F32_RATIO)
     _serve_line("serve", t0, cfg, n_pre, n_dec, prefill_ms, decode_ms,
                 peak_gb, held, generated, out)
-    return launches["k4"]
+    return launches
 
 
 def _ssd_inputs(B, S, H, P, N, dtype, seed=0, h0=False):
@@ -1439,9 +1509,8 @@ def phase_k5():
                          f"{max(err_y, err_h)} (relative) at mamba2-780m's "
                          f"prefill shape")
     del y, h, y_w, h_w
-    ms = _time_ms(lambda: kernel.ssd_scan_cuda(*args, chunk, h0))
-    plain_ms = _time_ms(lambda: ref.ssd_chunked_ref(*args, chunk, h0),
-                        reps=5)
+    ms = _device_ms(kernel.ssd_scan_cuda, [(*args, chunk, h0)])
+    plain_ms = _device_ms(ref.ssd_chunked_ref, [(*args, chunk, h0)], reps=4)
     xh, bm, cm, dt, a = args
     n_bytes = (xh.numel() * 2 + (bm.numel() + cm.numel()) * 2
                + dt.numel() * 4 + a.numel() * 4 + 2 * h0.numel() * 4
@@ -1554,8 +1623,8 @@ def phase_k6():
         raise SystemExit(f"K6 differs from its plain version by {err} "
                          f"(relative) at recurrentgemma-2b's prefill shape")
     del got, want
-    ms = _time_ms(lambda: kernel.rglru_scan_cuda(a, b, h0))
-    plain_ms = _time_ms(lambda: ref.rglru_scan_ref(a, b, h0), reps=5)
+    ms = _device_ms(kernel.rglru_scan_cuda, [(a, b, h0)])
+    plain_ms = _device_ms(ref.rglru_scan_ref, [(a, b, h0)], reps=2)
     n_bytes = (a.numel() + b.numel() + h0.numel() + a.numel()) * 4
     n_ops = 2 * a.numel()                            # one FMA an element
     bound = max(n_bytes / HBM_BYTES_S, n_ops / OPS32_S) * 1e3
@@ -1588,15 +1657,16 @@ def phase_serve_recurrentgemma():
     cfg = get_config("recurrentgemma-2b")
     n_rec = sum(s.kind == RGLRU for s in
                 cfg.pattern * cfg.n_units + cfg.remainder_pattern)
-    kernels = {"k6": k6, "k4": k4}
-    want_pre = {"k6": n_rec, "k4": cfg.n_layers - n_rec}
+    kernels = {"k6": k6, "k4": k4, "k4_tc": _TensorCoreCount(k4)}
+    want_pre = {"k6": n_rec, "k4": cfg.n_layers - n_rec,
+                "k4_tc": cfg.n_layers - n_rec}
     out, launches, peak_gb = _serve_entry(cfg.name, kernels, want_pre)
 
     params, prompts = _same_weights(cfg)
     _serve_run(cfg, params, prompts, kernels)            # warm-up
     steps, toks, n_pre, n_dec, prefill_ms, decode_ms = _serve_run(
         cfg, params, prompts, kernels)
-    if (n_pre, n_dec) != (want_pre, {"k6": 0, "k4": 0}):
+    if (n_pre, n_dec) != (want_pre, {"k6": 0, "k4": 0, "k4_tc": 0}):
         raise SystemExit(f"K6/K4 launches: prefill {n_pre}, decode {n_dec}; "
                          f"want {want_pre} and none")
     generated = torch.cat(toks, dim=1).cpu().numpy()
@@ -1636,16 +1706,18 @@ def main() -> int:
     # K3 and K3' run once a leaf of every arrived update of the int8 run
     launches["quantize_int8"] = launches["dequantize_int8"] = \
         phase_fl_fig2a()
-    k4_olmo = phase_serve()
+    olmo = phase_serve()
     launches["ssd_scan"] = phase_serve_mamba2()
     rg = phase_serve_recurrentgemma()
-    # K4 runs on two serving paths: olmo-1b's and recurrentgemma-2b's
-    launches["flash_attention"] = k4_olmo + rg["k4"]
+    # K4 runs on two serving paths: olmo-1b's and recurrentgemma-2b's,
+    # there on the tensor-core kernel alone
+    launches["flash_attention"] = olmo["k4"] + rg["k4"]
     launches["rglru_scan"] = rg["k6"]
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
         if entry["name"] == "flash_attention":
-            entry["launches_by_path"] = {"olmo-1b": k4_olmo,
+            entry["launches_tc"] = olmo["k4_tc"] + rg["k4_tc"]
+            entry["launches_by_path"] = {"olmo-1b": olmo["k4"],
                                          "recurrentgemma-2b": rg["k4"]}
     _line("total", time.time() - t0)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,10 +11,11 @@ steps to warm up, then the same unprofiled (host clock around work that
 ends in a synchronise) and under ``torch.profiler``. For the prefill and
 the decode steps apart it reports the wall time, the device's busy
 share (summed kernel time over the unprofiled wall), the device time of
-the flash-attention kernel K4, the SSD-scan kernel K5, the RG-LRU scan
-K6, the matrix products (cuBLAS kernel names: gemm, gemv, xmma, cutlass,
-nvjet), split into float32 ones (sgemm, f32f32, simt) and the rest, of
-copies and casts (``copy`` in the name), of the rest, and the kernels
+the flash-attention kernel K4 (and of it, the tensor-core kernel's), the
+SSD-scan kernel K5, the RG-LRU scan K6, the matrix products (cuBLAS
+kernel names: gemm, gemv, xmma, cutlass, nvjet), split into float32
+ones (sgemm, f32f32, simt) and the rest, of copies and casts (``copy``
+in the name), of the rest, and the kernels
 that take the most device time. Where the model has RG-LRU layers it
 also times one float32 gate product ((B·S, R) @ (R, R), CUDA events)
 and scales it to the prefill's 2 a layer. The JSON summary is printed
@@ -78,6 +79,7 @@ def _breakdown(events, wall_s: float) -> dict:
         return sum(t for t, name, _ in kernels if pick(name.lower()))
 
     k4 = total(lambda n: "flash_fwd_kernel" in n)
+    k4_tc = total(lambda n: "flash_fwd_kernel_tc" in n)
     k5 = total(lambda n: "ssd_scan_kernel" in n)
     k6 = total(lambda n: "rglru_scan_kernel" in n)
     gemm = total(lambda n: any(m in n for m in GEMM_MARKS))
@@ -90,6 +92,7 @@ def _breakdown(events, wall_s: float) -> dict:
         "device_busy_ms": busy / 1e3,
         "device_busy_share": busy * 1e-6 / wall_s,
         "k4_ms": k4 / 1e3,
+        "k4_tensor_core_ms": k4_tc / 1e3,
         "k5_ms": k5 / 1e3,
         "k6_ms": k6 / 1e3,
         "gemm_ms": gemm / 1e3,

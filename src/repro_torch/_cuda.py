@@ -98,10 +98,12 @@ def library() -> ctypes.CDLL:
         lib.repro_traffic_sample.argtypes = [
             p, p, p, p, p, i, i, i, ctypes.c_uint, i, i, i, i, p]
         lib.repro_traffic_sample.restype = i
-        lib.repro_waterfill_grants.argtypes = [p, p, p, p, p, i, i, p]
+        lib.repro_waterfill_grants.argtypes = [p, p, p, p, p, i, i, p, p]
         lib.repro_waterfill_grants.restype = i
+        lib.repro_waterfill_scratch_bytes.argtypes = [i]
+        lib.repro_waterfill_scratch_bytes.restype = ctypes.c_longlong
         lib.repro_flash_attn_fwd.argtypes = [
-            p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+            p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
         lib.repro_flash_attn_fwd.restype = i
         q = ctypes.c_int64
         lib.repro_ssd_scan_fwd.argtypes = [

@@ -1,13 +1,47 @@
 // K4: flash-attention forward (causal / sliding-window / GQA), hand-written for sm_90a.
 //
 // Replaces the TPU kernel repro/kernels/attention/kernel.py::flash_attention_fwd
-// (body _flash_kernel). It computes exactly the plain attention_ref:
+// (body _flash_kernel). It computes the plain attention_ref:
 //   out[b, s, h] = softmax_t(q[b, s, h] . k[b, t, h / (H/K)] * D^-0.5, masked) . v[b, t, h / (H/K)]
 // with the mask t < T, causal t <= s, window s - t < window, an fp32 softmax and
 // fp32 accumulators, written in q's dtype (float32 or bfloat16). A row with no live
-// key writes 0 (the TPU kernel's `safe` guard).
+// key writes 0 (the TPU kernel's `safe` guard). Two kernels, routed by the wrapper
+// (kernels/attention/kernel.py::route) on (dtype, head dim):
 //
-// Design (simple and right first):
+// flash_fwd_kernel_tc: bfloat16 at D in {64, 128, 256}, the serving paths. Built for
+// Hopper's tensor cores. What bounds the function on this card is operations: at
+// olmo-1b's prefill (4, 2048, 16 heads, d 128) ~69 GFLOP against ~134 MB, far above
+// the bf16 tensor-core balance of ~295 FLOP a byte. So:
+//   * one warpgroup (128 threads) a block of 64 query rows of one (head, batch);
+//     S = Q.K^T runs on wgmma m64n64k16 with Q and K from shared memory, O += P.V
+//     on wgmma m64nDk16 with P from registers and V from shared memory (MN-major,
+//     the descriptor's transpose bit); fp32 accumulators;
+//   * the online softmax (row max, exp2, row sum, the alpha rescale) runs on the
+//     wgmma accumulator layout in registers. The S fragment of a 16-key step is
+//     exactly the register A fragment of the P.V product, so P is rounded to bf16
+//     and packed in place: no shared-memory round trip. The row sums keep P in fp32;
+//   * copies are TMA: tensor maps over q (B, S, H, D) and k, v (B, T, K, D) as
+//     given (4-D, no transpose, no padding copy), 128-byte swizzle, so a D-wide tile
+//     arrives as D/64 column slabs of 64 bf16 a row and the wgmma descriptors walk
+//     them. Q is loaded once; K and V tiles of 64 keys stream through a ring of 2
+//     stages, each completed on its own mbarrier, so S = Q.K^T starts before V lands
+//     and the next tile's copies overlap this tile's products. TMA's zero fill covers
+//     the ragged edges of S and T; the mask still decides which scores are live;
+//   * the output goes back through shared memory (Q's buffer, swizzled) and one TMA
+//     store a slab, which drops the rows past S;
+//   * work skipped, as the CUDA-core kernel: only the live band of key tiles is
+//     visited (causal, window), causal query tiles run heaviest first, and only tiles
+//     that cross the diagonal, the window's edge or T are masked.
+//   Shared memory: Q 64 x D + 2 stages x (K + V) of 64 x D bf16 (+1 KB alignment):
+//   40 KB at D = 64, 80 KB at D = 128 (two blocks an SM), 160 KB at D = 256 (one).
+//   Registers: D/2 fp32 of O, 32 of S and 16 of packed P a thread.
+//   Not yet: a producer warp with setmaxnreg, two consumer warpgroups in ping-pong,
+//   several query heads of one kv head a block.
+//
+// flash_fwd_kernel: float32 inputs, and bfloat16 at D 16 and 32 (test head dims only),
+// on CUDA cores in fp32. Tensor cores would mean TF32 for float32 inputs, about three
+// decimal digits, which fails K4's 2e-5 float32 tolerance and the float32 logit gates
+// of the serving paths. Design (simple and right first):
 //   * one block per (tile of 64 query rows, head, batch); the TPU kernel's sequential
 //     kv grid axis becomes a loop inside the block over 32-key tiles of the live band
 //     only: up to the tile's last query when causal, from q0 - window + 1 with a
@@ -24,17 +58,15 @@
 //   * shared memory is 4 * (64 (D + 1) + 32 (D + 1) + 32 D + 64 * 33) bytes, opted in
 //     above 48 KB: at D = 256 (recurrentgemma-2b's heads) 139,904 B, one block an SM,
 //     and each thread holds 4 x 16 output accumulators.
-// Products run on CUDA cores in fp32 (no tensor cores: wgmma / mma.sync and TMA are
-// later work). What bounds it on this card: at the olmo-1b prefill shape
-// (4, 2048, 16 heads, d 128, bf16) the work is ~69 GFLOP against ~134 MB of q/k/v/o,
-// above the H100's ops-per-byte balance, so it is bound by operations; on CUDA cores
-// it runs at the fp32 non-tensor rate, not the 989 TFLOP/s bf16 tensor rate that
-// bounds the function. The register micro-tiles (4 x 2 scores, 4 x D/16 outputs a
-// thread) keep shared-memory reads below one per FMA.
+// What bounds it: the fp32 non-tensor rate; the register micro-tiles (4 x 2 scores,
+// 4 x D/16 outputs a thread) keep shared-memory reads below one per FMA.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -211,23 +243,514 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o, int B,
   switch (D) {
     case 16: return launch<16, T>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, stream);
     case 32: return launch<32, T>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, stream);
-    case 64: return launch<64, T>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, stream);
-    case 128: return launch<128, T>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, stream);
-    case 256: return launch<256, T>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if constexpr (std::is_same<T, float>::value) {  // bf16 at D >= 64: flash_fwd_kernel_tc
+    switch (D) {
+      case 64:
+        return launch<64, T>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, stream);
+      case 128:
+        return launch<128, T>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, stream);
+      case 256:
+        return launch<256, T>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, stream);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------------
+// flash_fwd_kernel_tc: bfloat16 on the tensor cores (wgmma), K and V through TMA.
+
+constexpr int kTcThreads = 128;   // one warpgroup
+constexpr int kTcBQ = 64;         // query rows a block (wgmma's M)
+constexpr int kTcBK = 64;         // keys a kv tile
+constexpr int kTcStages = 2;      // K/V ring
+constexpr int kSlabRow = 128;     // bytes of one swizzled row: 64 bf16
+
+template <int D>
+struct TcLayout {
+  static constexpr int kSlabs = D / 64;
+  static constexpr int kQBytes = kTcBQ * D * 2;   // kSlabs slabs of 64 rows x 128 B
+  static constexpr int kKVBytes = kTcBK * D * 2;  // kSlabs slabs of 64 keys x 128 B
+  static constexpr int kBytes = kQBytes + 2 * kTcStages * kKVBytes;
+  static constexpr int kSmem = kBytes + 1024;     // room to align the base to 1 KB
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
   }
 }
 
+// one box of the 4-D map {D, heads, positions, batch} at (d0, head, pos, b)
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int d0,
+                                         int head, int pos, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(head), "r"(pos), "r"(b),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int d0, int head,
+                                          int pos, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(d0), "r"(head), "r"(pos), "r"(b)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor, 128-byte swizzle: start address, leading and
+// stride byte offsets (in 16-byte units in the descriptor).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of a wgmma's registers (its
+// accumulators, and its A fragment, which it reads asynchronously) across it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// S(64 x 64) (+)= A(64 x 16) . B(16 x 64), both from shared memory, K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D(64 x 64) += A(64 x 16, registers) . B(16 x 64, shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D(64 x 128) += A(64 x 16, registers) . B(16 x 128, shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D(64 x 256) += A(64 x 16, registers) . B(16 x 256, shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]),
+        "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (D == 64) wgmma_rs_n64(o, a, desc);
+  else if constexpr (D == 128) wgmma_rs_n128(o, a, desc);
+  else wgmma_rs_n256(o, a, desc);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Thread t of the warpgroup owns, in every wgmma accumulator, rows
+// r0 = 16 (t / 32) + (t % 32) / 4 and r0 + 8, and in each 8-column group j the two
+// columns 8 j + 2 (t % 4) + {0, 1}: element 4 j + 2 half + e.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+                    int S, int n_keys, int H, int KH, int causal, int window, float scale_log2) {
+  using L = TcLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q;
+  __shared__ __align__(8) uint64_t bar_k[kTcStages];
+  __shared__ __align__(8) uint64_t bar_v[kTcStages];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* sQ = base;                                // also the output tile
+  unsigned char* sK = sQ + L::kQBytes;                     // [stage][slab][64 keys][128 B]
+  unsigned char* sV = sK + kTcStages * L::kKVBytes;
+
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / (H / KH);
+  const int q0 = qt * kTcBQ;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int r0 = 16 * (tid / 32) + lane / 4;               // and r0 + 8
+  const int c0 = 2 * (lane % 4);
+
+  // the live band of key tiles
+  const int q_last = min(q0 + kTcBQ, S) - 1;
+  const int k_hi = causal ? min(n_keys - 1, q_last) : n_keys - 1;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_lo = k_lo / kTcBK;
+  const int n_tiles = k_hi >= k_lo ? k_hi / kTcBK - t_lo + 1 : 0;
+
+  auto load_kv = [&](int stage, int tile) {
+    const int k0 = tile * kTcBK;
+    unsigned char* k_dst = sK + stage * L::kKVBytes;
+    unsigned char* v_dst = sV + stage * L::kKVBytes;
+    mbar_expect_tx(&bar_k[stage], L::kKVBytes);
+#pragma unroll
+    for (int sl = 0; sl < L::kSlabs; ++sl)
+      tma_load(k_dst + sl * kTcBK * kSlabRow, &tm_k, &bar_k[stage], 64 * sl, kh, k0, b);
+    mbar_expect_tx(&bar_v[stage], L::kKVBytes);
+#pragma unroll
+    for (int sl = 0; sl < L::kSlabs; ++sl)
+      tma_load(v_dst + sl * kTcBK * kSlabRow, &tm_v, &bar_v[stage], 64 * sl, kh, k0, b);
+  };
+
+  if (tid == 0) {
+    mbar_init(&bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&bar_k[s], 1);
+      mbar_init(&bar_v[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bar_q, L::kQBytes);
+#pragma unroll
+    for (int sl = 0; sl < L::kSlabs; ++sl)
+      tma_load(sQ + sl * kTcBQ * kSlabRow, &tm_q, &bar_q, 64 * sl, h, q0, b);
+    for (int s = 0; s < kTcStages && s < n_tiles; ++s) load_kv(s, t_lo + s);
+  }
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};                                 // this thread's columns only
+  const uint32_t q_addr = smem_u32(sQ);
+  mbar_wait(&bar_q, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int stage = i % kTcStages;
+    const uint32_t parity = (i / kTcStages) & 1;
+    const int k0 = (t_lo + i) * kTcBK;
+    const uint32_t k_addr = smem_u32(sK + stage * L::kKVBytes);
+    const uint32_t v_addr = smem_u32(sV + stage * L::kKVBytes);
+
+    // S = Q . K^T: D/16 steps of 16; the step's 32 bytes sit inside a slab's row
+    float s[kTcBK / 2];
+    mbar_wait(&bar_k[stage], parity);
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t q_off = (kk / 4) * kTcBQ * kSlabRow + (kk % 4) * 32;
+      const uint32_t k_off = (kk / 4) * kTcBK * kSlabRow + (kk % 4) * 32;
+      wgmma_ss_n64(s, sw128_desc(q_addr + q_off, 16, 1024), sw128_desc(k_addr + k_off, 16, 1024),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // mask (edge tiles only), online softmax in the log2 domain
+    const bool full = k0 + kTcBK <= n_keys && (!causal || k0 + kTcBK - 1 <= q0) &&
+                      (window <= 0 || q0 + kTcBQ - 1 - k0 < window);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kTcBK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e / 2;
+        float x = s[4 * j + e] * scale_log2;
+        if (!full) {
+          const int kp = k0 + 8 * j + c0 + (e & 1);
+          const int qp = q0 + r0 + 8 * half;
+          const bool live = kp < n_keys && (!causal || kp <= qp) &&
+                            (window <= 0 || qp - kp < window);
+          if (!live) x = -INFINITY;
+        }
+        s[4 * j + e] = x;
+        mx[half] = fmaxf(mx[half], x);
+      }
+    }
+    float alpha[2], base_m[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+      const float m_new = fmaxf(m[half], mx[half]);
+      alpha[half] = m_new == -INFINITY ? 1.f : exp2f(m[half] - m_new);
+      base_m[half] = m_new == -INFINITY ? 0.f : m_new;
+      m[half] = m_new;
+      l[half] *= alpha[half];
+    }
+    uint32_t p[kTcBK / 4];
+#pragma unroll
+    for (int j = 0; j < kTcBK / 8; ++j) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float p0 = exp2f(s[4 * j + 2 * half] - base_m[half]);
+        const float p1 = exp2f(s[4 * j + 2 * half + 1] - base_m[half]);
+        l[half] += p0 + p1;
+        p[2 * j + half] = pack_bf16(p0, p1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e / 2];
+    }
+
+    // O += P . V: kTcBK/16 steps; V is MN-major (rows of keys, D contiguous):
+    // 8-key groups 1 KB apart, 64-column slabs kTcBK rows apart
+    mbar_wait(&bar_v[stage], parity);
+    fence_regs(o);
+    fence_regs(p);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk) {
+      const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+      wgmma_pv<D>(o, a, sw128_desc(v_addr + kk * 16 * kSlabRow, kTcBK * kSlabRow, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    fence_regs(p);
+
+    __syncthreads();                                       // this stage is free
+    if (tid == 0 && i + kTcStages < n_tiles) load_kv(stage, t_lo + i + kTcStages);
+  }
+
+  // normalise, write the tile into Q's buffer in the swizzled layout, TMA-store it
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+    l[half] = l[half] > 0.f ? 1.f / l[half] : 0.f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+      const int col = 8 * j + c0;                          // even: one 4-byte pair
+      const int slab = col / 64, chunk = (col % 64) / 8;
+      unsigned char* dst = sQ + slab * kTcBQ * kSlabRow + r * kSlabRow +
+                           ((chunk ^ (r % 8)) * 16) + (col % 8) * 2;
+      *reinterpret_cast<uint32_t*>(dst) =
+          pack_bf16(o[4 * j + 2 * half] * l[half], o[4 * j + 2 * half + 1] * l[half]);
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int sl = 0; sl < L::kSlabs; ++sl)
+      tma_store(&tm_o, sQ + sl * kTcBQ * kSlabRow, 64 * sl, h, q0, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime: no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-D map {D, heads, positions, batch} of a contiguous (batch, positions, heads, D)
+// bf16 tensor, boxes of 64 columns x 1 head x `rows` positions, 128-byte swizzle.
+bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int n_pos, int heads,
+                int D, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(n_pos), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(heads) * D * 2,
+                                 static_cast<cuuint64_t>(n_pos) * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S, int n_keys, int H,
+              int KH, int causal, int window, float scale, cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if (!encode_map(encode, &tm_q, q, B, S, H, D, kTcBQ) ||
+      !encode_map(encode, &tm_k, k, B, n_keys, KH, D, kTcBK) ||
+      !encode_map(encode, &tm_v, v, B, n_keys, KH, D, kTcBK) ||
+      !encode_map(encode, &tm_o, o, B, S, H, D, kTcBQ))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = TcLayout<D>::kSmem;
+  auto fn = flash_fwd_kernel_tc<D>;
+  const cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + kTcBQ - 1) / kTcBQ, H, B);
+  fn<<<grid, kTcThreads, smem, stream>>>(tm_q, tm_k, tm_v, tm_o, S, n_keys, H, KH, causal, window,
+                                         scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
 }  // namespace
 
 // q, o: (B, S, H, D); k, v: (B, T, KH, D); contiguous, all float32 (bf16 = 0) or all
-// bfloat16 (bf16 = 1); H % KH == 0; D in {16, 32, 64, 128, 256}; window <= 0 means none.
+// bfloat16 (bf16 = 1); H % KH == 0; window <= 0 means none. tensor_cores = 1 launches
+// flash_fwd_kernel_tc (bfloat16, D in {64, 128, 256}, T >= 1, 16-byte aligned
+// pointers), 0 flash_fwd_kernel (float32 at D in {16, 32, 64, 128, 256}, bfloat16
+// at D in {16, 32}).
 extern "C" int repro_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                                     int B, int S, int n_keys, int H, int KH, int D,
                                     int causal, int window, float scale, int bf16,
-                                    void* stream) {
+                                    int tensor_cores, void* stream) {
   if (KH <= 0 || H % KH != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tensor_cores) {
+    if (!bf16 || n_keys < 1) return static_cast<int>(cudaErrorInvalidValue);
+    switch (D) {
+      case 64: return launch_tc<64>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, st);
+      case 128: return launch_tc<128>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, st);
+      case 256: return launch_tc<256>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   return bf16 ? dispatch<__nv_bfloat16>(D, q, k, v, o, B, S, n_keys, H, KH, causal, window,
                                         scale, st)
               : dispatch<float>(D, q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, st);

@@ -1,11 +1,23 @@
 """Hopper kernel K4: the flash-attention forward.
 
 Binds ``csrc/flash_attn.cu`` (the port of the TPU kernel
-``repro/kernels/attention/kernel.py::flash_attention_fwd``): one block per
-(64 query rows, head, batch), a loop over the live band of 32-key tiles,
-online softmax with fp32 accumulators, products on CUDA cores. It reads
-q ``(B, S, H, D)`` and k/v ``(B, T, K, D)`` in place: no padding, no
-transposes. ``ref.attention_ref`` is its plain version.
+``repro/kernels/attention/kernel.py::flash_attention_fwd``), which holds
+two kernels; :func:`route` picks one from the dtype and head dim:
+
+* ``"tensor_cores"``, bfloat16 at head dims 64, 128 and 256 (every
+  served model): one warpgroup per (64 query rows, head, batch), S = Q·Kᵀ
+  and O += P·V on ``wgmma`` with fp32 accumulators, P rounded to bf16
+  in registers, K and V tiles through TMA into a two-stage ring on
+  ``mbarrier``s, the output stored through TMA;
+* ``"cuda_cores"``, float32 at every head dim and bfloat16 at 16 and 32
+  (test shapes only): one block per (64 query rows, head, batch), fp32
+  products on CUDA cores. Tensor cores would mean TF32 for float32
+  inputs, about three decimal digits: that fails K4's 2e-5 float32
+  tolerance and the serving paths' float32 logit gates.
+
+Both loop over the live band of key tiles with an online softmax, and
+read q ``(B, S, H, D)`` and k/v ``(B, T, K, D)`` in place: no padding,
+no transposes. ``ref.attention_ref`` is their plain version.
 
 A query row with no live key (only possible with a window and
 S >= T + window) is written as 0, the TPU kernel's
@@ -20,8 +32,18 @@ import torch
 from repro_torch import _cuda
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+TC_HEAD_DIMS = (64, 128, 256)     # the tensor-core kernel's, bf16 only
 DTYPES = (torch.float32, torch.bfloat16)
-launches = 0                      # kernel launches since the last reset
+launches = 0                      # launches of either kernel since the last reset
+launches_tc = 0                   # of them, the tensor-core kernel's
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that takes inputs of ``dtype`` at ``head_dim``:
+    ``"tensor_cores"`` or ``"cuda_cores"``."""
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -33,7 +55,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bfloat16) on one device, ``D`` in ``HEAD_DIMS``. ``window`` is None
     or a positive number of keys (``q_pos - k_pos < window``).
     """
-    global launches
+    global launches, launches_tc
     if q.dtype not in DTYPES:
         raise ValueError(f"q must be float32 or bfloat16; got {q.dtype}")
     _cuda.require(q, "q", q.dtype, (None,) * 4)
@@ -50,7 +72,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{H} query heads do not group over {K} kv heads")
     if window is not None and int(window) < 1:
         raise ValueError(f"window must be None or >= 1; got {window}")
+    tensor_cores = route(q.dtype, D) == "tensor_cores"
+    if tensor_cores and T == 0:
+        raise ValueError("the tensor-core kernel needs at least one key")
     out = torch.empty_like(q)
+    if tensor_cores and any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("the tensor-core kernel's TMA copies need "
+                         "16-byte aligned q, k and v")
     if out.numel():
         lib = _cuda.library()
         with torch.cuda.device(q.device):
@@ -58,7 +86,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 B, S, T, H, K, D, int(causal),
                 0 if window is None else int(window), D ** -0.5,
-                int(q.dtype == torch.bfloat16), _cuda.stream_handle(q))
+                int(q.dtype == torch.bfloat16), int(tensor_cores),
+                _cuda.stream_handle(q))
         _cuda.check(rc, "flash attention")
         launches += 1
+        launches_tc += tensor_cores
     return out

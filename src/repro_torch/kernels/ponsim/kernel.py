@@ -2,8 +2,10 @@
 
 Binds ``csrc/waterfill.cu`` (the port of the TPU kernel
 ``repro/kernels/ponsim/kernel.py::waterfill_grants_pallas``): one block
-per row, stable ranks by an O(N²) count, a sequential prefix in rank
-order. It equals ``ref.waterfill_grants_ref`` on the CPU bit for bit.
+per row, stable ranks by a bitonic sort of (key, index), a sequential
+prefix in rank order. It takes rows of any width: past the card's
+shared memory the wrapper hands the kernel a global scratch buffer. It
+equals ``ref.waterfill_grants_ref`` on the CPU bit for bit.
 """
 from __future__ import annotations
 
@@ -11,8 +13,6 @@ import torch
 
 from repro_torch import _cuda
 
-_SMEM_LIMIT = 48 * 1024           # default dynamic shared memory a block
-MAX_QUEUES = _SMEM_LIMIT // 20    # keys + backlog (f64) + index (i32)
 launches = 0                      # kernel launches since the last reset
 
 
@@ -32,16 +32,21 @@ def waterfill_grants_cuda(backlog: torch.Tensor, key: torch.Tensor,
     _cuda.require(key, "key", torch.float64, (R, N))
     _cuda.require(cap, "cap", torch.float64, (R,))
     _cuda.require(hard, "hard", torch.bool, (R,))
-    if N > MAX_QUEUES:
-        raise ValueError(f"{N} queues a row exceed the kernel's shared "
-                         f"memory (at most {MAX_QUEUES})")
     grants = torch.empty_like(backlog)
     if R and N:
         lib = _cuda.library()
         with torch.cuda.device(backlog.device):
+            row_bytes = lib.repro_waterfill_scratch_bytes(N)
+            if row_bytes < 0:
+                raise RuntimeError("waterfill: cannot query the device's "
+                                   "shared memory")
+            scratch = (torch.empty(R * row_bytes, dtype=torch.uint8,
+                                   device=backlog.device)
+                       if row_bytes else None)
             rc = lib.repro_waterfill_grants(
                 backlog.data_ptr(), key.data_ptr(), cap.data_ptr(),
                 hard.data_ptr(), grants.data_ptr(), R, N,
+                None if scratch is None else scratch.data_ptr(),
                 _cuda.stream_handle(backlog))
         _cuda.check(rc, "waterfill")
         launches += 1

@@ -18,6 +18,7 @@ import torch
 from repro.kernels.attention.kernel import flash_attention_fwd
 from repro.kernels.attention.ref import attention_ref as jax_attention_ref
 from repro_torch import _cuda
+from repro_torch.configs import get_config
 from repro_torch.kernels.attention import kernel, ops, ref
 
 # (B, S, T, H, K, D, causal, window)
@@ -92,6 +93,40 @@ def test_ops_on_cpu_takes_the_plain_version():
     assert torch.equal(got, ref.attention_ref(q, k, v, True, 8))
     assert kernel.launches == before
     assert _cuda._lib is None
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_bf16_on_cpu_takes_the_plain_version(D):
+    """Inputs the card would send to the tensor-core kernel still take
+    the plain version when they lie on the CPU."""
+    q, k, v = (torch.as_tensor(a).to(torch.bfloat16)
+               for a in _inputs(1, 20, 20, 4, 2, D))
+    before = (kernel.launches, kernel.launches_tc)
+    got = ops.flash_attention(q, k, v, causal=True, window=None)
+    assert torch.equal(got, ref.attention_ref(q, k, v, True, None))
+    assert (kernel.launches, kernel.launches_tc) == before
+    assert _cuda._lib is None
+
+
+@pytest.mark.parametrize("D", kernel.TC_HEAD_DIMS)
+def test_route_bf16_served_head_dims_to_tensor_cores(D):
+    assert kernel.route(torch.bfloat16, D) == "tensor_cores"
+    assert kernel.route(torch.float32, D) == "cuda_cores"
+
+
+@pytest.mark.parametrize("D", [16, 32])
+def test_route_small_head_dims_to_cuda_cores(D):
+    assert kernel.route(torch.bfloat16, D) == "cuda_cores"
+    assert kernel.route(torch.float32, D) == "cuda_cores"
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "recurrentgemma-2b"])
+def test_served_models_route_to_tensor_cores(arch):
+    """Every served attention model computes in bf16 at a head dim the
+    tensor-core kernel takes."""
+    cfg = get_config(arch)
+    assert cfg.dtype == "bfloat16"
+    assert kernel.route(torch.bfloat16, cfg.d_head) == "tensor_cores"
 
 
 def test_ops_on_cpu_keeps_gradients():

@@ -21,6 +21,9 @@ plain version, and differs from it only by a fused multiply-add: within
 dequantise) are held bit for bit: the same IEEE divisions, roundings and
 products in both.
 """
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -131,13 +134,38 @@ def test_waterfill_kernel_matches_plain(cuda, N, int_keys):
     assert torch.equal(got.cpu(), k2_ref.waterfill_grants_ref(b, k, c, hard))
 
 
-def test_waterfill_rejects_too_wide_rows(cuda):
-    b = torch.zeros((1, k2.MAX_QUEUES + 1), dtype=torch.float64,
-                    device=cuda)
-    with pytest.raises(ValueError, match="shared"):
-        k2.waterfill_grants_cuda(b, b, b[:, 0].contiguous(),
-                                 torch.ones(1, dtype=torch.bool,
-                                            device=cuda))
+@pytest.mark.parametrize("N", [2458, 4096, 11_000, 16_384, 20_000])
+@pytest.mark.parametrize("int_keys", [False, True])
+def test_waterfill_kernel_at_any_row_width(cuda, N, int_keys):
+    """Rows past the old 2457-queue limit, up to the card's shared memory
+    (16,384 queues) and past it (the wrapper's global scratch)."""
+    b, k, c = _rows(N, 2, N, int_keys)
+    hard = k2_ref.hard_rows(b, c)
+    before = k2.launches
+    got = k2_ops.waterfill_grants(b, k, c, hard.to(cuda), device=cuda)
+    assert k2.launches == before + 1
+    assert torch.equal(got.cpu(), k2_ref.waterfill_grants_ref(b, k, c, hard))
+
+
+def test_full_width_4096_round_on_card(cuda):
+    """One FCFS load-0.8 round on one PON of 4096 ONUs, every ONU a
+    client, through K2 at 4096 queues a row: the numpy engine's sync
+    time (``chip_smoke.SYNC_4096``, recomputed from the JAX package by
+    ``tests/test_torch_engine.py``)."""
+    cs = _chip_smoke()
+    before = k2.launches
+    res = simulate(cs.full_width_spec(4096), device=cuda)[0]
+    assert k2.launches > before
+    assert abs(res.sync_time - cs.SYNC_4096) <= 1e-9
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _clients(ids, seed=0, m_lo=1e5, m_hi=1e6):
@@ -240,18 +268,75 @@ def test_flash_kernel_matches_plain(cuda_fp32, B, S, T, H, K, D, causal,
                                     window, dtype):
     dt, tol = K4_DTYPES[dtype]
     q, k, v = _qkv(B, S, T, H, K, D, dt, cuda_fp32)
-    before = k4.launches
+    before = (k4.launches, k4.launches_tc)
     got = k4.flash_attention_cuda(q, k, v, causal, window)
-    assert k4.launches == before + 1
+    tc = k4.route(dt, D) == "tensor_cores"
+    assert (k4.launches, k4.launches_tc) == (before[0] + 1, before[1] + tc)
     want = k4_ref.attention_ref(q, k, v, causal, window)
     torch.cuda.synchronize()
     assert got.dtype == dt and got.shape == (B, S, H, D)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# bf16 at the tensor-core kernel's tile edges (64 query rows, 64 keys):
+# one row, rows either side of a tile, T != S both ways, window 1, windows
+# cutting inside a tile, MQA 10:1 at D 256; every row keeps a live key
+K4_TC_EDGES = [
+    (1, 1, 1, 2, 1, 64, True, None),
+    (2, 63, 63, 4, 2, 128, True, None),
+    (1, 65, 65, 4, 4, 128, False, None),
+    (1, 129, 129, 10, 1, 256, True, None),
+    (1, 65, 100, 4, 2, 64, True, None),
+    (1, 129, 70, 4, 2, 128, True, None),
+    (2, 129, 129, 4, 2, 64, True, 1),
+    (1, 63, 90, 2, 1, 64, False, 30),
+    (1, 200, 200, 10, 1, 256, True, 37),
+    (2, 300, 300, 10, 1, 256, True, 100),
+]
+
+
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window", K4_TC_EDGES)
+def test_flash_tc_kernel_at_tile_edges(cuda, B, S, T, H, K, D, causal,
+                                       window):
+    q, k, v = _qkv(B, S, T, H, K, D, torch.bfloat16, cuda, seed=S + T)
+    before = k4.launches_tc
+    got = k4.flash_attention_cuda(q, k, v, causal, window)
+    assert k4.launches_tc == before + 1
+    want = k4_ref.attention_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window", [
+    (1, 100, 100, 2, 1, 128, True, None),
+    (1, 130, 130, 10, 1, 256, True, 40),
+    (2, 256, 256, 4, 2, 64, False, None),
+    (4, 2048, 2048, 16, 16, 128, True, None),
+    (4, 2048, 2048, 10, 1, 256, True, 2048),
+])
+def test_flash_tc_kernel_repeats_exactly(cuda, B, S, T, H, K, D, causal,
+                                         window):
+    """Ten launches on the same inputs give the same bits: the kernel's
+    copies, barriers and asynchronous products leave no race (a race on
+    the registers of P once gave wrong rows in some runs only)."""
+    q, k, v = _qkv(B, S, T, H, K, D, torch.bfloat16, cuda)
+    first = k4.flash_attention_cuda(q, k, v, causal, window)
+    want = k4_ref.attention_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(first.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    for _ in range(9):
+        again = k4.flash_attention_cuda(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        assert torch.equal(again, first)
+
+
 def test_flash_kernel_at_olmo_prefill(cuda_fp32):
     q, k, v = _qkv(4, 2048, 2048, 16, 16, 128, torch.bfloat16, cuda_fp32)
+    before = k4.launches_tc
     got = k4_ops.flash_attention(q, k, v, causal=True)
+    assert k4.launches_tc == before + 1
     want = k4_ref.attention_ref(q, k, v, True, None)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
@@ -263,7 +348,9 @@ def test_flash_kernel_at_recurrentgemma_prefill(cuda_fp32, S):
     """MQA, heads of 256, window 2048: at 2048 tokens the window never
     cuts, at 4096 it does."""
     q, k, v = _qkv(4, S, S, 10, 1, 256, torch.bfloat16, cuda_fp32)
+    before = k4.launches_tc
     got = k4_ops.flash_attention(q, k, v, causal=True, window=2048)
+    assert k4.launches_tc == before + 1
     want = k4_ref.attention_ref(q, k, v, True, 2048)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,

@@ -166,6 +166,23 @@ def test_chip_smoke_sync_table_matches_reference():
     assert res.sync_time == cs.SYNC_2048
 
 
+def test_chip_smoke_sync_4096_matches_reference():
+    """The 4096-ONU single-PON round that ``chip_smoke.py`` and the card
+    tests hold K2's widest engine rows to: the numpy engine's sync."""
+    cs = _load_chip_smoke()
+    case = cs.full_width_spec(4096).cases[0]
+    spec = cs.full_width_spec(4096)
+    ref_case = J.SweepCase(
+        workload=J.FLRoundWorkload(
+            clients=[ClientProfile(**vars(c))
+                     for c in case.workload.clients],
+            model_bits=case.workload.model_bits),
+        load=case.load, policy=case.policy, seed=case.seed)
+    res = J.simulate(J.SweepSpec(cases=(ref_case,),
+                                 pon=J.PONConfig(**vars(spec.pon))))[0]
+    assert res.sync_time == cs.SYNC_4096
+
+
 def test_not_ported_features_raise():
     wl = T.FLRoundWorkload(clients=T.from_reference(_clients([0, 1])),
                            model_bits=1e6)

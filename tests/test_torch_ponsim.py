@@ -59,9 +59,12 @@ def _rows(seed: int, R: int, N: int, int_keys: bool,
 
 CASES = [(seed, N, ik) for seed, N in enumerate((1, 2, 7, 37, 128, 300))
          for ik in (False, True)]
+# rows as wide as K2 takes in shared memory and past it (one PON's ONUs)
+WIDE = [(seed, N, ik) for seed, N in ((6, 4096), (7, 16_384))
+        for ik in (False, True)]
 
 
-@pytest.mark.parametrize("seed,N,int_keys", CASES)
+@pytest.mark.parametrize("seed,N,int_keys", CASES + WIDE)
 def test_waterfill_ref_equals_engine(seed, N, int_keys):
     b, k, c = _rows(seed, 6, N, int_keys)
     want = _waterfill(b, lambda: k, c)
@@ -103,6 +106,14 @@ def test_cps_waterfill_equal(G, P, seed):
     want = ref_cps_waterfill(want_in, cap)
     got = cps_waterfill(torch.as_tensor(want_in), cap)
     assert np.array_equal(got.numpy(), want)
+
+
+def test_kernel_has_no_row_width_limit():
+    """K2 takes rows of any width (past shared memory through a global
+    scratch buffer): its module exports no width limit."""
+    from repro_torch.kernels.ponsim import kernel
+
+    assert not [n for n in vars(kernel) if "MAX" in n.upper()]
 
 
 def test_default_device_is_cuda():
