@@ -57,13 +57,15 @@ nonzero:
    k/v for all 10 heads), and held at (4, 4096, 10, 1, 256) with window
    2048, where the window cuts;
 5. ``k5``: the SSD scan against its plain chunked version on the card
-   over a grid (float32 and bf16 inputs, whole and ragged lengths, with
-   and without an initial state, mamba2 widths and small ones, chunk
-   sums past the point where the unmasked product form overflows),
-   y and the final state within ``K5_TOL`` of the plain version's
-   largest value; timed at mamba2-780m's prefill shape
-   (4, 2048, 48, 64), N 128, chunk 128, bf16, beside its plain version
-   (no single PyTorch call computes the scan);
+   over a grid (float32 and bf16 inputs, whole and ragged lengths, S
+   below one chunk, with and without an initial state, mamba2 widths
+   and small ones, chunk sums past the point where the unmasked product
+   form overflows), y and the final state within ``K5_TOL`` of the
+   plain version's largest value; every bf16 shape the tensor-core
+   route takes is held on both routes (the tensor-core kernels and the
+   CUDA-core kernel). At mamba2-780m's prefill shape (4, 2048, 48, 64),
+   N 128, chunk 128, bf16, both routes are held and timed, beside the
+   plain version (no single PyTorch call computes the scan);
 5b. ``k6``: the RG-LRU scan against its plain version on the card over a
    grid (float32 and bf16 inputs, with and without h0, ragged S and R,
    recurrentgemma's width, decays near 1 and near 0) within ``K6_TOL``
@@ -112,7 +114,8 @@ nonzero:
    d_model 1536, float32 parameters, bfloat16 compute, random weights
    from a seed), batch 4, 2048-token prompts, 32 greedy new tokens,
    through ``serve()``; K5 must run 48 times (one a layer) in the
-   prefill and never in decode, and every logit must be finite. The
+   prefill, all on the tensor-core route, and never in decode, and
+   every logit must be finite. The
    same weights then run with the plain scan swapped in for the
    dispatch (here only, by patching ``kernels.ssd.ops.ssd_scan``; no
    user reaches it) in bf16 and in float32 compute, held as in
@@ -135,8 +138,8 @@ nonzero:
    ``serve_mamba2``.
 
 Before the last line it prints one JSON object with each kernel's
-launches on its path (K4's ``launches_tc`` of them on the tensor-core
-kernel), its error against the plain version, its time, the plain
+launches on its path (K4's and K5's ``launches_tc`` of them on the
+tensor-core kernels), its error against the plain version, its time, the plain
 version's time, a library call's time where one computes the same
 function, and the least time the card could take (``bound_ms``). Every
 time is ``_device_ms``'s: launches queued back to back behind a sleep
@@ -266,18 +269,24 @@ LOGIT_TOL = 0.15
 F32_RATIO = 1.5
 
 # K5 grid (B, S, H, P, N, chunk): mamba2 widths whole and ragged, the
-# smoke widths, widths off the kernel's tiles, S below one chunk. The
-# step sizes rise across heads so that some heads keep their state over
-# many chunks and others sum dt |a| past 88.7 in a chunk. Both versions
-# compute in float32 from the same (upcast) inputs and differ only in
-# summation order: within 1e-4 of the largest value, the reference
-# package's own kernel test measure (tests/test_kernels.py)
+# smoke widths, widths off the kernel's tiles, S below one chunk, S = 64
+# in one chunk of 64, five heads over the tensor-core kernels' groups of
+# four. The step sizes rise across heads so that some heads keep their
+# state over many chunks and others sum dt |a| past 88.7 in a chunk.
+# Both versions compute in float32 from the same (upcast) inputs and
+# differ only in summation order: within 1e-4 of the largest value, the
+# reference package's own kernel test measure (tests/test_kernels.py).
+# The bf16 shapes at head dim 64 run on both routes; on the tensor-core
+# one the fp32 operands go as hi + lo bf16 pairs, held to the same K5_TOL
 K5_GRID = [
     (2, 2048, 4, 64, 128, 128),
     (2, 2000, 4, 64, 128, 128),
     (2, 200, 3, 16, 16, 8),
     (1, 333, 2, 24, 48, 64),
     (1, 120, 3, 16, 32, 128),
+    (1, 100, 4, 64, 128, 128),
+    (1, 64, 2, 64, 64, 64),
+    (1, 300, 5, 64, 128, 64),
 ]
 K5_TOL = 1e-4
 MAMBA_PREFILL = (4, 2048, 48, 64, 128, 128)   # B, S, H, P, N, chunk
@@ -1381,8 +1390,9 @@ def _serve_line(phase, t0, cfg, n_pre, n_dec, prefill_ms, decode_ms,
 
 
 class _TensorCoreCount:
-    """K4's tensor-core counter (``launches_tc``) as a kernel count of its
-    own, set and read where the serve phases set and read ``launches``."""
+    """A kernel module's tensor-core counter (``launches_tc``, K4's and
+    K5's) as a kernel count of its own, set and read where the serve
+    phases set and read ``launches``."""
 
     def __init__(self, module):
         self.module = module
@@ -1471,27 +1481,36 @@ def phase_k5():
 
     t0 = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
-    grid_err = {"float32": 0.0, "bfloat16": 0.0}
+    grid_err = {"float32": 0.0, "cuda_cores": 0.0, "tensor_cores": 0.0}
     largest_sum = 0.0
-    n_checks = 0
+    n_checks = n_tc = 0
     for B, S, H, P, N, chunk in K5_GRID:
         for name, dtype in (("float32", torch.float32),
                             ("bfloat16", torch.bfloat16)):
             for with_h0 in (False, True):
                 args, h0 = _ssd_inputs(B, S, H, P, N, dtype, n_checks,
                                        with_h0)
-                y, h = kernel.ssd_scan_cuda(*args, chunk, h0)
+                route = kernel.route(dtype, P, N, chunk,
+                                     kernel.tma_strides(*args[:3]))
+                routes = (["tensor_cores", "cuda_cores"]
+                          if route == "tensor_cores" else ["cuda_cores"])
                 y_w, h_w = ref.ssd_chunked_ref(*args, chunk, h0)
-                torch.cuda.synchronize()
-                err = max(_rel_err(y, y_w), _rel_err(h, h_w))
-                if not (err <= K5_TOL and bool(torch.isfinite(y).all())):
-                    raise SystemExit(
-                        f"K5 differs from its plain version by {err} "
-                        f"(relative) at {(B, S, H, P, N, chunk)} {name} "
-                        f"h0={with_h0}")
-                grid_err[name] = max(grid_err[name], err)
+                for which in routes:
+                    before = kernel.launches_tc
+                    y, h = kernel.ssd_scan_cuda(*args, chunk, h0,
+                                                route_to=which)
+                    torch.cuda.synchronize()
+                    n_tc += kernel.launches_tc - before
+                    err = max(_rel_err(y, y_w), _rel_err(h, h_w))
+                    if not (err <= K5_TOL and bool(torch.isfinite(y).all())):
+                        raise SystemExit(
+                            f"K5 ({which}) differs from its plain version "
+                            f"by {err} (relative) at "
+                            f"{(B, S, H, P, N, chunk)} {name} h0={with_h0}")
+                    key = "float32" if name == "float32" else which
+                    grid_err[key] = max(grid_err[key], err)
+                    n_checks += 1
                 largest_sum = max(largest_sum, _chunk_sum(*args[3:], chunk))
-                n_checks += 1
     if largest_sum <= 88.8:
         raise SystemExit(f"the K5 grid's chunk sums stop at {largest_sum}: "
                          f"the masked exponent is not exercised")
@@ -1499,38 +1518,65 @@ def phase_k5():
     B, S, H, P, N, chunk = MAMBA_PREFILL
     args, _ = _ssd_inputs(B, S, H, P, N, torch.bfloat16, seed=99)
     h0 = torch.zeros((B, H, P, N), device="cuda")     # as the prefill passes
-    y, h = kernel.ssd_scan_cuda(*args, chunk, h0)
+    if kernel.route(torch.bfloat16, P, N, chunk,
+                    kernel.tma_strides(*args[:3])) != "tensor_cores":
+        raise SystemExit("mamba2-780m's prefill shape is not routed to the "
+                         "tensor cores")
     y_w, h_w = ref.ssd_chunked_ref(*args, chunk, h0)
-    torch.cuda.synchronize()
-    err_y, err_h = _rel_err(y, y_w), _rel_err(h, h_w)
-    abs_err = float((y - y_w).abs().max())
-    if max(err_y, err_h) > K5_TOL:
-        raise SystemExit(f"K5 differs from its plain version by "
-                         f"{max(err_y, err_h)} (relative) at mamba2-780m's "
-                         f"prefill shape")
+    errs = {}
+    for which in ("tensor_cores", "cuda_cores"):
+        y, h = kernel.ssd_scan_cuda(*args, chunk, h0, route_to=which)
+        torch.cuda.synchronize()
+        errs[which] = (_rel_err(y, y_w), _rel_err(h, h_w),
+                       float((y - y_w).abs().max()))
+        if max(errs[which][:2]) > K5_TOL:
+            raise SystemExit(f"K5 ({which}) differs from its plain version "
+                             f"by {max(errs[which][:2])} (relative) at "
+                             f"mamba2-780m's prefill shape")
+        n_checks += 1
+    n_tc += 1
     del y, h, y_w, h_w
-    ms = _device_ms(kernel.ssd_scan_cuda, [(*args, chunk, h0)])
+
+    def timed(which):
+        return _device_ms(
+            lambda *a: kernel.ssd_scan_cuda(*a, route_to=which),
+            [(*args, chunk, h0)])
+
+    # in turns: tensor cores, CUDA cores, CUDA cores, tensor cores
+    ms_tc = [timed("tensor_cores")]
+    ms_cc = [timed("cuda_cores"), timed("cuda_cores")]
+    ms_tc.append(timed("tensor_cores"))
+    ms, ms_cuda_cores = min(ms_tc), min(ms_cc)
     plain_ms = _device_ms(ref.ssd_chunked_ref, [(*args, chunk, h0)], reps=4)
+    if not ms < ms_cuda_cores:
+        raise SystemExit(f"K5 on the tensor cores ({ms_tc} ms) is not faster "
+                         f"than on the CUDA cores ({ms_cc} ms)")
     xh, bm, cm, dt, a = args
     n_bytes = (xh.numel() * 2 + (bm.numel() + cm.numel()) * 2
                + dt.numel() * 4 + a.numel() * 4 + 2 * h0.numel() * 4
                + xh.numel() * 4)
     n_ops = _ssd_flops(B, S, H, P, N, chunk)
     bound = max(n_bytes / HBM_BYTES_S, n_ops / TF32_S) * 1e3
-    _line("k5", time.time() - t0, checks=n_checks + 1,
+    err_y, err_h, abs_err = errs["tensor_cores"]
+    _line("k5", time.time() - t0, checks=n_checks, tensor_core_checks=n_tc,
           err_f32=f"{grid_err['float32']:.3g}",
-          err_bf16=f"{grid_err['bfloat16']:.3g}",
+          err_bf16_cuda_cores=f"{grid_err['cuda_cores']:.3g}",
+          err_bf16_tensor_cores=f"{grid_err['tensor_cores']:.3g}",
           largest_chunk_sum=f"{largest_sum:.1f}",
           err_mamba_y=f"{err_y:.3g}", err_mamba_h=f"{err_h:.3g}",
-          abs_err_mamba=f"{abs_err:.3g}", ms=f"{ms:.4f}",
+          err_mamba_cuda_cores=f"{max(errs['cuda_cores'][:2]):.3g}",
+          abs_err_mamba=f"{abs_err:.3g}",
+          ms=" ".join(f"{m:.5f}" for m in ms_tc),
+          ms_cuda_cores=" ".join(f"{m:.4f}" for m in ms_cc),
           plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.5f}",
           gflop=f"{n_ops / 1e9:.3f}", tflops=f"{n_ops / ms / 1e9:.2f}")
     return {
         "name": "ssd_scan", "route": "cuda",
-        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "source": "src/repro_torch/csrc/ssd_scan_tc.cu",
+        "source_cuda_cores": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:104",
-        "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound,
+        "max_abs_err": abs_err, "ms": ms, "ms_cuda_cores": ms_cuda_cores,
+        "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": ("bytes" if n_bytes / HBM_BYTES_S >= n_ops / TF32_S
                      else "operations"),
         "library_ms": None,
@@ -1545,17 +1591,18 @@ def phase_serve_mamba2():
 
     t0 = time.time()
     cfg = get_config("mamba2-780m")
-    kernels = {"k5": k5}
-    out, launches, peak_gb = _serve_entry(cfg.name, kernels,
-                                          {"k5": cfg.n_layers})
+    kernels = {"k5": k5, "k5_tc": _TensorCoreCount(k5)}
+    want_prefill = {"k5": cfg.n_layers, "k5_tc": cfg.n_layers}
+    out, launches, peak_gb = _serve_entry(cfg.name, kernels, want_prefill)
 
     params, prompts = _same_weights(cfg)
     _serve_run(cfg, params, prompts, kernels)            # warm-up
     steps, toks, n_pre, n_dec, prefill_ms, decode_ms = _serve_run(
         cfg, params, prompts, kernels)
-    if (n_pre, n_dec) != ({"k5": cfg.n_layers}, {"k5": 0}):
+    if (n_pre, n_dec) != (want_prefill, {"k5": 0, "k5_tc": 0}):
         raise SystemExit(f"K5 launches: prefill {n_pre}, decode {n_dec}; "
-                         f"want {cfg.n_layers} and 0")
+                         f"want {cfg.n_layers} (all on the tensor cores) "
+                         f"and 0")
     generated = torch.cat(toks, dim=1).cpu().numpy()
     feed = toks[:SERVE_FORCED]
     f32 = cfg.replace(dtype="float32")
@@ -1575,7 +1622,7 @@ def phase_serve_mamba2():
     held["err_f32_kernel_plain"] = f"{err_f32:.4g}"
     _serve_line("serve_mamba2", t0, cfg, n_pre, n_dec, prefill_ms,
                 decode_ms, peak_gb, held, generated, out)
-    return launches["k5"]
+    return launches
 
 
 def _k6_args(B, S, R, lo, hi, dtype, h0, seed=0):
@@ -1707,7 +1754,8 @@ def main() -> int:
     launches["quantize_int8"] = launches["dequantize_int8"] = \
         phase_fl_fig2a()
     olmo = phase_serve()
-    launches["ssd_scan"] = phase_serve_mamba2()
+    mamba = phase_serve_mamba2()
+    launches["ssd_scan"] = mamba["k5"]
     rg = phase_serve_recurrentgemma()
     # K4 runs on two serving paths: olmo-1b's and recurrentgemma-2b's,
     # there on the tensor-core kernel alone
@@ -1719,6 +1767,8 @@ def main() -> int:
             entry["launches_tc"] = olmo["k4_tc"] + rg["k4_tc"]
             entry["launches_by_path"] = {"olmo-1b": olmo["k4"],
                                          "recurrentgemma-2b": rg["k4"]}
+        if entry["name"] == "ssd_scan":
+            entry["launches_tc"] = mamba["k5_tc"]
     _line("total", time.time() - t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,8 @@ ends in a synchronise) and under ``torch.profiler``. For the prefill and
 the decode steps apart it reports the wall time, the device's busy
 share (summed kernel time over the unprofiled wall), the device time of
 the flash-attention kernel K4 (and of it, the tensor-core kernel's), the
-SSD-scan kernel K5, the RG-LRU scan K6, the matrix products (cuBLAS
+SSD scan K5 (and of it, each of the tensor-core route's three kernels:
+chunk states, state passing, chunk outputs), the RG-LRU scan K6, the matrix products (cuBLAS
 kernel names: gemm, gemv, xmma, cutlass, nvjet), split into float32
 ones (sgemm, f32f32, simt) and the rest, of copies and casts (``copy``
 in the name), of the rest, and the kernels
@@ -80,7 +81,11 @@ def _breakdown(events, wall_s: float) -> dict:
 
     k4 = total(lambda n: "flash_fwd_kernel" in n)
     k4_tc = total(lambda n: "flash_fwd_kernel_tc" in n)
-    k5 = total(lambda n: "ssd_scan_kernel" in n)
+    k5_phases = {phase: total(lambda n, k=kernel: k in n) for phase, kernel
+                 in (("states", "ssd_chunk_states"),
+                     ("pass", "ssd_state_pass"),
+                     ("outputs", "ssd_chunk_outputs"))}
+    k5 = total(lambda n: "ssd_scan_kernel" in n) + sum(k5_phases.values())
     k6 = total(lambda n: "rglru_scan_kernel" in n)
     gemm = total(lambda n: any(m in n for m in GEMM_MARKS))
     gemm_f32 = total(lambda n: any(m in n for m in GEMM_MARKS)
@@ -94,6 +99,8 @@ def _breakdown(events, wall_s: float) -> dict:
         "k4_ms": k4 / 1e3,
         "k4_tensor_core_ms": k4_tc / 1e3,
         "k5_ms": k5 / 1e3,
+        **{f"k5_tensor_core_{phase}_ms": v / 1e3
+           for phase, v in k5_phases.items()},
         "k6_ms": k6 / 1e3,
         "gemm_ms": gemm / 1e3,
         "gemm_f32_ms": gemm_f32 / 1e3,

@@ -6,8 +6,9 @@ interface, loaded with ``ctypes``. Nothing is built when a module is
 imported: :func:`library` builds at first CUDA use. The library is named
 by a hash of the sources and flags and kept under ``_build/`` beside
 this file (listed in ``.gitignore``), so a changed source rebuilds and an
-unchanged one is reused. ``nvcc`` comes from ``$CUDA_HOME/bin``,
-``/usr/local/cuda/bin`` or ``PATH``.
+unchanged one is reused. The hash covers the headers (``csrc/*.cuh``)
+too, so an edited header rebuilds every source. ``nvcc`` comes from
+``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or ``PATH``.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("traffic.cu", "waterfill.cu", "flash_attn.cu", "ssd_scan.cu",
-           "rglru_scan.cu", "quant_int8.cu")
+           "ssd_scan_tc.cu", "rglru_scan.cu", "quant_int8.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,8 +45,9 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        digest.update((CSRC / name).read_bytes())
+    for path in [CSRC / name for name in SOURCES] + sorted(CSRC.glob("*.cuh")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
     return BUILD_DIR / f"libreprotorch_{digest.hexdigest()[:16]}.so"
 
 
@@ -109,6 +111,9 @@ def library() -> ctypes.CDLL:
         lib.repro_ssd_scan_fwd.argtypes = [
             p, p, p, p, p, p, p, p, i, i, i, i, i, i, q, q, q, q, q, q, i, p]
         lib.repro_ssd_scan_fwd.restype = i
+        lib.repro_ssd_scan_tc.argtypes = [
+            p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, q, q, q, q, q, q, p]
+        lib.repro_ssd_scan_tc.restype = i
         lib.repro_rglru_scan_fwd.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.repro_rglru_scan_fwd.restype = i
         lib.repro_quant_int8_fwd.argtypes = [p, q, q, i, p, p, p, p]

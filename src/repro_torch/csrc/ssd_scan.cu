@@ -32,8 +32,9 @@
 // the function needs ~20 GFLOP of products against ~0.2 GB of traffic, so the least time
 // is set by bytes on the tensor cores' rate; this kernel recomputes C . B^T for every
 // head (1 group), does all products on CUDA cores in fp32, and has 192 blocks for 132
-// SMs, so it runs far above that bound. Sharing C . B^T across heads, tensor cores and
-// parallel chunks (a chunk-state pass, then a scan over chunk states) are later work.
+// SMs, so it runs far above that bound. It takes float32 inputs and the shapes the
+// tensor-core kernels (ssd_scan_tc.cu: bf16, head dim 64) do not; there C . B^T is
+// shared across heads and the chunks run in parallel.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>

@@ -14,7 +14,9 @@ another order; the plain version's products run in full float32, TF32
 off) and 2e-2 in bfloat16 (both outputs rounded to bf16). K5 (the SSD
 scan) computes in float32 from inputs of either type, like its plain
 version: y and the final state within 1e-4 of the plain version's
-largest value (the reference package's own kernel test measure). K6 (the
+largest value (the reference package's own kernel test measure), on
+both of its routes (bf16 at head dim 64 on the tensor cores, with its
+fp32 operands split into hi + lo bf16 pairs). K6 (the
 RG-LRU scan) computes in float32 from inputs of either type, like its
 plain version, and differs from it only by a fused multiply-add: within
 1e-5 of the plain version's largest value. K3 and K3' (int8 quantise and
@@ -447,10 +449,11 @@ K5_GRID = [
 ]
 
 
-def _ssd_args(B, S, H, P, N, dtype, dev, h0, strided, seed=0):
+def _ssd_args(B, S, H, P, N, dtype, dev, h0, strided, seed=0, bias=None):
     """x, B, C (as slices of one xBC tensor when ``strided``, as the
     model passes them), dt rising across heads so that some chunks sum
-    dt |a| past 88.7, a, and h0 or None."""
+    dt |a| past 88.7 (or with the bias ``bias`` in every head), a, and
+    h0 or None."""
     g = torch.Generator(device=dev).manual_seed(seed)
     xbc = torch.randn((B, S, H * P + 2 * N), generator=g, device=dev)
     xbc[..., H * P:] *= 0.3
@@ -459,9 +462,10 @@ def _ssd_args(B, S, H, P, N, dtype, dev, h0, strided, seed=0):
     bm, cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
     if not strided:
         x, bm, cm = x.contiguous(), bm.contiguous(), cm.contiguous()
+    shift = (torch.linspace(-4.0, 1.0, H, device=dev) if bias is None
+             else torch.full((H,), bias, device=dev))
     dt = torch.nn.functional.softplus(
-        torch.randn((B, S, H), generator=g, device=dev)
-        + torch.linspace(-4.0, 1.0, H, device=dev))
+        torch.randn((B, S, H), generator=g, device=dev) + shift)
     a = -torch.exp(torch.randn(H, generator=g, device=dev) * 0.2)
     h = torch.randn((B, H, P, N), generator=g, device=dev) if h0 else None
     return x, bm, cm, dt, a, h
@@ -481,15 +485,165 @@ def test_ssd_kernel_matches_plain(cuda_fp32, B, S, H, P, N, chunk, dtype,
                                   h0, strided):
     x, bm, cm, dt, a, h = _ssd_args(B, S, H, P, N, dtype, cuda_fp32, h0,
                                     strided)
-    before = k5.launches
+    before = (k5.launches, k5.launches_tc)
     y, h_last = k5.ssd_scan_cuda(x, bm, cm, dt, a, chunk, h)
-    assert k5.launches == before + 1
+    tc = k5.route(dtype, P, N, chunk, k5.tma_strides(x, bm, cm)) \
+        == "tensor_cores"
+    assert (k5.launches, k5.launches_tc) == (before[0] + 1, before[1] + tc)
     y_w, h_w = k5_ref.ssd_chunked_ref(x, bm, cm, dt, a, chunk, h)
     torch.cuda.synchronize()
     assert y.dtype == torch.float32 and y.shape == (B, S, H, P)
     assert h_last.shape == (B, H, P, N)
     _assert_rel(y, y_w)
     _assert_rel(h_last, h_w)
+
+
+# bf16 shapes at the tensor-core kernels' edges (B, S, H, P, N, chunk):
+# S = 64 (one chunk of 64), S below one chunk, one position, ragged S
+# (2000: 80 live rows in the last chunk), head groups of 4 with a
+# remainder, chunk 64 at N 128 and chunk 128 at N 64
+K5_TC_EDGES = [
+    (1, 64, 2, 64, 64, 64),
+    (1, 100, 3, 64, 128, 128),
+    (1, 1, 2, 64, 128, 128),
+    (2, 2000, 4, 64, 128, 128),
+    (1, 300, 5, 64, 128, 64),
+    (2, 256, 9, 64, 64, 128),
+]
+
+
+def _ssd_tc_shapes():
+    """Every K5_GRID shape the tensor-core route takes, and the edges."""
+    return [s for s in K5_GRID if s[3] in k5.TC_HEAD_DIMS
+            and s[4] in k5.TC_STATES and s[5] in k5.TC_CHUNKS] + K5_TC_EDGES
+
+
+@pytest.mark.parametrize("route", list(k5.ROUTES))
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", _ssd_tc_shapes())
+def test_ssd_tc_shapes_on_both_routes(cuda_fp32, B, S, H, P, N, chunk, h0,
+                                      strided, route):
+    """bf16 where the tensor-core kernels take it, on each route: the
+    tensor-core kernels and the CUDA-core kernel both within 1e-4."""
+    x, bm, cm, dt, a, h = _ssd_args(B, S, H, P, N, torch.bfloat16,
+                                    cuda_fp32, h0, strided, seed=S + H)
+    assert k5.route(torch.bfloat16, P, N, chunk,
+                    k5.tma_strides(x, bm, cm)) == "tensor_cores"
+    before = (k5.launches, k5.launches_tc)
+    y, h_last = k5.ssd_scan_cuda(x, bm, cm, dt, a, chunk, h, route_to=route)
+    assert (k5.launches, k5.launches_tc) == (
+        before[0] + 1, before[1] + (route == "tensor_cores"))
+    y_w, h_w = k5_ref.ssd_chunked_ref(x, bm, cm, dt, a, chunk, h)
+    torch.cuda.synchronize()
+    assert y.shape == (B, S, H, P) and h_last.shape == (B, H, P, N)
+    _assert_rel(y, y_w)
+    _assert_rel(h_last, h_w)
+
+
+@pytest.mark.parametrize("B,S,H,chunk,bias", [(2, 2048, 4, 128, None),
+                                              (1, 2000, 3, 64, 2.0)])
+def test_ssd_tc_kernel_past_the_overflow_point(cuda_fp32, B, S, H, chunk,
+                                               bias):
+    """Heads whose in-chunk sums of dt |a| pass 88.7 (at chunk 64 every
+    head's step sizes are raised): the masked exponent keeps every value
+    finite and right."""
+    x, bm, cm, dt, a, h = _ssd_args(B, S, H, 64, 128, torch.bfloat16,
+                                    cuda_fp32, True, True, seed=5, bias=bias)
+    assert _chip_smoke()._chunk_sum(dt, a, chunk) > 88.8
+    y, h_last = k5.ssd_scan_cuda(x, bm, cm, dt, a, chunk, h,
+                                 route_to="tensor_cores")
+    y_w, h_w = k5_ref.ssd_chunked_ref(x, bm, cm, dt, a, chunk, h)
+    torch.cuda.synchronize()
+    _assert_rel(y, y_w)
+    _assert_rel(h_last, h_w)
+
+
+@pytest.mark.parametrize("S", [2048, 2000])
+def test_ssd_tc_kernel_heads_that_never_decay(cuda_fp32, S):
+    """dt near 0 in every head: h0 and each chunk's state carry over all
+    16 chunks, so the split operands' error compounds through the scan
+    over chunk states. y and the final state hold within 1e-4."""
+    x, bm, cm, dt, a, h = _ssd_args(2, S, 4, 64, 128, torch.bfloat16,
+                                    cuda_fp32, True, True, seed=6, bias=-7.0)
+    assert _chip_smoke()._chunk_sum(dt, a, 128) < 1.0
+    y, h_last = k5.ssd_scan_cuda(x, bm, cm, dt, a, 128, h)
+    y_w, h_w = k5_ref.ssd_chunked_ref(x, bm, cm, dt, a, 128, h)
+    torch.cuda.synchronize()
+    _assert_rel(y, y_w)
+    _assert_rel(h_last, h_w)
+    # the initial state is what the final state mostly holds here
+    assert float((h_w - h).abs().max()) < float(h.abs().max())
+
+
+@pytest.mark.parametrize("B,S,H,N,chunk", [
+    (1, 300, 5, 128, 64),
+    (2, 2000, 4, 128, 128),
+    (4, 2048, 48, 128, 128),
+])
+def test_ssd_tc_kernel_repeats_exactly(cuda, B, S, H, N, chunk):
+    """Ten launches on the same inputs give the same bits: the copies,
+    barriers and asynchronous products of the three kernels leave no
+    race (a race on the register A fragment once gave K4 wrong rows in
+    some runs only)."""
+    x, bm, cm, dt, a, h = _ssd_args(B, S, H, 64, N, torch.bfloat16, cuda,
+                                    True, True)
+    y, h_last = k5.ssd_scan_cuda(x, bm, cm, dt, a, chunk, h)
+    y_w, h_w = k5_ref.ssd_chunked_ref(x, bm, cm, dt, a, chunk, h)
+    torch.cuda.synchronize()
+    _assert_rel(y, y_w)
+    _assert_rel(h_last, h_w)
+    for _ in range(9):
+        y2, h2 = k5.ssd_scan_cuda(x, bm, cm, dt, a, chunk, h)
+        torch.cuda.synchronize()
+        assert torch.equal(y2, y) and torch.equal(h2, h_last)
+
+
+def test_ssd_tc_route_refuses_what_it_does_not_take(cuda):
+    """The tensor-core route asked for where it does not apply raises;
+    nothing falls back."""
+    x, bm, cm, dt, a, h = _ssd_args(1, 128, 2, 64, 128, torch.bfloat16, cuda,
+                                    False, True)
+    before = (k5.launches, k5.launches_tc)
+    with pytest.raises(ValueError, match="tensor-core kernel takes"):
+        k5.ssd_scan_cuda(x.float(), bm.float(), cm.float(), dt, a, 128,
+                         route_to="tensor_cores")
+    p16 = _ssd_args(1, 128, 2, 16, 128, torch.bfloat16, cuda, False, True)
+    with pytest.raises(ValueError, match="tensor-core kernel takes"):
+        k5.ssd_scan_cuda(*p16[:5], 128, route_to="tensor_cores")
+    with pytest.raises(ValueError, match="tensor-core kernel takes"):
+        k5.ssd_scan_cuda(x, bm, cm, dt, a, 32, route_to="tensor_cores")
+    # x, B and C sliced from rows of H P + 2 N + 4 elements: 8-byte strides
+    xbc = torch.zeros((1, 128, 2 * 64 + 2 * 128 + 4), device=cuda,
+                      dtype=torch.bfloat16)
+    xs = xbc[..., :128].reshape(1, 128, 2, 64)
+    bs, cs = xbc[..., 128:256], xbc[..., 256:384]
+    assert k5.route(torch.bfloat16, 64, 128, 128,
+                    k5.tma_strides(xs, bs, cs)) == "cuda_cores"
+    with pytest.raises(ValueError, match="tensor-core kernel takes"):
+        k5.ssd_scan_cuda(xs, bs, cs, dt, a, 128, route_to="tensor_cores")
+    with pytest.raises(ValueError, match="route_to"):
+        k5.ssd_scan_cuda(x, bm, cm, dt, a, 128, route_to="tensor")
+    assert (k5.launches, k5.launches_tc) == before
+    # unaligned strides route to the CUDA cores, and are right there
+    y, h_last = k5.ssd_scan_cuda(xs, bs, cs, dt, a, 128)
+    assert (k5.launches, k5.launches_tc) == (before[0] + 1, before[1])
+
+
+def test_ssd_launch_counts_by_route(cuda):
+    """``launches`` counts scan calls on either route, ``launches_tc``
+    those on the tensor cores: bf16 at mamba2-780m's widths (head dim
+    64, state 128, chunk 128) goes there, float32 never does."""
+    cfg = get_config("mamba2-780m")
+    x, bm, cm, dt, a, h = _ssd_args(2, 200, 2, cfg.ssm.d_head,
+                                    cfg.ssm.d_state, torch.bfloat16, cuda,
+                                    True, True)
+    before = (k5.launches, k5.launches_tc)
+    k5_ops.ssd_scan(x, bm, cm, dt, a, cfg.ssm.chunk, h)
+    assert (k5.launches, k5.launches_tc) == (before[0] + 1, before[1] + 1)
+    k5_ops.ssd_scan(x.float(), bm.float(), cm.float(), dt, a,
+                    cfg.ssm.chunk, h)
+    assert (k5.launches, k5.launches_tc) == (before[0] + 2, before[1] + 1)
 
 
 def test_ssd_kernel_equals_the_token_recurrence(cuda_fp32):

@@ -16,6 +16,13 @@ Inputs are made with numpy from a seed and handed to both packages.
   model's ``ssd_chunked`` returns NaN (``exp`` of the positive upper
   triangle overflows, times a zero mask); the port masks the exponent
   before ``exp`` and stays finite and right.
+* The tensor-core K5's precision plan, where no card is present: a
+  plain emulation of its three phases (chunk states, the scan over
+  them, chunk outputs), each fp32 operand of a product passed as a hi +
+  lo bf16 pair, stays within 1e-4 of the reference model's
+  ``ssd_chunked`` and of the Pallas kernel; one bf16 rounding of the
+  same operands does not.
+* ``kernel.route`` on the kernel-test and card-test shapes.
 * ``causal_conv1d`` with and without a conv state.
 """
 import jax.numpy as jnp
@@ -182,3 +189,157 @@ def test_causal_conv1d_matches_jax(S, with_state):
         None if state is None else torch.as_tensor(state))
     np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), **TOL)
     np.testing.assert_array_equal(got_state.numpy(), np.asarray(want_state))
+
+
+def _bf16(v: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.bfloat16).float()
+
+
+def _operand(v: torch.Tensor, split: bool) -> list:
+    """``v`` as the tensor cores get it: ``[hi, lo]`` with hi = bf16(v)
+    and lo = bf16(v - hi), or ``[bf16(v)]``."""
+    hi = _bf16(v)
+    return [hi, _bf16(v - hi)] if split else [hi]
+
+
+def _tc_emulation(x, bm, cm, dt, a, chunk, h0=None, split=True):
+    """The tensor-core K5's arithmetic in plain float32: x, B and C are
+    bf16 values (exact operands); ``x w``, the scores and the state that
+    enters a chunk are rounded as the kernel rounds them; products sum
+    in float32."""
+    Bsz, S, H, P = x.shape
+    N = bm.shape[-1]
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    xf = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+    bf = torch.nn.functional.pad(bm, (0, 0, 0, pad))
+    cf = torch.nn.functional.pad(cm, (0, 0, 0, pad))
+    dtf = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+    xf = xf.reshape(Bsz, nc, chunk, H, P)
+    bf = bf.reshape(Bsz, nc, chunk, N)
+    cf = cf.reshape(Bsz, nc, chunk, N)
+    dtf = dtf.reshape(Bsz, nc, chunk, H)
+    cum = torch.cumsum(dtf * a, dim=2)                     # (B, nc, Q, H)
+    seg = cum[:, :, -1]                                    # (B, nc, H)
+
+    # 1. chunk states: (x w)^T . B, x w = x exp(seg - cum) dt split
+    w = torch.exp(seg[:, :, None] - cum) * dtf
+    states = sum(torch.einsum("bcshp,bcsn->bchpn", xw, bf)
+                 for xw in _operand(xf * w[..., None], split))
+    # 2. the scan over chunk states, in float32
+    h = torch.zeros((Bsz, H, P, N)) if h0 is None else h0
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = torch.exp(seg[:, c])[..., None, None] * h + states[:, c]
+    h_in = torch.stack(h_in, 1)                            # (B, nc, H, P, N)
+    # 3. chunk outputs: scores = (C . B^T) L dt split, h_in split
+    cb = torch.einsum("bctn,bcsn->bcts", cf, bf)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B, nc, t, s, H)
+    L = rel.masked_fill(~tri[None, None, :, :, None], float("-inf")).exp()
+    scores = cb[..., None] * L * dtf[:, :, None, :, :]
+    y = sum(torch.einsum("bctsh,bcshp->bcthp", sc, xf)
+            for sc in _operand(scores, split))
+    inter = sum(torch.einsum("bctn,bchpn->bcthp", cf, hh)
+                for hh in _operand(h_in, split))
+    y = y + torch.exp(cum)[..., None] * inter
+    return y.reshape(Bsz, nc * chunk, H, P)[:, :S], h
+
+
+@pytest.mark.parametrize("S,h0", [(512, False), (500, True)])
+def test_tensor_core_precision_plan(S, h0):
+    """At mamba2's head and state widths (P 64, N 128, chunk 128) with
+    bf16 inputs, the split operands keep the tensor-core arithmetic
+    within 1e-4 of the reference model's ``ssd_chunked`` (y and final
+    state) and of the Pallas kernel (y); one bf16 rounding of the same
+    operands misses 1e-4."""
+    arrays = list(_inputs(1, S, 4, 64, 128, seed=S, dt_shift=-2.0, h0=h0))
+    for i in range(3):                     # x, B, C arrive in bf16
+        arrays[i] = _bf16(torch.as_tensor(arrays[i])).numpy()
+    x, bm, cm, dt, a, h = _torch(arrays)
+    want_y, want_h = jax_chunked(*_jax(arrays[:5]), 128, _jax(arrays)[5])
+    want_kernel = ssd_scan_fwd(*_jax(arrays[:5]), chunk=128, interpret=True)
+    got_y, got_h = _tc_emulation(x, bm, cm, dt, a, 128, h)
+    assert _rel_err(got_y.numpy(), want_y) < REL
+    assert _rel_err(got_h.numpy(), want_h) < REL
+    if not h0:                             # the Pallas kernel starts at 0
+        assert _rel_err(got_y.numpy(), want_kernel) < REL
+    one_y, one_h = _tc_emulation(x, bm, cm, dt, a, 128, h, split=False)
+    assert max(_rel_err(one_y.numpy(), want_y),
+               _rel_err(one_h.numpy(), want_h)) > REL
+
+
+def _strided(B, S, H, P, N, dtype, strided):
+    """x, B, C as the model passes them (slices of one xBC tensor) or
+    contiguous, for the route's stride test."""
+    xbc = torch.zeros((B, S, H * P + 2 * N), dtype=dtype)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    bm, cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    if not strided:
+        x, bm, cm = x.contiguous(), bm.contiguous(), cm.contiguous()
+    return x, bm, cm
+
+
+# kernel-test and card-test shapes (B, S, H, P, N, chunk) and the route a
+# bf16 input takes there: P 64, N 64 or 128, chunk 64 or 128
+ROUTE_SHAPES = [
+    ((2, 120, 3, 16, 32, 128), "cuda_cores"),       # P 16
+    ((1, 256, 2, 64, 64, 64), "tensor_cores"),
+    ((1, 33, 1, 8, 16, 8), "cuda_cores"),
+    ((2, 2000, 2, 64, 128, 128), "tensor_cores"),
+    ((1, 512, 3, 16, 16, 8), "cuda_cores"),
+    ((1, 300, 2, 72, 200, 128), "cuda_cores"),      # P 72, N 200
+    ((4, 2048, 48, 64, 128, 128), "tensor_cores"),  # mamba2-780m prefill
+    ((1, 100, 2, 64, 128, 128), "tensor_cores"),    # S below one chunk
+    ((1, 300, 2, 64, 256, 128), "cuda_cores"),      # N 256
+    ((1, 300, 2, 64, 128, 32), "cuda_cores"),       # chunk 32
+]
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("shape,want", ROUTE_SHAPES)
+def test_route_table(shape, want, strided):
+    B, S, H, P, N, chunk = shape
+    x, bm, cm = _strided(B, S, H, P, N, torch.bfloat16, strided)
+    strides = kernel.tma_strides(x, bm, cm)
+    assert kernel.route(torch.bfloat16, P, N, chunk, strides) == want
+    # float32 always stays on the CUDA cores
+    x, bm, cm = _strided(B, S, H, P, N, torch.float32, strided)
+    assert kernel.route(torch.float32, P, N, chunk,
+                        kernel.tma_strides(x, bm, cm)) == "cuda_cores"
+
+
+def test_route_needs_16_byte_strides():
+    """A position stride of 8 bytes past a 16-byte multiple (x sliced out
+    of a row of H * P + 4 elements), or a misaligned B, goes to the CUDA
+    cores."""
+    xbc = torch.zeros((2, 128, 2 * 64 + 2 * 128 + 4), dtype=torch.bfloat16)
+    x = xbc[..., :128].reshape(2, 128, 2, 64)
+    bm, cm = xbc[..., 128:256], xbc[..., 256:384]
+    assert kernel.route(torch.bfloat16, 64, 128, 128,
+                        kernel.tma_strides(x, bm, cm)) == "cuda_cores"
+    xbc = torch.zeros((2, 128, 2 * 64 + 2 * 128 + 8), dtype=torch.bfloat16)
+    x = xbc[..., :128].reshape(2, 128, 2, 64)
+    assert kernel.route(torch.bfloat16, 64, 128, 128, kernel.tma_strides(
+        x, xbc[..., 128:256], xbc[..., 256:384])) == "tensor_cores"
+    assert kernel.route(torch.bfloat16, 64, 128, 128, kernel.tma_strides(
+        x, xbc[..., 132:260], xbc[..., 260:388])) == "cuda_cores"
+
+
+def test_tensor_core_source_is_built():
+    assert "ssd_scan_tc.cu" in _cuda.SOURCES
+    assert (_cuda.CSRC / "ssd_scan_tc.cu").exists()
+    assert (_cuda.CSRC / "hopper.cuh").exists()
+
+
+def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
+    """An edited header names another library, so nothing stale loads."""
+    for path in list(_cuda.CSRC.glob("*.cu")) + list(_cuda.CSRC.glob("*.cuh")):
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    before = _cuda.library_path()
+    header = tmp_path / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _cuda.library_path() != before
+
