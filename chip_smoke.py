@@ -39,7 +39,10 @@ nonzero:
    ``K3_GRID`` in float32 and bfloat16, as drawn, half zero and on exact
    .5 ties; every CNN leaf at block = n; the whole 6,603,710-element
    update at block 4096; K3' against its library call (one ``torch.mul``
-   of q by the scales) too. Timed on the fc1 weight at block = n and on
+   of q by the scales) too; K3 at block = n past the card's on-chip
+   capacity (``K3_PAST_CAPACITY``). ``torch.profiler`` counts the device
+   operations of one K3 call at fc1 (kernels, memsets, copies): it must
+   be 1. Timed on the fc1 weight at block = n and on
    the update at block 4096, each from HBM (``COLD_COPIES`` copies in
    turn) and warm in L2, beside the plain versions, the library call for
    K3' and the bound (no single PyTorch call computes amax-scaled
@@ -68,7 +71,8 @@ nonzero:
    plain version (no single PyTorch call computes the scan);
 5b. ``k6``: the RG-LRU scan against its plain version on the card over a
    grid (float32 and bf16 inputs, with and without h0, ragged S and R,
-   recurrentgemma's width, decays near 1 and near 0) within ``K6_TOL``
+   recurrentgemma's width, decays near 1 and near 0, S off K6's chunks
+   and windows) within ``K6_TOL``
    of the plain version's largest value; timed at recurrentgemma-2b's
    prefill shape (4, 2048, 2560) float32 beside its plain version (no
    single PyTorch call computes the recurrence);
@@ -152,6 +156,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -320,6 +325,8 @@ K6_GRID = [
     (3, 17, 33, 0.0, 1.0),
     (1, 1, 5, 0.5, 0.5),
     (2, 9, 1, 0.9, 1.0),
+    (1, 1037, 160, 0.99, 0.9999),
+    (2, 2000, 2560, 0.99, 0.9999),
 ]
 K6_TOL = 1e-5
 RG_SCAN = (4, 2048, 2560)                     # B, S, R of the prefill
@@ -348,6 +355,11 @@ K3_GRID = ([(s, b) for s in [(100,), (1000, 37), (5, 5, 5)]
            + [((4097,), 4096), ((300,), 4096), ((1,), 4096),
               ((3 * 8193 + 5,), 8193), ((100_000,), 100_000)])
 K3_BLOCK = 4096
+# K3 at block = n past the card's on-chip capacity (132 SMs x 231,424
+# bytes on an H100: 7.6 M float32 or 15.3 M bfloat16 elements), where
+# each CTA reads the rest of its share a second time
+K3_PAST_CAPACITY = ((10_000_000, torch.float32), (20_000_003, torch.float32),
+                    (20_000_003, torch.bfloat16))
 UPDATE_N = 6_603_710            # the CNN's parameters at width 1
 INT8_BITS = 52_829_936          # 8 bits an element and 32 a leaf's scale
 NONE_BITS = 211_318_720         # 32 bits an element
@@ -763,7 +775,25 @@ def _k3_readings(x, block: int):
     return warm, cold
 
 
+def _device_ops(fn, *args) -> list:
+    """The names of the device operations (kernels, memsets, copies) of
+    one call of ``fn``, by ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
 def phase_k3():
+    from repro_torch.kernels.quant import kernel
+
     t0 = time.time()
     n_checks = 0
     for i, (shape, block) in enumerate(K3_GRID):
@@ -783,12 +813,28 @@ def phase_k3():
         raise SystemExit(f"the CNN update has {update.numel()} elements")
     _k3_hold(update, K3_BLOCK, f"the update at block {K3_BLOCK}")
     n_checks += 1
+    for i, (n_big, dtype) in enumerate(K3_PAST_CAPACITY):
+        _k3_hold(_k3_input((n_big,), dtype, 50 + i), n_big,
+                 f"{n_big} {dtype} at block = n, past on-chip capacity")
+        n_checks += 1
 
     fc1 = tree["fc1"]["w"]
     n = fc1.numel()
+    # a trained update's fc1 holds whole rows of zeros (input features that
+    # never fired); one row in eight here, -0.0 among them
+    dead = fc1.clone()
+    dead[::8] = 0.0
+    dead[4::64] = -0.0
+    _k3_hold(dead, n, "fc1 with zero rows at block = n")
+    n_checks += 1
+    ops = _device_ops(kernel.quantize_int8_cuda, fc1, n)
+    if len(ops) != 1:
+        raise SystemExit(f"K3 at fc1 ran {len(ops)} device operations a "
+                         f"call, not 1: {ops}")
     bound, d_bound, by = _k3_bounds(n, n, 4)
     u_bound, ud_bound, _ = _k3_bounds(UPDATE_N, K3_BLOCK, 4)
     warm, cold = _k3_readings(fc1, n)
+    z_warm, z_cold = _k3_readings(dead, n)
     u_warm, u_cold = _k3_readings(update, K3_BLOCK)
 
     def fmt(times, tag):
@@ -796,8 +842,11 @@ def phase_k3():
 
     # ms from HBM; _l2 the input warm in L2
     _line("k3", time.time() - t0, checks=n_checks, bitwise="yes",
-          fc1_n=n, bound_ms=f"{bound:.5f}", dq_bound_ms=f"{d_bound:.5f}",
+          fc1_n=n, device_ops_a_call_fc1=len(ops),
+          kernel_fc1=re.search(r"(\w+_kernel)", ops[0]).group(1),
+          bound_ms=f"{bound:.5f}", dq_bound_ms=f"{d_bound:.5f}",
           **fmt(cold, ""), **fmt(warm, "_l2"),
+          **fmt(z_cold, "_zero_rows"), **fmt(z_warm, "_l2_zero_rows"),
           update_blocks=-(-UPDATE_N // K3_BLOCK),
           bound_ms_update=f"{u_bound:.5f}",
           dq_bound_ms_update=f"{ud_bound:.5f}",
@@ -822,8 +871,10 @@ def phase_k3():
         return out
 
     # no single PyTorch call quantises by amax / 127; K3' is one torch.mul
-    return [entry("quantize_int8", 46, "", False, (bound, u_bound)),
-            entry("dequantize_int8", 69, "dq_", True, (d_bound, ud_bound))]
+    k3 = entry("quantize_int8", 46, "", False, (bound, u_bound))
+    k3["device_ops_a_call_fc1"] = len(ops)
+    return [k3, entry("dequantize_int8", 69, "dq_", True,
+                      (d_bound, ud_bound))]
 
 
 def _k3_checked():

@@ -11,11 +11,11 @@ synchronise) and the one after under ``torch.profiler``. It reports the
 round's wall time, the device's busy share (summed kernel time over the
 unprofiled wall), the device time of K3 and K3' (int8 quantise and
 dequantise) and their share, their device time a launch on the fc1
-weight inside the round (the largest leaf: of each K3/K3' kernel the
-round's longest launches, one an arrived update), the device time of
-the convolutions (cuDNN), the matrix products (cuBLAS) and the rest,
-the kernels that take the most
-device time, the kernel launches, and the host syncs: the device-to-host
+weight inside the round (the largest leaf: of K3's large-block kernel
+and of K3' the round's longest launches, one an arrived update), the
+device time of the convolutions (cuDNN), the matrix products (cuBLAS)
+and the rest, the kernels that take the most device time, the kernel
+launches, and the host syncs: the device-to-host
 reads (``aten::item``, from ``float(loss)`` a step and the round's
 accuracy) with their count and host time. It also times one client's
 local training, one update's compression and the FedAvg of 16 updates
@@ -40,7 +40,7 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 N_CLIENTS, SAMPLES, TEST = 16, 64, 512
-K3_MARKS = ("quant_tile_kernel", "quant_amax_kernel", "quant_write_kernel")
+K3_MARKS = ("quant_tile_kernel", "quant_grid_kernel")
 K3P_MARK = "dequant_kernel"
 CONV_MARKS = ("conv", "cudnn", "winograd", "fft", "fprop", "dgrad",
               "wgrad")
@@ -92,8 +92,7 @@ def _breakdown(events, wall_ms: float) -> dict:
         "device_busy_share": busy / 1e3 / wall_ms,
         "device_launches": sum(n for _, _, n in kernels),
         "k3_ms": k3 / 1e3,
-        "k3_launches": count(lambda n: "quant_write_kernel" in n
-                             or "quant_tile_kernel" in n),
+        "k3_launches": count(is_k3),
         "k3_prime_ms": k3p / 1e3,
         "k3_prime_launches": count(is_k3p),
         "k3_share_of_device": (k3 + k3p) / max(busy, 1e-9),
@@ -107,18 +106,17 @@ def _breakdown(events, wall_ms: float) -> dict:
 
 
 def _fc1_launch_us(prof, n_arrived: int) -> dict:
-    """Median device microseconds of K3 (its amax and write passes) and
-    K3' on the fc1 weight in the profiled round: of each kernel the
-    ``n_arrived`` longest launches, one an arrived update's fc1."""
+    """Median device microseconds of K3 (its large-block kernel, one
+    launch a leaf) and K3' on the fc1 weight in the profiled round: of
+    each kernel the ``n_arrived`` longest launches, one an arrived
+    update's fc1."""
     def longest(mark):
         times = sorted((e.device_time_total for e in prof.events()
                         if e.device_type == DeviceType.CUDA
                         and mark in e.name), reverse=True)[:n_arrived]
         return float(np.median(times)) if times else float("nan")
 
-    amax, write = longest("quant_amax_kernel"), longest("quant_write_kernel")
-    return {"k3_fc1_us": amax + write, "k3_fc1_amax_us": amax,
-            "k3_fc1_write_us": write,
+    return {"k3_fc1_us": longest("quant_grid_kernel"),
             "k3_prime_fc1_us": longest(K3P_MARK)}
 
 

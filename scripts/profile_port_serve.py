@@ -86,7 +86,7 @@ def _breakdown(events, wall_s: float) -> dict:
                      ("pass", "ssd_state_pass"),
                      ("outputs", "ssd_chunk_outputs"))}
     k5 = total(lambda n: "ssd_scan_kernel" in n) + sum(k5_phases.values())
-    k6 = total(lambda n: "rglru_scan_kernel" in n)
+    k6 = total(lambda n: "rglru_chunked_scan_kernel" in n)
     gemm = total(lambda n: any(m in n for m in GEMM_MARKS))
     gemm_f32 = total(lambda n: any(m in n for m in GEMM_MARKS)
                      and any(m in n for m in F32_GEMM_MARKS))

@@ -116,7 +116,7 @@ def library() -> ctypes.CDLL:
         lib.repro_ssd_scan_tc.restype = i
         lib.repro_rglru_scan_fwd.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.repro_rglru_scan_fwd.restype = i
-        lib.repro_quant_int8_fwd.argtypes = [p, q, q, i, p, p, p, p]
+        lib.repro_quant_int8_fwd.argtypes = [p, q, q, i, p, p, p, q, p]
         lib.repro_quant_int8_fwd.restype = i
         lib.repro_dequant_int8_fwd.argtypes = [p, p, q, q, p, p]
         lib.repro_dequant_int8_fwd.restype = i

@@ -1,7 +1,8 @@
-// Hopper building blocks shared by the port's tensor-core kernels (flash_attn.cu, K4;
-// ssd_scan_tc.cu, K5): mbarriers, TMA copies, wgmma descriptors and products, the
-// register fences that asynchronous products need, and cuTensorMapEncodeTiled from the
-// driver. Everything here is internal to each translation unit that includes it.
+// Hopper building blocks shared by the port's kernels (flash_attn.cu, K4; ssd_scan_tc.cu,
+// K5; quant_int8.cu, K3): mbarriers, TMA copies (tensor boxes and 1-D bulk copies), wgmma
+// descriptors and products, the register fences that asynchronous products need, and
+// cuTensorMapEncodeTiled from the driver. Everything here is internal to each translation
+// unit that includes it.
 #pragma once
 
 #include <cuda.h>
@@ -37,6 +38,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
   }
+}
+
+// a 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte aligned) from global
+// to shared memory, completing on `bar` (whose expected bytes the caller has raised)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(smem_u32(bar))
+      : "memory");
 }
 
 // one box of the 4-D map {D, heads, positions, batch} at (d0, head, pos, b)

@@ -2,15 +2,28 @@
 its inverse.
 
 Binds ``csrc/quant_int8.cu``, the port of the TPU kernels
-``repro/kernels/quant/kernel.py::quantize_int8_fwd`` and
-``::dequantize_int8_fwd``. K3 reads float32 or bfloat16 in place: a block
-of at most :data:`TILE` elements is one CTA in one pass; a larger block
-spreads over CTAs of :data:`TILE` elements, which reduce ``|x|`` into a
-per-block word by ``atomicMax`` before a second pass writes ``q``. K3'
-multiplies back, four int8 a load. ``ref.quantize_int8_ref`` and
-``ref.dequantize_int8_ref`` are their plain versions, equal bit for bit.
+``repro/kernels/quant/kernel.py::quantize_int8_fwd`` (kernel.py:46) and
+``::dequantize_int8_fwd`` (kernel.py:69). Both are bound by bytes. K3
+is one kernel launch at every block size and reads float32 or bfloat16
+in place. A block of at most :data:`TILE` elements is one CTA in one
+pass. A larger block (the FL round's leaves, one block each) is one
+cooperative launch of one CTA an SM: each CTA copies its share of x into
+shared memory by TMA, writes its partial ``max |x|`` to a scratch slot,
+waits at a grid-wide barrier, and writes ``q`` from shared memory, so x
+is read once while the card holds it (30.5 MB on an H100; past that each
+CTA reads the rest of its share twice). K3' multiplies back, four int8 a
+load. ``ref.quantize_int8_ref`` and ``ref.dequantize_int8_ref`` are
+their plain versions, equal bit for bit.
+
+The scratch of the large-block launch (one uint32 slot for each pair of
+CTA and block that meet) needs no initial value and keeps nothing
+between launches. The wrapper keeps one buffer for each device and
+stream, grown when a call needs more, so a call allocates nothing but
+its outputs, and launches on two streams never share a buffer.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -21,12 +34,33 @@ DTYPES = (torch.float32, torch.bfloat16)
 TILE = 4096                     # elements a CTA (kTile in quant_int8.cu)
 quantize_launches = 0           # K3 launches since the last reset
 dequantize_launches = 0         # K3' launches since the last reset
+_scratch: dict = {}             # (device index, stream) -> uint32 slots
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _partials(x: torch.Tensor, stream: int, n_blocks: int) -> torch.Tensor:
+    """The large-block launch's scratch on ``x``'s device and ``stream``:
+    at least the SM count + ``n_blocks`` words."""
+    dev = x.device
+    key = (dev.index, stream)
+    words = _sm_count(dev.index) + n_blocks
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < words:
+        buf = _scratch[key] = torch.empty(words, dtype=torch.int32,
+                                          device=dev)
+    return buf
 
 
 def quantize_int8_cuda(x: torch.Tensor, block: int = DEFAULT_BLOCK):
     """``(q (n_pad,) int8, scales (n_blocks,) float32)`` of the contiguous
     CUDA tensor ``x`` (float32 or bfloat16, any shape), as
-    ``ref.quantize_int8_ref``."""
+    ``ref.quantize_int8_ref``: one kernel launch. A block past
+    :data:`TILE` elements uses the scratch kept for this device and the
+    current stream."""
     global quantize_launches
     if x.dtype not in DTYPES:
         raise ValueError(f"x must be float32 or bfloat16; got {x.dtype}")
@@ -37,15 +71,15 @@ def quantize_int8_cuda(x: torch.Tensor, block: int = DEFAULT_BLOCK):
     q = torch.empty(n_blocks * block, dtype=torch.int8, device=x.device)
     scales = torch.empty(n_blocks, dtype=torch.float32, device=x.device)
     if n:
-        bits = (torch.empty(n_blocks, dtype=torch.int32, device=x.device)
-                if block > TILE else None)
         lib = _cuda.library()
+        stream = _cuda.stream_handle(x)
         with torch.cuda.device(x.device):
+            slots = _partials(x, stream, n_blocks) if block > TILE else None
             rc = lib.repro_quant_int8_fwd(
                 x.data_ptr(), n, block, int(x.dtype == torch.bfloat16),
                 q.data_ptr(), scales.data_ptr(),
-                None if bits is None else bits.data_ptr(),
-                _cuda.stream_handle(x))
+                None if slots is None else slots.data_ptr(),
+                0 if slots is None else slots.numel(), stream)
         _cuda.check(rc, "int8 quantise")
         quantize_launches += 1
     return q, scales

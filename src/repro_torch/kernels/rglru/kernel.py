@@ -1,11 +1,16 @@
 """Hopper kernel K6: the RG-LRU linear scan.
 
-Binds ``csrc/rglru_scan.cu`` (the port of the TPU kernel
-``repro/kernels/rglru/kernel.py::rglru_scan_fwd``): one thread per
-(batch, channel) carries ``h`` in a register over the time axis, its
-loads issued eight steps ahead of the serial FMAs; neighbouring threads
-read neighbouring channels. It reads a and b ``(B, S, R)`` in float32 or
-bfloat16 in place, masks ragged S and R itself and writes float32.
+Binds ``csrc/rglru_scan.cu``, the port of the TPU kernel
+``repro/kernels/rglru/kernel.py::rglru_scan_fwd`` (kernel.py:69). It is
+bound by bytes (a and b read, h written). A CTA takes one batch row and
+:data:`CHANNELS` neighbouring channels and walks the time axis in
+windows of :data:`WINDOW` steps, copied into a ring of shared-memory
+stages by ``cp.async`` several windows ahead. Within a window each
+thread takes :data:`CHUNK` steps of one channel: it forms its chunk's
+``(prod a, scan from 0)``, one warp combines the chunks in order from
+the carry, and each chunk rescans from the ``h`` that enters it and
+writes ``h`` once. a and b ``(B, S, R)`` are read in place, float32 or
+bfloat16; ragged S and R are masked in the kernel; h is float32.
 ``ref.rglru_scan_ref`` is its plain version.
 """
 from __future__ import annotations
@@ -15,6 +20,9 @@ import torch
 from repro_torch import _cuda
 
 DTYPES = (torch.float32, torch.bfloat16)
+CHANNELS = 32                     # channels a CTA (kC in rglru_scan.cu)
+CHUNK = 8                         # steps a thread scans (kL)
+WINDOW = 64                       # steps a window: 8 chunks (kW)
 launches = 0                      # kernel launches since the last reset
 
 

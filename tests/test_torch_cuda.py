@@ -18,10 +18,13 @@ largest value (the reference package's own kernel test measure), on
 both of its routes (bf16 at head dim 64 on the tensor cores, with its
 fp32 operands split into hi + lo bf16 pairs). K6 (the
 RG-LRU scan) computes in float32 from inputs of either type, like its
-plain version, and differs from it only by a fused multiply-add: within
+plain version, in chunks of time steps combined in order (its rounding
+differs where a chunk's carry enters through a product of decays): within
 1e-5 of the plain version's largest value. K3 and K3' (int8 quantise and
 dequantise) are held bit for bit: the same IEEE divisions, roundings and
-products in both.
+products in both, at every block size (past the card's on-chip capacity
+too), on zeros of either sign, over repeated calls and on two streams
+at once.
 """
 import importlib.util
 import pathlib
@@ -690,7 +693,9 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
 
 
 # (B, S, R, a_lo, a_hi): ragged S and R, recurrentgemma's width, slow
-# decay (long memory) and fast, one step, one channel
+# decay (long memory) and fast, one step, one channel; S off K6's
+# 8-step chunks and 64-step windows (1037), and off the windows at
+# recurrentgemma's width (2000)
 K6_GRID = [
     (1, 333, 200, 0.0, 1.0),
     (2, 300, 96, 0.2, 0.8),
@@ -699,6 +704,8 @@ K6_GRID = [
     (3, 17, 33, 0.0, 1.0),
     (1, 1, 5, 0.5, 0.5),
     (2, 9, 1, 0.9, 1.0),
+    (1, 1037, 160, 0.99, 0.9999),
+    (2, 2000, 2560, 0.99, 0.9999),
 ]
 
 
@@ -745,7 +752,7 @@ def test_rglru_kernel_refuses_what_it_does_not_take(cuda):
 
 # K3/K3' grid (shape, block): tests/test_kernels.py's shapes x {64, 256,
 # 4096}, ragged tails, block >= n, and blocks past one CTA's 4096-element
-# tile (the two-pass path): every CNN leaf at block = n, ragged many-tile
+# tile (the cooperative grid kernel): every CNN leaf at block = n, ragged many-tile
 # blocks, one element
 K3_GRID = ([(s, b) for s in [(100,), (1000, 37), (5, 5, 5)]
             for b in (64, 256, 4096)]
@@ -760,7 +767,10 @@ def _k3_input(shape, dtype, dev, seed=0, kind="normal"):
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(shape, generator=g, device=dev) * 1e-2
     if kind == "zeros":
-        x.view(-1)[: x.numel() // 2] = 0.0
+        # the first half zero, every other one -0.0
+        half = x.view(-1)[: x.numel() // 2]
+        half.fill_(0.0)
+        half[1::2] = -0.0
     elif kind == "ties":
         # powers-of-two amax per 64-block put x / scale on exact .5 ties
         flat = x.view(-1)
@@ -815,6 +825,61 @@ def test_quant_kernels_refuse_what_they_do_not_take(cuda):
         k3_ops.quantize_int8(x.requires_grad_())
     q, s = k3.quantize_int8_cuda(torch.zeros(0, device=cuda))
     assert q.numel() == 0 and s.numel() == 0
+
+
+# K3 in one launch past the card's on-chip capacity (132 SMs x 231,424
+# bytes: 7.6 M float32, 15.3 M bfloat16 elements), where each CTA reads
+# the rest of its share twice; ragged n, several large blocks
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,block", [(10_000_000, 10_000_000),
+                                     (20_000_003, 20_000_003),
+                                     (20_000_003, 6_000_001)])
+def test_quant_kernel_past_on_chip_capacity(cuda, n, block, dtype):
+    _k3_check(_k3_input((n,), dtype, cuda, seed=n % 97), block)
+
+
+# x that does not start on 16 bytes: the elements before its first
+# aligned one are taken apart, and q is written a byte at a time
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset,n,block", [(1, 126_976, 126_976),
+                                            (3, 100_001, 100_001),
+                                            (5, 3 * 8193 + 5, 8193)])
+def test_quant_kernel_on_a_misaligned_input(cuda, offset, n, block, dtype):
+    buf = _k3_input((n + offset,), dtype, cuda, seed=offset)
+    _k3_check(buf[offset:], block)
+
+
+def test_quant_kernel_repeats_exactly(cuda):
+    """50 calls back to back on different inputs at fc1's shape, each bit
+    for bit: the scratch slots and the grid barrier need no reset."""
+    xs = [_k3_input((3136, 2048), torch.float32, cuda, seed=i,
+                    kind=("normal", "zeros", "ties")[i % 3])
+          for i in range(50)]
+    n = xs[0].numel()
+    got = [k3.quantize_int8_cuda(x, n) for x in xs]
+    torch.cuda.synchronize()
+    for x, (q, s) in zip(xs, got):
+        qr, sr = k3_ref.quantize_int8_ref(x, n)
+        assert torch.equal(q, qr) and torch.equal(s, sr)
+
+
+def test_quant_kernel_on_two_streams(cuda):
+    """K3 at block = n on two streams at once, each its own scratch."""
+    xs = [_k3_input((3136, 2048), torch.float32, cuda, seed=10 + i)
+          for i in range(2)]
+    n = xs[0].numel()
+    streams = [torch.cuda.Stream() for _ in xs]
+    torch.cuda.synchronize()
+    got = [[] for _ in xs]
+    for _ in range(10):
+        for x, st, out in zip(xs, streams, got):
+            with torch.cuda.stream(st):
+                out.append(k3.quantize_int8_cuda(x, n))
+    torch.cuda.synchronize()
+    for x, out in zip(xs, got):
+        qr, sr = k3_ref.quantize_int8_ref(x, n)
+        for q, s in out:
+            assert torch.equal(q, qr) and torch.equal(s, sr)
 
 
 def test_fl_round_on_card_runs_k3(cuda):

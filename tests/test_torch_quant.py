@@ -18,6 +18,12 @@ Inputs are made with numpy from a seed and handed to both packages.
 * At ``block = n`` the plain K3 is the FL half's per-tensor quantiser:
   bit for bit against ``repro.fl.compression.quantize_int8`` on the
   CNN's leaf shapes, and so is the port's ``fl.compression``.
+* The plain K3 on quotients that a multiply by ``1 / scale`` would round
+  apart from the IEEE division (normal data at scales from 1e-30 to
+  1e30, bfloat16 values, values within a few ulps of a tie, exact ties,
+  subnormal values and scales): bit for bit against the definition in
+  numpy, and against the reference's plain K3 where no value or scale is
+  subnormal (XLA on the CPU flushes them to zero).
 * The dispatch on CPU tensors, and the kernels' wrappers refusing them.
 """
 import jax.numpy as jnp
@@ -195,6 +201,72 @@ def test_block_n_is_the_fl_per_tensor_quantiser(shape):
     assert _bits(tq) == np.asarray(qj).tobytes()
     assert _bits(tcomp.dequantize_int8(tq, ts)) == np.asarray(
         jcomp.dequantize_int8(qj, sj)).tobytes()
+
+
+def _near_ties(seed: int) -> np.ndarray:
+    """Blocks of 256 whose x / scale lies within a few ulps of k + 1/2:
+    each block's scale from a random amax, the rest (k + 1/2)·scale
+    nudged by up to 8 ulps either way."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(64):
+        amax = np.float32(10.0 ** rng.uniform(-20, 20))
+        scale = amax / np.float32(127)
+        k = rng.integers(-127, 127, 255).astype(np.float32) + np.float32(0.5)
+        x = (k * scale).astype(np.float32)
+        x = x + (rng.integers(-8, 9, 255) * np.spacing(x)).astype(np.float32)
+        out.append(np.concatenate([[amax], np.clip(x, -amax, amax)]))
+    return np.concatenate(out).astype(np.float32)
+
+
+def _ieee_q(x: np.ndarray, block: int):
+    """(q, scales) by the definition, in numpy float32: IEEE division by
+    the scale, rint half to even, clamp."""
+    n = x.size
+    blocks = np.pad(x.reshape(-1), (0, -(-n // block) * block - n)).reshape(
+        -1, block)
+    amax = np.abs(blocks).max(axis=1)
+    scale = np.where(amax > 0, amax / np.float32(127), np.float32(1))
+    q = np.clip(np.rint(blocks / scale[:, None]), -127, 127).astype(np.int8)
+    return q.reshape(-1), scale.astype(np.float32)
+
+
+# (name, x, block): quotients a multiply by 1 / scale would round apart
+# from the division, at scales from subnormal to 1e30
+HARD_QUOTIENTS = [
+    ("normal", _normal(100_000, seed=11), 100_000),
+    ("normal_blocks", _normal(100_000, seed=12), 5000),
+    ("large", _normal(20_000, seed=13, scale=1e30), 20_000),
+    ("tiny", _normal(20_000, seed=14, scale=1e-30), 20_000),
+    ("bfloat16", torch.from_numpy(_normal(20_000, seed=15)).bfloat16()
+     .float().numpy(), 20_000),
+    ("near_ties", _near_ties(16), 256),
+    ("ties", _ties(), 8),
+    ("subnormal", (_normal(4096, seed=17) * np.float32(1e-39)).astype(
+        np.float32), 64),
+    ("subnormal_scale", (np.linspace(-1, 1, 4001, dtype=np.float32)
+                         * np.float32(127 * 2.0 ** -127)), 4001),
+    ("vanishing_scale", np.arange(-200, 200, dtype=np.float32)
+     * np.float32(2.0 ** -149), 400),
+]
+
+
+SUBNORMAL = ("subnormal", "vanishing")
+
+
+@pytest.mark.parametrize("name,x,block", HARD_QUOTIENTS,
+                         ids=[d[0] for d in HARD_QUOTIENTS])
+def test_plain_divides_on_hard_quotients(name, x, block):
+    """The plain K3, which the card's kernels are held to bit for bit,
+    against the definition in numpy and the reference's plain K3."""
+    q, s = ref.quantize_int8_ref(torch.from_numpy(x), block)
+    want_q, want_s = _ieee_q(x, block)
+    assert _bits(q) == want_q.tobytes() and _bits(s) == want_s.tobytes()
+    if name.startswith(SUBNORMAL):
+        return    # XLA on the CPU flushes subnormals to zero
+    qj, sj = jref.quantize_int8_ref(jnp.asarray(x), block)
+    assert _bits(q) == np.asarray(qj).tobytes()
+    assert _bits(s) == np.asarray(sj).tobytes()
 
 
 def test_roundtrip_error_bounded_by_half_a_step():

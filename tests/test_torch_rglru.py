@@ -16,8 +16,18 @@ Inputs are made with numpy from a seed and handed to both packages.
   parameters, within 2e-5 in float32: the reference runs an associative
   scan and folds ``a_0 * h0`` into the first input, the port a
   sequential scan from ``h0``.
+* A plain float32 emulation of K6's chunked order (chunk pairs of
+  ``prod a`` and the scan from 0, combined in order from the window's
+  carry, then each chunk rescanned from the ``h`` entering it, the
+  window's last ``h`` carried on; ``fmaf`` where the kernel has it) at
+  the kernel's chunk and window lengths, against both plain versions
+  within K6's card tolerance (1e-5 of the largest ``|h|``) on the hard
+  inputs: decays in [0.99, 0.9999] and in [0, 0.05] over 2048 steps,
+  with and without ``h0``, and S off the window.
 * The dispatch on CPU tensors, and the kernel's wrapper refusing them.
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -87,6 +97,84 @@ def test_ref_carries_the_state():
     first = ref.rglru_scan_ref(a[:, :20], b[:, :20], h)
     second = ref.rglru_scan_ref(a[:, 20:], b[:, 20:], first[:, -1])
     torch.testing.assert_close(torch.cat([first, second], 1), whole, **TOL)
+
+
+# K6 on the card is held to its plain version within K6_TOL of the plain
+# version's largest |h| (chip_smoke.py, tests/test_torch_cuda.py)
+K6_TOL = 1e-5
+
+
+def _fma(x, y, z):
+    """float32 fmaf(x, y, z): the product is exact in float64."""
+    return (x.astype(np.float64) * y + z).astype(np.float32)
+
+
+def _chunked_emulation(a, b, h0):
+    """h of K6's order of operations, in float32 numpy: windows of
+    ``kernel.WINDOW`` steps, chunks of ``kernel.CHUNK``; zeros past S."""
+    B, S, R = a.shape
+    W, L = kernel.WINDOW, kernel.CHUNK
+    nc = W // L
+    out = np.empty((B, S, R), np.float32)
+    carry = np.zeros((B, R), np.float32) if h0 is None else h0
+    for t0 in range(0, S, W):
+        n = min(W, S - t0)
+        aw = np.zeros((B, W, R), np.float32)
+        bw = np.zeros((B, W, R), np.float32)
+        aw[:, :n], bw[:, :n] = a[:, t0:t0 + n], b[:, t0:t0 + n]
+        ac, bc = aw.reshape(B, nc, L, R), bw.reshape(B, nc, L, R)
+        pa = np.ones((B, nc, R), np.float32)
+        pb = np.zeros((B, nc, R), np.float32)
+        for k in range(L):
+            pa = pa * ac[:, :, k]
+            pb = _fma(ac[:, :, k], pb, bc[:, :, k])
+        hin = np.empty((B, nc, R), np.float32)
+        h = carry
+        for j in range(nc):
+            hin[:, j] = h
+            h = _fma(pa[:, j], h, pb[:, j])
+        hw = np.empty((B, nc, L, R), np.float32)
+        h = hin
+        for k in range(L):
+            h = _fma(ac[:, :, k], h, bc[:, :, k])
+            hw[:, :, k] = h
+        hw = hw.reshape(B, W, R)
+        out[:, t0:t0 + n] = hw[:, :n]
+        carry = hw[:, -1]
+    return out
+
+
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("lo,hi,S", [(0.99, 0.9999, 2048), (0.0, 0.05, 2048),
+                                     (0.99, 0.9999, 2000), (0.0, 1.0, 333)])
+def test_chunked_order_within_card_tolerance(lo, hi, S, h0):
+    rng = np.random.default_rng(S + int(h0))
+    B, R = 2, 64
+    a = (lo + (hi - lo) * rng.random((B, S, R))).astype(np.float32)
+    b = (rng.standard_normal((B, S, R)) * 0.1).astype(np.float32)
+    h = rng.standard_normal((B, R)).astype(np.float32) if h0 else None
+    got = _chunked_emulation(a, b, h)
+    ta, tb = torch.as_tensor(a), torch.as_tensor(b)
+    want = ref.rglru_scan_ref(ta, tb, None if h is None else
+                              torch.as_tensor(h)).numpy()
+    jwant = np.asarray(jax_scan_ref(jnp.asarray(a), jnp.asarray(b),
+                                    None if h is None else jnp.asarray(h)))
+    for plain in (want, jwant):
+        err = np.abs(got - plain).max() / np.abs(plain).max()
+        assert err <= K6_TOL, err
+
+
+def test_chunk_lengths_match_the_source():
+    """The emulation's lengths are the CUDA kernel's."""
+    src = (_cuda.CSRC / "rglru_scan.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kC") == kernel.CHANNELS
+    assert const("kL") == kernel.CHUNK
+    assert const("kNC") * const("kL") == kernel.WINDOW
+    assert "rglru_chunked_scan_kernel" in src
 
 
 # ---------------------------------------------------------------------------
