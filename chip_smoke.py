@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
 
-The port has five paths, each driven through its user entry point with
+The port has six paths, each driven through its user entry point with
 the kernel counts set to 0 just before and read just after:
 
 * the Fig. 2b round engine (``repro_torch.net.simulate``), through K1
   (traffic sampler) and K2 (waterfill grant);
+* the same engine with ``backend="jit"``: each transfer phase one launch
+  of the fused phase kernel (``ponsim_phase``), which samples the
+  arrivals (K1's function) and pours the waterfill (K2's) inside itself;
 * olmo-1b serving (``repro_torch.launch.serve``: prefill, then greedy
   decode), through K4 (flash attention) in every layer of the prefill;
 * mamba2-780m serving (the same entry point), through K5 (the chunked
@@ -34,6 +37,20 @@ nonzero:
    2048 and 4096 queues), at the widest row held in shared memory
    (16,384) and at one past it (20,000, through the wrapper's global
    scratch); timed at 8 x 128, 1 x 2048, 1 x 4096 and 1 x 20,000;
+3a. ``k_phase``: the fused phase kernel against its plain version
+   (``run_phase_ref``, on CPU copies of the same inputs) on every phase of
+   four short sweeps at 128 ONUs (``phase_check_sweeps``): ``done_t`` bit
+   for bit, ``rem`` within ``PHASE_RTOL``, the same exact flag; they must
+   cover ``PHASE_COVER`` (the scalar-S path with background, several
+   clients an ONU, bs slots, 3-PON CPS with deadline and outage, an
+   inexact ring walk); then on the three phases of the fig2b-16 sweep
+   (the main path's shapes: up to 128 clients at 10 Gb/s, 1,774 to 6,312
+   cycles) the same way, every client's ``done_t`` and ``rem``. Timed on
+   those three (µs a cycle), beside the plain version on the card; the
+   bound counts the phase's inputs read once, its outputs written once,
+   the threefry draws and float64 adds its data needs (the kernel is
+   bound by latency, the serial chain of cycles and barriers, far above
+   that bound);
 3b. ``k3``: int8 quantise (K3) and dequantise (K3') against their plain
    versions on the card, bit for bit (q, scales, dequantised values):
    ``K3_GRID`` in float32 and bfloat16, as drawn, half zero and on exact
@@ -81,9 +98,14 @@ nonzero:
    time must match the JAX engine's value within 1e-9 s and both kernels
    must have been launched; one warm-up run, then the median wall time
    of 3;
+6b. ``main_jit``: the same sweep through ``backend="jit"``: every sync
+   within 1e-9 s of the JAX engine's, at least 3 phase launches, no
+   standalone K1 or K2 launch and no re-run on the per-cycle loop; one
+   warm-up run, then the median wall time of 3 beside ``main``'s;
 7. ``full_width``: one FCFS load-0.8 round at 2048 ONUs, then at 4096
    (line rate scaled 10 Gb/s * n / 128; one PON, so K2 rows of 2048 and
-   4096 queues), each held against the JAX engine's sync time;
+   4096 queues), each held against the JAX engine's sync time, on the
+   per-cycle loop and through ``backend="jit"`` (phase kernel only);
 7b. ``fl_fig2a``: ``benchmarks/fig2a_accuracy.py``'s settings (16
    clients x 64 samples, lr 0.04, batch 16, 2 local epochs, data seed 0,
    server seed 1, 10 rounds, fractions {0.25, 0.5, 1.0}, 512 test images)
@@ -672,6 +694,217 @@ def phase_k2():
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": by, "library_ms": None,
         **{key: float(val) for key, val in wide.items()},
+    }
+
+
+def _record_phases(spec, device):
+    """Run ``spec`` through the engine on ``device`` and return each
+    ``run_phase_device`` call it made, as ``(args, kwargs)`` without the
+    device."""
+    from repro_torch.net import engine, simulate
+
+    calls = []
+    run = engine.run_phase_device
+
+    def record(*args, **kwargs):
+        calls.append((args, {k: v for k, v in kwargs.items()
+                             if k != "device"}))
+        return run(*args, **kwargs)
+
+    engine.run_phase_device = record
+    try:
+        simulate(spec, device=device)
+    finally:
+        engine.run_phase_device = run
+    return calls
+
+
+def _short_workload(ids, seed: int):
+    from repro_torch.core.slicing import ClientProfile
+    from repro_torch.net import FLRoundWorkload
+
+    rng = np.random.default_rng(seed)
+    return FLRoundWorkload(clients=[ClientProfile(
+        client_id=int(i), t_ud=float(rng.uniform(0.05, 0.5)), t_dl=0.0,
+        m_ud_bits=float(rng.uniform(1e5, 2e6))) for i in ids],
+        model_bits=1.5e6)
+
+
+def phase_check_sweeps():
+    """Short sweeps at 128 ONUs (1 Gb/s, every client ready within 0.5 s)
+    whose phases cover what the phase kernel compiles (``PHASE_COVER``)."""
+    from repro_torch.net import MultiPonTopology, PONConfig, SweepCase, \
+        SweepSpec
+
+    cfg = PONConfig(n_onus=N_ONUS, line_rate_bps=1e9)
+    one = _short_workload(range(0, N_ONUS, 8), 1)    # one client an ONU
+    # ONUs 0-3 hold three clients, 4-7 two
+    multi = _short_workload([*range(16), *range(128, 136),
+                             *range(256, 260)], 2)
+    topo = MultiPonTopology(n_pons=3, cps_rate_bps=1.5e9)
+    spread = _short_workload([0, 130, 260, 5, 300, 140], 3)
+    outage = np.array([[0.1, 0.4], [0.0, 0.0], [0.2, 0.5]])
+    return {
+        "fast_bs": SweepSpec(cases=(
+            SweepCase(workload=one, load=0.3, policy="fcfs", seed=1),
+            SweepCase(workload=one, load=0.9, policy="fcfs", seed=2),
+            SweepCase(workload=one, load=0.5, policy="bs", seed=3)),
+            pon=cfg, backend="jit"),
+        "multi": SweepSpec(cases=(
+            SweepCase(workload=multi, load=0.6, policy="fcfs", seed=4),),
+            pon=cfg, backend="jit"),
+        "cps_masks": SweepSpec(cases=(
+            SweepCase(workload=spread, load=0.3, policy="fcfs", seed=5,
+                      topology=topo),
+            SweepCase(workload=spread, load=0.3, policy="bs", seed=5,
+                      topology=topo)),
+            pon=cfg, ul_deadline_s=[1.2, 1.2], ul_outage_s=[outage, outage],
+            backend="jit"),
+        "overload": SweepSpec(cases=(
+            SweepCase(workload=one, load=0.8, policy="fcfs", seed=3),),
+            pon=cfg, ul_deadline_s=[1.5], ul_outage_s=[(0.2, 0.6)],
+            backend="jit"),
+    }
+
+
+# what the kernel-vs-plain phases must have covered between them
+PHASE_COVER = {
+    "scalar-S with background": lambda s, x: s.fast and s.has_bg,
+    "several clients an ONU": lambda s, x: not s.single,
+    "bs slots": lambda s, x: s.mode == "bs",
+    "CPS, deadline and outage": lambda s, x: (s.has_cps and s.has_deadline
+                                              and s.has_outage),
+    "an inexact ring walk": lambda s, x: not x,
+}
+PHASE_RTOL = 1e-9     # rem against the plain version (done_t bit for bit)
+
+
+def _phase_bound(spec, dyn, k_stop) -> tuple:
+    """``(bytes, float64 adds, threefry draws)`` of one phase: its inputs
+    read once and its outputs (``done_t``, ``rem``, the exact flags)
+    written once; a background row's arrivals added into its prefix, its
+    backlog formed and summed (3 N a cycle), a general FL row's per-ONU
+    backlog and its sum (U + N), a bs row's slot prefix (S), over the
+    cycles each case ran; the window draws and burst draws of those
+    cycles."""
+    from repro_torch.kernels.traffic.ref import WINDOW, window_counts
+
+    n_bytes = sum(t.numel() * t.element_size() for t in dyn.values())
+    n_bytes += spec.R * spec.U * 8 * 2 + len(k_stop)
+    per_row = 0
+    if spec.has_bg:
+        per_row += 3 * spec.N
+    if not spec.fast:
+        per_row += spec.U + spec.N
+    if spec.mode == "bs":
+        per_row += spec.S
+    adds = per_row * spec.P * int(k_stop.sum())
+    draws = 0
+    if spec.has_bg:
+        # a row samples a window at each of its case's cycles k % 64 == 0
+        n_win = torch.as_tensor(-(-np.repeat(k_stop, spec.P) // WINDOW))
+        counts = window_counts(dyn["keys"].cpu(), 0, int(k_stop.max()),
+                               spec.N, dyn["thr"].cpu())
+        live = torch.arange(counts.shape[1])[None, :] < n_win[:, None]
+        draws = int(n_win.sum()) * spec.N + int(counts[live].sum())
+    return n_bytes, adds, draws
+
+
+def _hold_phase(what: str, args, kwargs) -> tuple:
+    """One recorded phase through the phase kernel and through
+    ``run_phase_ref`` on CPU copies of the same inputs: ``done_t`` bit for
+    bit, ``rem`` within ``PHASE_RTOL``, the same exact flag, or the smoke
+    fails. Returns the card inputs, the largest ``rem`` error and the
+    exact flag."""
+    from repro_torch.kernels.ponsim import kernel, ops, ref
+
+    sc, tc = ops.phase_inputs(*args, **kwargs, use_k2=True, device="cuda")
+    sh, th = ops.phase_inputs(*args, **kwargs, use_k2=True, device="cpu")
+    got_t, got_r, got_x = kernel.run_phase_cuda(sc, tc)
+    torch.cuda.synchronize()
+    want_t, want_r, want_x = ref.run_phase_ref(sh, th)
+    got_t, got_r = got_t.cpu(), got_r.cpu()
+    if (got_x != want_x
+            or not np.array_equal(got_t.numpy(), want_t.numpy(),
+                                  equal_nan=True)
+            or not torch.allclose(got_r, want_r, rtol=PHASE_RTOL,
+                                  atol=0.0)):
+        raise SystemExit(f"phase kernel differs from its plain version on "
+                         f"{what} {sc.mode} (exact {got_x} vs {want_x})")
+    return sc, tc, float((got_r - want_r).abs().max()), want_x
+
+
+def phase_kphase():
+    """The fused phase kernel against its plain version (``run_phase_ref``
+    on CPU copies of the same inputs): ``done_t`` bit for bit, ``rem``
+    within ``PHASE_RTOL``, the same exact flag, on every phase of
+    :func:`phase_check_sweeps` and on the three phases of the fig2b-16
+    sweep; then timed on those three beside the plain version on the
+    card."""
+    from repro_torch.kernels.ponsim import kernel, ref
+    from repro_torch.net import PONConfig, SweepSpec
+
+    t0 = time.time()
+    covered = set()
+    n_checks = 0
+    err = 0.0
+    for name, spec in phase_check_sweeps().items():
+        for args, kwargs in _record_phases(spec, "cuda"):
+            sc, _, e, exact = _hold_phase(name, args, kwargs)
+            err = max(err, e)
+            covered |= {c for c, hit in PHASE_COVER.items()
+                        if hit(sc, exact)}
+            n_checks += 1
+    missing = set(PHASE_COVER) - covered
+    if missing:
+        raise SystemExit(f"phase checks did not cover {sorted(missing)}")
+
+    # the main path's phases: the fig2b-16 sweep's three
+    _, cases = fig2b_cases()
+    main = SweepSpec(cases=tuple(cases), pon=PONConfig(n_onus=N_ONUS),
+                     backend="jit")
+    ms, plain_ms, cycles = [], [], []
+    n_bytes = n_adds = n_draws = 0
+    for args, kwargs in _record_phases(main, "cuda"):
+        sc, tc, e, _ = _hold_phase("fig2b-16", args, kwargs)
+        err = max(err, e)
+        n_checks += 1
+        state = kernel.launch_phase(sc, tc)
+        k_stop = state["k_stop"].cpu().numpy().astype(np.int64)
+        ms.append(_device_ms(kernel.launch_phase, [(sc, tc)], reps=3))
+        t_run = time.time()
+        ref.run_phase_ref(sc, tc)
+        torch.cuda.synchronize()
+        plain_ms.append((time.time() - t_run) * 1e3)
+        cycles.append(int(k_stop.max()))
+        b, a, d = _phase_bound(sc, tc, k_stop)
+        n_bytes, n_adds, n_draws = n_bytes + b, n_adds + a, n_draws + d
+    bytes_ms = n_bytes / HBM_BYTES_S * 1e3
+    ops_ms = (THREEFRY_OPS * n_draws / OPS32_S + n_adds / FP64_S) * 1e3
+    bound = max(bytes_ms, ops_ms)
+    total = sum(ms)
+    us_cycle = [m * 1e3 / c for m, c in zip(ms, cycles)]
+    _line("k_phase", time.time() - t0, checks=n_checks,
+          covered=len(covered), done_t_bitwise="yes",
+          rem_max_abs_err=f"{err:.3g}",
+          ms=",".join(f"{m:.4f}" for m in ms),
+          cycles=",".join(str(c) for c in cycles),
+          us_per_cycle=",".join(f"{u:.3f}" for u in us_cycle),
+          plain_ms=",".join(f"{m:.1f}" for m in plain_ms),
+          bound_ms=f"{bound:.6f}", bytes_ms=f"{bytes_ms:.6f}",
+          ops_ms=f"{ops_ms:.6f}", n_bytes=n_bytes, f64_adds=n_adds,
+          draws=n_draws)
+    return {
+        "name": "ponsim_phase", "route": "cuda",
+        "source": "src/repro_torch/csrc/ponsim_phase.cu",
+        "replaces": "src/repro/kernels/ponsim/ops.py:584",
+        "carries": ["src/repro/kernels/traffic/kernel.py:164",
+                    "src/repro/kernels/ponsim/kernel.py:86"],
+        "max_abs_err": err, "ms": total, "plain_ms": sum(plain_ms),
+        "bound_ms": bound,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None, "ms_by_phase": ms, "cycles_by_phase": cycles,
+        "us_per_cycle_by_phase": us_cycle, "plain_ms_by_phase": plain_ms,
     }
 
 
@@ -1291,12 +1524,81 @@ def phase_main():
           walls=",".join(f"{w:.3f}" for w in walls),
           k1_launches=launches["traffic_sampler"],
           k2_launches=launches["waterfill_grants"])
-    return launches
+    return launches, walls
+
+
+def _reset_round_counts():
+    """Set the round engine's kernel counts and jit re-runs to 0."""
+    from repro_torch.kernels.ponsim import kernel as k2
+    from repro_torch.kernels.traffic import kernel as k1
+    from repro_torch.net import engine
+
+    k1.launches = k2.launches = k2.phase_launches = 0
+    engine.phase_fallbacks = 0
+
+
+def _round_counts() -> dict:
+    from repro_torch.kernels.ponsim import kernel as k2
+    from repro_torch.kernels.traffic import kernel as k1
+    from repro_torch.net import engine
+
+    return {"phase": k2.phase_launches, "k1": k1.launches,
+            "k2": k2.launches, "fallbacks": engine.phase_fallbacks}
+
+
+def _hold_jit_counts(counts: dict, min_phases: int, what: str) -> None:
+    """The jit path went through the phase kernel alone: at least
+    ``min_phases`` phase launches, no standalone K1/K2 launch and no
+    re-run on the per-cycle loop."""
+    if (counts["phase"] < min_phases or counts["k1"] or counts["k2"]
+            or counts["fallbacks"]):
+        raise SystemExit(f"{what}: jit path counts {counts}")
+
+
+def phase_main_jit(main_walls=None):
+    """The fig2b-16 sweep through ``backend="jit"``: each phase one launch
+    of the phase kernel, with the sampler and the waterfill inside it."""
+    from repro_torch.net import PONConfig, SweepSpec, simulate
+
+    t0 = time.time()
+    names, cases = fig2b_cases()
+    spec = SweepSpec(cases=tuple(cases), pon=PONConfig(n_onus=N_ONUS),
+                     backend="jit")
+    _reset_round_counts()
+    t_run = time.time()
+    results = simulate(spec, device="cuda")
+    torch.cuda.synchronize()
+    first = time.time() - t_run
+    counts = _round_counts()
+    _check_syncs(names, results)
+    _hold_jit_counts(counts, 3, "main_jit")
+    walls = []
+    for _ in range(3):
+        t_run = time.time()
+        results = simulate(spec, device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.time() - t_run)
+        _check_syncs(names, results)
+    walls_out = {"sweep_wall_s_jit": statistics.median(walls),
+                 "sweep_walls_s_jit": walls, "sweep_warmup_s_jit": first}
+    if main_walls:
+        walls_out["sweep_wall_s_per_cycle"] = statistics.median(main_walls)
+    _line("main_jit", time.time() - t0, cases=len(cases),
+          sync_match="16/16", warmup_s=f"{first:.3f}",
+          wall_s_median=f"{walls_out['sweep_wall_s_jit']:.4f}",
+          walls=",".join(f"{w:.4f}" for w in walls),
+          per_cycle_wall_s_median=walls_out.get("sweep_wall_s_per_cycle"),
+          phase_launches=counts["phase"], k1_launches=counts["k1"],
+          k2_launches=counts["k2"], fallbacks=counts["fallbacks"])
+    return counts["phase"], walls_out
 
 
 def phase_full_width():
     """One FCFS load-0.8 round on one PON of 2048 ONUs, then of 4096 (K2
-    at 4096 queues a row), each held to the numpy engine's sync."""
+    at 4096 queues a row), each held to the numpy engine's sync, on the
+    per-cycle loop and through the fused phase (``backend="jit"``)."""
+    import dataclasses
+
     from repro_torch.kernels.ponsim import kernel as k2
     from repro_torch.kernels.traffic import kernel as k1
     from repro_torch.net import simulate
@@ -1319,6 +1621,21 @@ def phase_full_width():
                     f"sync_{n}": repr(res.sync_time),
                     f"k1_launches_{n}": k1.launches,
                     f"k2_launches_{n}": k2.launches})
+        # the same round through the fused phase
+        spec = dataclasses.replace(full_width_spec(n), backend="jit")
+        _reset_round_counts()
+        t_run = time.time()
+        res = simulate(spec, device="cuda")[0]
+        torch.cuda.synchronize()
+        wall = time.time() - t_run
+        if abs(res.sync_time - want) > SYNC_TOL:
+            raise SystemExit(f"{n}-ONU jit sync {res.sync_time!r} != "
+                             f"{want!r}")
+        counts = _round_counts()
+        _hold_jit_counts(counts, 2, f"{n}-ONU round")
+        out.update({f"jit_wall_s_{n}": f"{wall:.3f}",
+                    f"jit_sync_{n}": repr(res.sync_time),
+                    f"jit_phase_launches_{n}": counts["phase"]})
     _line("full_width", time.time() - t0, **out)
 
 
@@ -1797,9 +2114,12 @@ def main() -> int:
         return 1
     t0 = time.time()
     phase_build()
-    kernels = [phase_k1(), phase_k2(), *phase_k3(), phase_k4(), phase_k5(),
-               phase_k6()]
-    launches = phase_main()
+    phase_entry = phase_kphase()
+    kernels = [phase_k1(), phase_k2(), phase_entry, *phase_k3(), phase_k4(),
+               phase_k5(), phase_k6()]
+    launches, main_walls = phase_main()
+    launches["ponsim_phase"], jit_walls = phase_main_jit(main_walls)
+    phase_entry.update(jit_walls)
     phase_full_width()
     # K3 and K3' run once a leaf of every arrived update of the int8 run
     launches["quantize_int8"] = launches["dequantize_int8"] = \

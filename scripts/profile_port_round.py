@@ -1,15 +1,19 @@
 """Where a round of the PyTorch port spends its time on a CUDA card.
 
     python3 scripts/profile_port_round.py [--out chiprun_out/profile.json]
+    python3 scripts/profile_port_round.py --backend jit   # or numpy, both
 
 Runs the Fig. 2b operating point (12 clients, 128 ONUs, FCFS, load 0.8,
 seed 1) once to warm up, then once under ``torch.profiler`` and reports:
-wall time, polling cycles simulated (FCFS background pushes), kernel
-launches and host reads of device values per cycle, the device's busy
-share (summed kernel time over wall time) and the kernels that take the
-most device time. It also times one small kernel launch and one host
-read of a device value in isolation, the two costs the per-cycle loop
-is made of. The JSON summary is printed and written to ``--out``.
+wall time, polling cycles simulated, kernel launches and host reads of
+device values per cycle and per phase, the device's busy share (summed
+kernel time over wall time) and the kernels that take the most device
+time. ``--backend numpy`` (the default) profiles the per-cycle loop,
+``jit`` the fused phase (one kernel launch a phase), ``both`` the two
+in one process, the per-cycle loop first. It also times one small
+kernel launch and one host read of a device value in isolation, the
+two costs the per-cycle loop is made of. The JSON summary (one object a
+backend under ``"backends"``) is printed and written to ``--out``.
 """
 from __future__ import annotations
 
@@ -56,26 +60,63 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "profile.json"))
+    ap.add_argument("--backend", choices=("numpy", "jit", "both"),
+                    default="numpy")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port_round: no CUDA device", file=sys.stderr)
         return 1
+    backends = (("numpy", "jit") if args.backend == "both"
+                else (args.backend,))
+    x = torch.zeros(16, device="cuda")
+    summary = {
+        "device": torch.cuda.get_device_name(0),
+        "smi": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip(),
+        "backends": [profile_backend(b) for b in backends],
+        "launch_us": _us_per(lambda: x.add_(1.0)),
+        "launch_and_host_read_us": _us_per(lambda: bool(x.add_(1.0).any())),
+    }
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(summary, f, indent=1)
+    print(json.dumps(summary))
+    return 0
+
+
+def profile_backend(backend: str) -> dict:
+    """Profile one run of the operating point on ``backend``."""
+    import dataclasses
+
     from repro_torch.kernels.ponsim import kernel as k2
     from repro_torch.kernels.traffic import kernel as k1
     from repro_torch.net import engine, simulate
 
-    spec = op_point_spec()
+    spec = dataclasses.replace(op_point_spec(),
+                               backend=None if backend == "numpy"
+                               else backend)
     simulate(spec, device="cuda")                     # build + warm up
     cycles = 0
+    phases = []
     push = engine._BgQueues.push
+    launch = k2.launch_phase
 
     def counted_push(self, k, bits):
         nonlocal cycles
         cycles += 1
         return push(self, k, bits)
 
+    def counted_launch(spec_, dyn):
+        state = launch(spec_, dyn)
+        phases.append(state["k_stop"])
+        return state
+
     engine._BgQueues.push = counted_push
-    k1.launches = k2.launches = 0
+    k2.launch_phase = counted_launch
+    k1.launches = k2.launches = k2.phase_launches = 0
+    engine.phase_fallbacks = 0
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -85,6 +126,13 @@ def main() -> int:
             wall = time.perf_counter() - t0
     finally:
         engine._BgQueues.push = push
+        k2.launch_phase = launch
+    if backend == "jit":
+        # each phase's last cycle is the latest case's stop
+        cycles = sum(int(k.max()) for k in phases)
+        n_phases = len(phases)
+    else:
+        n_phases = 2                     # the FCFS download and upload
     events = prof.key_averages()
     by_name = {e.key: e for e in events}
 
@@ -97,27 +145,28 @@ def main() -> int:
                       for e in events if e.device_type == DeviceType.CUDA),
                      reverse=True)
     busy_us = sum(t for t, _, _ in kernels)
-    x = torch.zeros(16, device="cuda")
+    launches = count("cudaLaunchKernel")
+    reads = count("aten::_local_scalar_dense")
     summary = {
-        "device": torch.cuda.get_device_name(0),
-        "smi": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True,
-            text=True).stdout.strip(),
+        "backend": backend,
         "sync_time": res.sync_time,
         "wall_s_profiled": wall,
         "cycles": cycles,
+        "phases": n_phases,
         "us_per_cycle_profiled": wall / cycles * 1e6,
-        "kernel_launches": count("cudaLaunchKernel"),
-        "launches_per_cycle": count("cudaLaunchKernel") / cycles,
-        "host_reads": count("aten::_local_scalar_dense"),
-        "host_reads_per_cycle": count("aten::_local_scalar_dense") / cycles,
+        "kernel_launches": launches,
+        "launches_per_cycle": launches / cycles,
+        "launches_per_phase": launches / n_phases,
+        "host_reads": reads,
+        "host_reads_per_cycle": reads / cycles,
+        "host_reads_per_phase": reads / n_phases,
         "device_busy_share_profiled": busy_us * 1e-6 / wall,
+        "device_busy_us": busy_us,
         "k1_launches": k1.launches,
         "k2_launches": k2.launches,
+        "phase_launches": k2.phase_launches,
+        "phase_fallbacks": engine.phase_fallbacks,
         "top_device_us": [[name, t, n] for t, name, n in kernels[:10]],
-        "launch_us": _us_per(lambda: x.add_(1.0)),
-        "launch_and_host_read_us": _us_per(lambda: bool(x.add_(1.0).any())),
     }
     t0 = time.perf_counter()
     simulate(spec, device="cuda")
@@ -129,11 +178,7 @@ def main() -> int:
     # profiler's host overhead
     summary["device_busy_share_unprofiled"] = (
         busy_us * 1e-6 / summary["wall_s_unprofiled"])
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(summary, f, indent=1)
-    print(json.dumps(summary))
-    return 0
+    return summary
 
 
 if __name__ == "__main__":

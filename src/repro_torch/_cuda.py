@@ -24,8 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("traffic.cu", "waterfill.cu", "flash_attn.cu", "ssd_scan.cu",
-           "ssd_scan_tc.cu", "rglru_scan.cu", "quant_int8.cu")
+SOURCES = ("traffic.cu", "waterfill.cu", "ponsim_phase.cu", "flash_attn.cu",
+           "ssd_scan.cu", "ssd_scan_tc.cu", "rglru_scan.cu", "quant_int8.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -104,6 +104,16 @@ def library() -> ctypes.CDLL:
         lib.repro_waterfill_grants.restype = i
         lib.repro_waterfill_scratch_bytes.argtypes = [i]
         lib.repro_waterfill_scratch_bytes.restype = ctypes.c_longlong
+        lib.repro_ponsim_phase.argtypes = [p, i, i, ctypes.c_longlong, p]
+        lib.repro_ponsim_phase.restype = i
+        lib.repro_phase_args_bytes.argtypes = []
+        lib.repro_phase_args_bytes.restype = ctypes.c_longlong
+        lib.repro_phase_smem_limit.argtypes = []
+        lib.repro_phase_smem_limit.restype = ctypes.c_longlong
+        lib.repro_phase_max_pons.argtypes = []
+        lib.repro_phase_max_pons.restype = ctypes.c_longlong
+        lib.repro_phase_max_clients.argtypes = []
+        lib.repro_phase_max_clients.restype = ctypes.c_longlong
         lib.repro_flash_attn_fwd.argtypes = [
             p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
         lib.repro_flash_attn_fwd.restype = i

@@ -21,41 +21,17 @@
 //     here a thread loops over its own live count only;
 //   * bursts land with an integer atomicAdd, so the per-cycle sum is exact in any
 //     order and the stream stays bit-identical to the reference.
+// The draws themselves (threefry, burst count, burst length) live in threefry.cuh, shared
+// with the fused phase kernel (ponsim_phase.cu), which samples the same stream a window at a
+// time.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
-constexpr uint32_t kC240 = 0x1BD11BDAu;
-constexpr uint32_t kWeyl0 = 0x9E3779B9u;
-constexpr uint32_t kWeyl1 = 0x85EBCA6Bu;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t c0,
-                                             uint32_t c1, uint32_t& o0,
-                                             uint32_t& o1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ kC240};
-  const int rots[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  uint32_t x0 = c0 + ks[0];
-  uint32_t x1 = c1 + ks[1];
-#pragma unroll
-  for (int block = 0; block < 5; ++block) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x0 += x1;
-      x1 = rotl(x1, rots[block & 1][i]);
-      x1 ^= x0;
-    }
-    x0 += ks[(block + 1) % 3];
-    x1 += ks[(block + 2) % 3] + static_cast<uint32_t>(block + 1);
-  }
-  o0 = x0;
-  o1 = x1;
-}
 
 __global__ void traffic_kernel(const int64_t* __restrict__ keys,
                                const int32_t* __restrict__ thresholds,
@@ -86,26 +62,16 @@ __global__ void traffic_kernel(const int64_t* __restrict__ keys,
   const uint32_t c0 = win0 + static_cast<uint32_t>(w);
   const uint32_t c1 = static_cast<uint32_t>(onu);
 
-  uint32_t x0, x1;
-  threefry2x32(k0, k1, c0, c1, x0, x1);
-  const int32_t u24 = static_cast<int32_t>(x0 >> 8);
-  // thresholds are non-decreasing, so the count is the first j with u24 <= T_j
-  int count = 0;
-  while (count < n_draws && u24 > thr[count]) ++count;
+  const int count = burst_count(k0, k1, c0, c1, thr, n_draws);
 
   int32_t* out = counts + static_cast<int64_t>(b) * n_cycles * n_onus + onu;
   for (int j = 1; j <= count; ++j) {
-    const uint32_t d = static_cast<uint32_t>(j);
-    threefry2x32(k0 + d * kWeyl0, k1 ^ (d * kWeyl1), c0, c1, x0, x1);
-    const int cyc = w * 64 + static_cast<int>(x0 >> 26) - lo;
+    uint32_t x0, x1;
+    burst_draw(k0, k1, static_cast<uint32_t>(j), c0, c1, x0, x1);
+    const int cyc = (w << kWindowShift) + static_cast<int>(x0 >> (32 - kWindowShift)) - lo;
     if (cyc < 0 || cyc >= n_cycles) continue;
-    const int32_t g24 = static_cast<int32_t>(x1 >> 8);
-    int a = 0, z = n_bp;  // largest run a with s_start[a] <= g24
-    while (z - a > 1) {
-      const int mid = (a + z) >> 1;
-      if (s_start[mid] <= g24) a = mid; else z = mid;
-    }
-    atomicAdd(out + static_cast<int64_t>(cyc) * n_onus, s_len[a]);
+    atomicAdd(out + static_cast<int64_t>(cyc) * n_onus,
+              burst_length(static_cast<int32_t>(x1 >> 8), s_start, s_len, n_bp));
   }
 }
 

@@ -1,12 +1,19 @@
-"""Waterfill grant dispatch: the Hopper kernel K2 for CUDA tensors, the
-plain version for CPU tensors.
+"""Dispatch of the cycle engine's device work: the Hopper kernels for
+CUDA tensors, their plain versions for CPU tensors.
 
-The fused on-device phase program of the JAX package
-(``run_phase_device``) is not ported yet; the engine calls this per
-cycle.
+* :func:`waterfill_grants` — one waterfill (K2), called per cycle by the
+  engine's per-cycle loop;
+* :func:`run_phase_device` — a whole transfer phase in one call, the
+  port of the JAX package's ``backend="jit"`` phase program
+  (``repro/kernels/ponsim/ops.py::run_phase_device``): one launch of the
+  phase kernel (``kernel.run_phase_cuda``) on a card, ``ref.run_phase_ref``
+  on the CPU.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
+import numpy as np
 import torch
 
 from repro_torch._device import DEFAULT_DEVICE, FLOAT, resolve_device
@@ -36,3 +43,197 @@ def waterfill_grants(backlog, hol, cap, hard=None, *,
             backlog.contiguous(), hol.to(FLOAT).contiguous(),
             cap.contiguous(), hard.contiguous())
     return _ref.waterfill_grants_ref(backlog, hol, cap, hard)
+
+
+def _fast_tables(cyc: float, k_max: int, lay, rem_init, ready_t) -> dict:
+    """The scalar-S path's host tables (the JAX package's, in numpy):
+    with one client an ONU, pushes are ready-driven and service follows
+    a priority order known before the loop, so the FL queues collapse to
+    one cumulative-service scalar a row against per-rank demand
+    boundaries."""
+    R, U = rem_init.shape
+    t_seq = np.empty(k_max, np.float64)
+    t_seq[0] = 0.0
+    if k_max > 1:
+        np.cumsum(np.full(k_max - 1, cyc), out=t_seq[1:])
+    tc = t_seq + cyc                    # the loop's t + cyc values
+    ready = np.asarray(ready_t, np.float64)
+    kp = np.searchsorted(tc, ready.ravel()).reshape(R, U)
+    part_b = np.asarray(lay.part, bool)
+    rem_b = np.asarray(rem_init, np.float64)
+    pushes = part_b & (rem_b > 0.0) & (kp < k_max)
+    pt = np.where(pushes,
+                  np.maximum(ready, t_seq[np.minimum(kp, k_max - 1)]),
+                  np.inf)
+    # rank order: the waterfill's stable sort over per-ONU push times,
+    # ties broken by ONU index
+    onu_key = np.broadcast_to(np.asarray(lay.onu, np.int64), (R, U))
+    rk = np.lexsort((onu_key, pt), axis=1)          # rank -> column
+    rows = np.arange(R)[:, None]
+    m_rank = np.where(pushes, rem_b, 0.0)[rows, rk]
+    p_incl = np.zeros((R, U + 1))
+    np.cumsum(m_rank, axis=1, out=p_incl[:, 1:])
+    push_rank = pushes[rows, rk]
+    q_bound = np.where(push_rank, p_incl[:, 1:], np.inf)
+    rank_u = np.argsort(rk, axis=1)                 # column -> rank
+    return {
+        "kp_rank": np.where(push_rank, kp[rows, rk], k_max).astype(
+            np.int32),
+        "p_incl": p_incl,
+        "q_bound": q_bound,
+        "rank_u": rank_u.astype(np.int32),
+        "q_col": q_bound[rows, rank_u],
+        "pushes": pushes,
+        "m_live": (part_b & (rem_b > 0.0)).sum(axis=1).astype(np.int32),
+    }
+
+
+def _layout_tables(lay, N: int) -> dict:
+    """Column ↔ ONU maps of the static slot layout: ``onu_map[n]`` is
+    ONU n's column (one client an ONU) or its segment (several), -1 for
+    an ONU without one; ``seg_idx`` pads each segment's columns to the
+    longest with the dummy column ``U``."""
+    U = len(lay.onu)
+    seg_starts = np.asarray(lay.seg_starts, np.int64)
+    seg_len = np.asarray(lay.seg_len, np.int64)
+    seg_onus = np.asarray(lay.seg_onus, np.int64)
+    onu_map = np.full(N, -1, np.int32)
+    onu_map[seg_onus] = (seg_starts if lay.single
+                         else np.arange(len(seg_onus)))
+    L = int(seg_len.max())
+    seg_idx = np.full((len(seg_starts), L), U, np.int64)
+    for s, (a, n) in enumerate(zip(seg_starts, seg_len)):
+        seg_idx[s, :n] = np.arange(a, a + n)
+    return {
+        "lay_onu": np.asarray(lay.onu, np.int64),
+        "lay_pos": np.arange(U, dtype=np.int64),
+        "seg_starts": seg_starts,
+        "seg_len": seg_len,
+        "seg_onus": seg_onus,
+        "seg_idx": seg_idx,
+        "onu_map": onu_map,
+    }
+
+
+def phase_inputs(cfg, lay, rem_init, ready_t, mode: str, *, keys=None,
+                 lams=None, slot_arrays=None, max_t: float = 600.0,
+                 fill_unfinished: bool = True, cap_row=None,
+                 cps_cap: Optional[float] = None, n_pons: int = 1,
+                 deadline_row=None, outage_row=None,
+                 use_k2: Optional[bool] = None, device=DEFAULT_DEVICE):
+    """``(spec, tensors)`` of one phase on ``device``: the
+    ``ref.PhaseSpec`` and the phase's tensors, with the host tables built
+    as the JAX package builds them. The arguments are
+    :func:`run_phase_device`'s."""
+    from repro_torch.kernels.traffic.ops import _table, _tail_bound
+    from repro_torch.kernels.traffic.ref import WINDOW, poisson_thresholds
+    from repro_torch.net.traffic import PACKET_BITS
+
+    dev = resolve_device(device)
+    if use_k2 is None:
+        use_k2 = dev.type == "cuda"
+    R, U = rem_init.shape
+    N = int(cfg.n_onus)
+    P = int(n_pons)
+    if R % P:
+        raise ValueError(f"{R} rows do not split into cases of {P} PONs")
+    cyc = float(cfg.cycle_time_s)
+    if cap_row is None:
+        cap_row = np.full((R,), cfg.line_rate_bps * cyc * cfg.efficiency)
+    has_deadline = deadline_row is not None
+    if has_deadline:
+        cap_t = np.where(np.isfinite(deadline_row), deadline_row, max_t)
+        tmax = float(cap_t.max())
+    else:
+        tmax = float(max_t)
+    k_max = int(np.ceil(max(tmax, 0.0) / cyc)) + 16
+    lams = (np.zeros((R,), np.float32) if lams is None
+            else np.asarray(lams, np.float32))
+    has_bg = bool(mode == "fcfs" and lams.size and float(lams.max()) > 0.0)
+    fast = mode == "fcfs" and bool(lay.single)
+    dyn = {
+        "part": np.asarray(lay.part, bool),
+        "rem0": np.asarray(rem_init, np.float64),
+        "ready": np.asarray(ready_t, np.float64),
+        "list_pos": np.asarray(lay.list_pos, np.int64),
+        "cap_col": np.asarray(cap_row, np.float64),
+        **_layout_tables(lay, N),
+    }
+    if fast:
+        dyn.update(_fast_tables(cyc, k_max, lay, rem_init, ready_t))
+    if has_deadline:
+        dyn["cap_t"] = np.asarray(cap_t, np.float64)
+        dyn["finite_dl"] = np.isfinite(deadline_row)
+    if outage_row is not None:
+        dyn["out0"] = np.asarray(outage_row[:, 0], np.float64)
+        dyn["out1"] = np.asarray(outage_row[:, 1], np.float64)
+    n_draws = 0
+    inv_burst = 1.0 / cfg.bg_burst_packets
+    if has_bg:
+        lam_w = np.asarray(lams, np.float64) * WINDOW
+        n_draws = _tail_bound(float(lam_w.max()))
+        dyn["keys"] = np.asarray(keys, np.uint32).astype(np.int64)
+        dyn["thr"] = poisson_thresholds(lam_w, n_draws)
+    S = 1
+    if mode == "bs":
+        ts, te, sonu, srate, svalid = slot_arrays
+        S = ts.shape[1]
+        dyn.update(ts=np.asarray(ts, np.float64),
+                   te_g=np.asarray(te, np.float64) + cyc,
+                   sonu=np.asarray(sonu, np.int64),
+                   srate=np.asarray(srate, np.float64),
+                   svalid=np.asarray(svalid, bool))
+    spec = _ref.PhaseSpec(
+        mode=mode, R=R, U=U, N=N, S=S, P=P, k_max=k_max, n_draws=n_draws,
+        max_slots=int(np.asarray(lay.seg_len).max()), has_bg=has_bg,
+        has_cps=cps_cap is not None, has_deadline=has_deadline,
+        has_outage=outage_row is not None,
+        fill_unfinished=bool(fill_unfinished), fast=fast,
+        single=bool(lay.single), identity=bool(lay.identity),
+        use_k2=bool(use_k2), cyc=cyc, prop=float(cfg.propagation_s),
+        tmax=tmax, cps_cap=0.0 if cps_cap is None else float(cps_cap),
+        packet_bits=float(PACKET_BITS), inv_burst=inv_burst)
+    tens = {name: torch.as_tensor(np.ascontiguousarray(val), device=dev)
+            for name, val in dyn.items()}
+    if has_bg:
+        tens["bp_start"], tens["bp_len"] = _table(inv_burst, dev)
+    return spec, tens
+
+
+def run_phase_device(cfg, lay, rem_init, ready_t, mode: str, *,
+                     keys=None, lams=None, slot_arrays=None,
+                     max_t: float = 600.0, fill_unfinished: bool = True,
+                     cap_row=None, cps_cap: Optional[float] = None,
+                     n_pons: int = 1, deadline_row=None, outage_row=None,
+                     use_k2: Optional[bool] = None, device=DEFAULT_DEVICE,
+                     ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Run one transfer phase in one call on ``device``.
+
+    The engine's ``_run_phase`` inputs, with the arrival stream given by
+    its raw ``(keys, lams)`` (uint32 ``(R, 2)``, float32 ``(R,)``) so
+    that the sampler runs inside the phase. Returns ``(done_t, rem)``
+    numpy arrays, or ``None`` when the background's ring walk lost
+    exactness (sustained overload aged a marginal queue's head out of
+    the ``HISTORY_CYCLES`` ring, or the counting pour's clipped bucket
+    was ambiguous); the caller then re-runs the phase on the per-cycle
+    engine. ``use_k2`` pours the background's hard rows with K2's
+    waterfill (the default on a card, the only pour the card has) or
+    with the counting pour (the default on the CPU, as the JAX program
+    pours on a CPU). The pours lose exactness on different phases (the
+    counting pour also where its clipped age bucket is ambiguous), so
+    the phases a sweep re-runs can differ between the CPU and the card;
+    where both are exact they agree within rtol 1e-6.
+    """
+    spec, tens = phase_inputs(
+        cfg, lay, rem_init, ready_t, mode, keys=keys, lams=lams,
+        slot_arrays=slot_arrays, max_t=max_t,
+        fill_unfinished=fill_unfinished, cap_row=cap_row, cps_cap=cps_cap,
+        n_pons=n_pons, deadline_row=deadline_row, outage_row=outage_row,
+        use_k2=use_k2, device=device)
+    if tens["rem0"].is_cuda:
+        done_t, rem, exact = _kernel.run_phase_cuda(spec, tens)
+    else:
+        done_t, rem, exact = _ref.run_phase_ref(spec, tens)
+    if not exact:
+        return None
+    return done_t.cpu().numpy(), rem.cpu().numpy()

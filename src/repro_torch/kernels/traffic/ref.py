@@ -109,16 +109,11 @@ def window_counts(keys, cycle0: int, n_cycles: int, n_onus: int,
     return count.view(B, n_win, n_onus)
 
 
-def sample_arrival_bits_ref(keys, cycle0: int, thresholds, starts,
-                            lengths, packet_bits: float, *,
-                            n_cycles: int, n_onus: int) -> torch.Tensor:
-    """Arrival bits ``(B, n_cycles, n_onus)`` float64.
-
-    ``keys``: int64 ``(B, 2)`` uint32 stream keys; ``thresholds``: int32
-    ``(B, n_draws)`` from :func:`poisson_thresholds`; ``starts`` /
-    ``lengths``: the int32 breakpoint table of ``tables.burst_table``;
-    all on one device.
-    """
+def packet_counts(keys, cycle0: int, thresholds, starts, lengths, *,
+                  n_cycles: int, n_onus: int) -> torch.Tensor:
+    """Packets arriving per ``(case, cycle, onu)``, int64
+    ``(B, n_cycles, n_onus)``: every live burst's breakpoint-table
+    length added on the cycle its draw places it."""
     win0, n_win, lo = _windows(cycle0, n_cycles)
     dev = keys.device
     B = keys.shape[0]
@@ -145,5 +140,19 @@ def sample_arrival_bits_ref(keys, cycle0: int, thresholds, starts,
         dest = torch.where(ok, (b * n_cycles + cyc) * n_onus + onu, 0)
         packets.index_add_(0, dest.reshape(-1),
                            torch.where(ok, glen, 0).reshape(-1))
-    return (packets.to(FLOAT) * float(packet_bits)).view(
-        B, n_cycles, n_onus)
+    return packets.view(B, n_cycles, n_onus)
+
+
+def sample_arrival_bits_ref(keys, cycle0: int, thresholds, starts,
+                            lengths, packet_bits: float, *,
+                            n_cycles: int, n_onus: int) -> torch.Tensor:
+    """Arrival bits ``(B, n_cycles, n_onus)`` float64.
+
+    ``keys``: int64 ``(B, 2)`` uint32 stream keys; ``thresholds``: int32
+    ``(B, n_draws)`` from :func:`poisson_thresholds`; ``starts`` /
+    ``lengths``: the int32 breakpoint table of ``tables.burst_table``;
+    all on one device.
+    """
+    packets = packet_counts(keys, cycle0, thresholds, starts, lengths,
+                            n_cycles=n_cycles, n_onus=n_onus)
+    return packets.to(FLOAT) * float(packet_bits)

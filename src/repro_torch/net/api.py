@@ -3,8 +3,9 @@
 :class:`SweepSpec` carries the cases and every sweep-level knob,
 validates the bundle once and runs through :func:`simulate` on a
 device. Only single-round sweeps are ported: a ``schedule`` (timeline),
-``backend="jit"``, tenant ``jobs`` and a ``collector`` raise
-``NotImplementedError`` naming the ROADMAP item that adds them.
+tenant ``jobs`` and a ``collector`` raise ``NotImplementedError`` naming
+the ROADMAP item that adds them. ``backend="jit"`` runs each phase in
+one call (the fused phase kernel on a card).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Optional, Tuple
 
 from repro_torch._device import DEFAULT_DEVICE
 from repro_torch.net.engine import (
+    _BACKENDS,
     SweepCase,
     _not_ported,
     _round_sweep,
@@ -32,8 +34,9 @@ class SweepSpec:
     ``pon`` is the :class:`PONConfig` (``None`` = the defaults, or the
     config passed to :func:`simulate`). ``ul_deadline_s`` and
     ``ul_outage_s`` are the round's upload deadline and outage windows
-    (see ``engine._round_sweep``). ``schedule`` and ``backend`` mirror
-    the reference's fields; only their defaults run.
+    (see ``engine._round_sweep``). ``backend`` is ``None``/``"numpy"``
+    (the per-cycle loop) or ``"jit"`` (each phase in one call).
+    ``schedule`` mirrors the reference's field; only ``None`` runs.
     """
 
     cases: Tuple[SweepCase, ...] = field(default_factory=tuple)
@@ -54,9 +57,7 @@ class SweepSpec:
             raise ValueError("SweepSpec needs at least one case")
         if self.schedule is not None:
             raise _not_ported("schedule")
-        if self.backend == "jit":
-            raise _not_ported("jit")
-        if self.backend not in (None, "numpy"):
+        if self.backend not in _BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}")
         for b, case in enumerate(self.cases):
             if not isinstance(case, SweepCase):
@@ -96,5 +97,5 @@ def simulate(spec: SweepSpec, cfg: Optional[PONConfig] = None,
     return _round_sweep(
         pon, list(spec.cases), t_round_hint=spec.t_round_hint,
         max_t=spec.max_t, ul_deadline_s=spec.ul_deadline_s,
-        ul_outage_s=spec.ul_outage_s, device=device,
+        ul_outage_s=spec.ul_outage_s, backend=spec.backend, device=device,
     )

@@ -25,10 +25,17 @@ columns, coupled each cycle by the CPS waterfill).
   host sync each; client readiness, deadlines, outages and slot
   activity are decided from host copies with no sync.
 
+``backend="jit"`` runs each phase in one call instead
+(``kernels.ponsim.ops.run_phase_device``: one launch of the phase
+kernel on a card), with the arrival sampler inside it; a phase whose
+background ring walk loses exactness there is re-run on the per-cycle
+loop on the same device, and :data:`phase_fallbacks` counts the
+re-runs.
+
 Public API: ``SweepCase`` + ``simulate_round_sweep``; prefer building a
 ``repro_torch.net.SweepSpec`` and calling ``simulate(spec)``. Multi-tenant
-jobs, ``collector`` instrumentation, timelines and the fused device
-phase (``backend="jit"``) are not ported yet and raise.
+jobs, ``collector`` instrumentation and timelines are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ from repro_torch._device import (
 )
 from repro_torch.core.scheduler import schedule_slots, slots_to_arrays
 from repro_torch.core.slicing import ClientProfile, SliceSpec, compute_slice
-from repro_torch.kernels.ponsim.ops import waterfill_grants
+from repro_torch.kernels.ponsim.ops import run_phase_device, waterfill_grants
 from repro_torch.kernels.ponsim.ref import hard_rows
 from repro_torch.kernels.traffic.ops import (
     make_stream_key,
@@ -70,9 +77,10 @@ _NOT_PORTED = {
     "collector": "collector instrumentation (obs/) is ROADMAP Queue 1 "
                  "item 8",
     "schedule": "timelines (net/timeline.py) are ROADMAP Queue 1 item 7",
-    "jit": "the fused device phase (backend='jit') is ROADMAP Queue 1 "
-           "item 5",
 }
+_BACKENDS = (None, "numpy", "jit")
+
+phase_fallbacks = 0   # jit phases re-run on the per-cycle loop (inexact)
 
 
 def _not_ported(what: str):
@@ -807,6 +815,7 @@ def _round_sweep(cfg, cases: Sequence[SweepCase],
                  max_t: float = 600.0,
                  ul_deadline_s=None,
                  ul_outage_s=None,
+                 backend: Optional[str] = None,
                  *, device=DEFAULT_DEVICE) -> List["RoundResult"]:  # noqa: F821
     """Simulate every sweep case as one stacked tensor simulation on
     ``device``.
@@ -816,14 +825,23 @@ def _round_sweep(cfg, cases: Sequence[SweepCase],
     (scalar, or one entry per case with ``None``/``inf`` = none) cuts
     the upload phase and reports unserved bits in ``ul_remaining``,
     ``ul_outage_s`` (per case: ``None``, ``(2,)`` or ``(n_pons, 2)``
-    ``[start, end)`` windows) darkens a row's capacity.
+    ``[start, end)`` windows) darkens a row's capacity. ``backend``
+    ``None``/``"numpy"`` runs the per-cycle loop, ``"jit"`` each phase
+    in one call (injected arrival matrices are not taken there).
     """
     from repro_torch.net.sim import RoundResult
 
     device = resolve_device(device)
     cases = list(cases)
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown engine backend {backend!r}")
     if any(case.jobs is not None for case in cases):
         raise _not_ported("jobs")
+    use_jit = backend == "jit"
+    if use_jit and any(case.dl_arrivals is not None
+                       or case.ul_arrivals is not None for case in cases):
+        raise ValueError("backend='jit' does not support injected arrival "
+                         "matrices; use the numpy backend")
     topo = _sweep_topology(cases)
     P = topo.n_pons
     n_local = cfg.n_onus
@@ -932,7 +950,37 @@ def _round_sweep(cfg, cases: Sequence[SweepCase],
         return _Stream(entries, n_local, 1.0 / cfg.bg_burst_packets,
                        device=device)
 
+    def stream_params(sel, phase):
+        """The raw ``(keys, lams)`` of ``providers(sel, phase)``: the jit
+        phase samples the arrival stream itself."""
+        ks = np.empty((len(sel), 2), np.uint32)
+        ls = np.empty((len(sel),), np.float32)
+        for i, r in enumerate(sel):
+            b, p = int(row_case[r]), int(row_pon[r])
+            ks[i] = make_stream_key(cases[b].seed, 0 if phase == "dl" else 1,
+                                    cases[b].stream_round, p)
+            ls[i] = burst_lambda(per_onu_rate[b, p], cfg.cycle_time_s,
+                                 PACKET_BITS, cfg.bg_burst_packets)
+        return ks, ls
+
     def run_phase(sub, rem0, ready, sel, phase, mode, **kw):
+        global phase_fallbacks
+        if use_jit:
+            keys = lams = None
+            if mode == "fcfs":
+                keys, lams = stream_params(sel, phase)
+            out = run_phase_device(
+                cfg, sub, rem0, ready, mode, keys=keys, lams=lams,
+                slot_arrays=kw.get("slot_arrays"), max_t=kw["max_t"],
+                fill_unfinished=kw.get("fill_unfinished", True),
+                cap_row=kw.get("cap_row"), cps_cap=kw.get("cps_cap"),
+                n_pons=kw.get("n_pons", 1),
+                deadline_row=kw.get("deadline_row"),
+                outage_row=kw.get("outage_row"), device=device)
+            if out is not None:
+                return out
+            # the ring walk lost exactness: the per-cycle loop is exact
+            phase_fallbacks += 1
         stream = providers(sel, phase) if mode == "fcfs" else None
         return _run_phase(cfg, sub, rem0, ready, stream, mode,
                           device=device, **kw)
@@ -1112,12 +1160,8 @@ def simulate_round_sweep(cfg, cases=None,
     )
     if collector is not None:
         raise _not_ported("collector")
-    if backend == "jit":
-        raise _not_ported("jit")
-    if backend not in (None, "numpy"):
-        raise ValueError(f"unknown engine backend {backend!r}")
     return _round_sweep(
         cfg, cases, t_round_hint=t_round_hint, max_t=max_t,
         ul_deadline_s=ul_deadline_s, ul_outage_s=ul_outage_s,
-        device=device,
+        backend=backend, device=device,
     )

@@ -9,7 +9,9 @@ that has only PyTorch:
 The kernels are held to their plain versions, and whole sweeps on the
 card (kernels, device-side queue state, the column-by-column prefix
 sums) to the same sweeps on the CPU. K1 and K2 are held bit for bit;
-K4 (flash attention) within 2e-5 in float32 (the same function summed in
+The fused phase kernel is held to ``run_phase_ref`` on CPU copies of the
+same inputs: ``done_t`` bit for bit, ``rem`` within 1e-9, the same exact
+flag. K4 (flash attention) within 2e-5 in float32 (the same function summed in
 another order; the plain version's products run in full float32, TF32
 off) and 2e-2 in bfloat16 (both outputs rounded to bf16). K5 (the SSD
 scan) computes in float32 from inputs of either type, like its plain
@@ -232,6 +234,100 @@ def test_sweep_on_card_equals_cpu(cuda, name):
                 assert np.array_equal(np.array(list(x.values())),
                                       np.array(list(y.values())),
                                       equal_nan=True), field
+
+
+PHASE_SWEEPS = ["fast_bs", "multi", "cps_masks", "overload"]
+
+
+def _hold_phase_to_plain(cuda, args, kwargs) -> None:
+    """One recorded phase through the phase kernel and through
+    ``run_phase_ref`` on CPU copies of the same inputs: ``done_t`` bit for
+    bit, ``rem`` within 1e-9, the same exact flag, one launch."""
+    sc, tc = k2_ops.phase_inputs(*args, **kwargs, use_k2=True, device=cuda)
+    sh, th = k2_ops.phase_inputs(*args, **kwargs, use_k2=True, device="cpu")
+    before = k2.phase_launches
+    got_t, got_r, got_x = k2.run_phase_cuda(sc, tc)
+    assert k2.phase_launches == before + 1
+    want_t, want_r, want_x = k2_ref.run_phase_ref(sh, th)
+    assert got_x == want_x
+    np.testing.assert_array_equal(got_t.cpu().numpy(), want_t.numpy())
+    torch.testing.assert_close(got_r.cpu(), want_r, rtol=1e-9, atol=0.0)
+
+
+@pytest.mark.parametrize("name", PHASE_SWEEPS)
+def test_phase_kernel_equals_plain(cuda, name):
+    """Every phase of ``chip_smoke.phase_check_sweeps()[name]`` through the
+    phase kernel and through ``run_phase_ref`` on CPU copies of the same
+    inputs (the scalar-S path with background, several clients an ONU, bs
+    slots, 3-PON CPS with deadline and outage, an inexact overload)."""
+    cs = _chip_smoke()
+    calls = cs._record_phases(cs.phase_check_sweeps()[name], cuda)
+    assert calls
+    for args, kwargs in calls:
+        _hold_phase_to_plain(cuda, args, kwargs)
+
+
+def test_jit_sweep_on_card(cuda):
+    """The fig2b-16 sweep through ``backend="jit"``: every sync equals the
+    JAX engine's, three phase launches, no standalone K1/K2 launch, no
+    re-run on the per-cycle loop; then each of its three phases (up to
+    128 clients, 10 Gb/s, 1,774 to 6,312 cycles) through the kernel
+    against its plain version, every client's ``done_t`` and ``rem``."""
+    from repro_torch.net import engine
+
+    cs = _chip_smoke()
+    names, cases = cs.fig2b_cases()
+    spec = SweepSpec(cases=tuple(cases), pon=PONConfig(n_onus=cs.N_ONUS),
+                     backend="jit")
+    k1_before, k2_before = k1.launches, k2.launches
+    phases, fallbacks = k2.phase_launches, engine.phase_fallbacks
+    res = simulate(spec, device=cuda)
+    assert {n: r.sync_time for n, r in zip(names, res)} == cs.SYNC_TABLE
+    assert k2.phase_launches - phases == 3
+    assert (k1.launches, k2.launches) == (k1_before, k2_before)
+    assert engine.phase_fallbacks == fallbacks
+    calls = cs._record_phases(spec, cuda)
+    assert len(calls) == 3
+    for args, kwargs in calls:
+        _hold_phase_to_plain(cuda, args, kwargs)
+
+
+def test_jit_full_width_4096_round_on_card(cuda):
+    """The 4096-ONU round through the phase kernel (K2's sort at 4096
+    queues inside it): the numpy engine's sync."""
+    import dataclasses
+
+    cs = _chip_smoke()
+    spec = dataclasses.replace(cs.full_width_spec(4096), backend="jit")
+    res = simulate(spec, device=cuda)[0]
+    assert abs(res.sync_time - cs.SYNC_4096) <= 1e-9
+
+
+def test_phase_kernel_rejects_wide_cases(cuda):
+    """More PONs a case or clients an ONU than the library's limits raise
+    in the wrapper, and the library's entry refuses them before any
+    launch; the counting pour raises on the card."""
+    import ctypes
+    import dataclasses
+
+    from repro_torch import _cuda
+
+    cs = _chip_smoke()
+    args, kwargs = cs._record_phases(cs.phase_check_sweeps()["fast_bs"],
+                                     cuda)[0]
+    sc, tc = k2_ops.phase_inputs(*args, **kwargs, use_k2=True, device=cuda)
+    max_pons, max_clients = k2.phase_limits()
+    assert (max_pons, max_clients) == (32, 32)
+    for wide in (dataclasses.replace(sc, P=max_pons + 1),
+                 dataclasses.replace(sc, max_slots=max_clients + 1)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            k2.run_phase_cuda(wide, tc)
+        raw = k2._PhaseArgs(P=wide.P, max_slots=wide.max_slots)
+        rc = _cuda.library().repro_ponsim_phase(ctypes.byref(raw), 1, 128,
+                                                0, None)
+        assert rc == 1                  # cudaErrorInvalidValue
+    with pytest.raises(NotImplementedError, match="counting pour"):
+        k2.run_phase_cuda(dataclasses.replace(sc, use_k2=False), tc)
 
 
 # (B, S, T, H, K, D, causal, window): the grid of tests/test_kernels.py,

@@ -198,8 +198,13 @@ def test_not_ported_features_raise():
     with pytest.raises(NotImplementedError, match="timeline"):
         T.simulate(T.SweepSpec(cases=(case,), pon=cfg, schedule=object()),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="jit"):
-        T.simulate(T.SweepSpec(cases=(case,), pon=cfg, backend="jit"),
+    # backend="jit" is ported; like the reference it takes no injected
+    # arrival matrices
+    injected = T.SweepCase(workload=wl, load=0.3, policy="fcfs",
+                           dl_arrivals=np.zeros((64, 4)),
+                           ul_arrivals=np.zeros((64, 4)))
+    with pytest.raises(ValueError, match="jit"):
+        T.simulate(T.SweepSpec(cases=(injected,), pon=cfg, backend="jit"),
                    device="cpu")
 
 
