@@ -50,7 +50,11 @@ nonzero:
    bound counts the phase's inputs read once, its outputs written once,
    the threefry draws and float64 adds its data needs (the kernel is
    bound by latency, the serial chain of cycles and barriers, far above
-   that bound);
+   that bound). Then past the widths the kernel once refused
+   (``wide_check_sweeps``, ``WIDE_COVER``): 33 and 100 PONs a case, an
+   ONU of 33 clients, bs slots piled 3 to an ONU under CPS, a row of
+   16,385 queues (its sort in global scratch), each held the same way
+   and timed;
 3b. ``k3``: int8 quantise (K3) and dequantise (K3') against their plain
    versions on the card, bit for bit (q, scales, dequantised values):
    ``K3_GRID`` in float32 and bfloat16, as drawn, half zero and on exact
@@ -106,6 +110,15 @@ nonzero:
    (line rate scaled 10 Gb/s * n / 128; one PON, so K2 rows of 2048 and
    4096 queues), each held against the JAX engine's sync time, on the
    per-cycle loop and through ``backend="jit"`` (phase kernel only);
+7a. ``wide_pons``: one FCFS load-0.8 round on 100 PONs x 1,024 ONUs in
+   one case (``benchmarks/timeline.py::stacked_run``'s deployment)
+   through ``backend="jit"``: its sync within ``SYNC_TOL`` of the
+   per-cycle loop's on the same card and every client's times and
+   left-over bits within ``ROUND_RTOL`` of the loop's; its two phases,
+   recorded, each held in full to the plain version on CPU copies
+   (``done_t`` bit for bit, ``rem`` within ``PHASE_RTOL``, the same exact
+   flag); prints the wall, each phase's device ms and µs a cycle and the
+   device's busy share. Nothing is cut;
 7b. ``fl_fig2a``: ``benchmarks/fig2a_accuracy.py``'s settings (16
    clients x 64 samples, lr 0.04, batch 16, 2 local epochs, data seed 0,
    server seed 1, 10 rounds, fractions {0.25, 0.5, 1.0}, 512 test images)
@@ -779,6 +792,92 @@ PHASE_COVER = {
 PHASE_RTOL = 1e-9     # rem against the plain version (done_t bit for bit)
 
 
+def wide_check_sweeps():
+    """Short sweeps past the widths the phase kernel once refused (ROADMAP
+    F4): 33 PONs of 4 ONUs and 100 PONs of 8 (CPS binding, fcfs and bs);
+    ONU 0 of 2 PONs holding 33 clients under CPS (fcfs); 2 PONs of 6
+    clients each under CPS (bs; :func:`wide_phases` gives its ONUs 3
+    slots each); one PON of 16,385 ONUs at 1 Gb/s and load 0.5 (bursts
+    of 192 kbit against 1 Mbit a cycle make the row hard on many cycles;
+    rows past 16,384 queues: the sort's pairs in global scratch)."""
+    from repro_torch.net import MultiPonTopology, PONConfig, SweepCase, \
+        SweepSpec
+
+    def cases(ids, topo, load=0.3, policies=("fcfs", "bs")):
+        return tuple(SweepCase(workload=_short_workload(ids, 6), load=load,
+                               policy=policy, seed=6, topology=topo)
+                     for policy in policies)
+
+    g4 = PONConfig(n_onus=4, line_rate_bps=1e9)
+    g8 = PONConfig(n_onus=8, line_rate_bps=1e9)
+    wide = PONConfig(n_onus=WIDE_ROW, line_rate_bps=1e9)
+    two = MultiPonTopology(n_pons=2, cps_rate_bps=1.2e9)
+    return {
+        "pons33": SweepSpec(cases=cases(
+            [0, 5, 9, 30, 61, 77, 100, 131],
+            MultiPonTopology(n_pons=33, cps_rate_bps=10.5e9)), pon=g4,
+            backend="jit"),
+        "pons100": SweepSpec(cases=cases(
+            [0, 9, 130, 257, 400, 555, 642, 799],
+            MultiPonTopology(n_pons=100, cps_rate_bps=31e9)), pon=g8,
+            backend="jit"),
+        # ids = 0 mod 16 land on PON 0's ONU 0
+        "clients33": SweepSpec(cases=cases(
+            [*range(0, 33 * 16, 16), 9, 11, 14], two, policies=("fcfs",)),
+            pon=g8, backend="jit"),
+        "slots_cps": SweepSpec(cases=cases(
+            [0, 1, 2, 3, 5, 6, 8, 10, 11, 12, 13, 15], two,
+            policies=("bs",)), pon=g8, backend="jit"),
+        "row16385": SweepSpec(cases=cases(
+            [0, 1000, 5000, 9000, 16384], None, load=0.5,
+            policies=("fcfs",)), pon=wide, backend="jit"),
+    }
+
+
+def _pile_slots(slot_arrays, copies: int = 3):
+    """The slot arrays with every slot repeated ``copies`` times, each
+    copy after the last in slot order: each ONU holds ``copies`` slots
+    (the engine's bs policy gives an ONU one client and one slot; the
+    phase program takes any slot arrays)."""
+    ts, te, sonu, srate, svalid = slot_arrays
+    return (np.tile(ts, copies), np.tile(te, copies), np.tile(sonu, copies),
+            srate, np.tile(svalid, copies))
+
+
+def wide_phases(device):
+    """``(name, args, kwargs)`` of every phase of
+    :func:`wide_check_sweeps`, recorded on ``device``; the bs phases of
+    ``slots_cps`` with their slots piled 3 to an ONU."""
+    out = []
+    for name, spec in wide_check_sweeps().items():
+        for args, kwargs in _record_phases(spec, device):
+            if name == "slots_cps" and args[4] == "bs":
+                kwargs = dict(kwargs,
+                              slot_arrays=_pile_slots(kwargs["slot_arrays"]))
+            out.append((name, args, kwargs))
+    return out
+
+
+WIDE_ROW = 16_385
+
+
+def _slots_an_onu(dyn) -> int:
+    """The most valid slots one ONU of a row holds (bs phases)."""
+    ostart = dyn["ostart"]
+    return int((ostart[:, 1:] - ostart[:, :-1]).max())
+
+
+# what the wide phases must have covered between them
+WIDE_COVER = {
+    "33 PONs a case": lambda s, d: s.P == 33,
+    "100 PONs a case": lambda s, d: s.P == 100,
+    "33 clients an ONU": lambda s, d: s.max_slots == 33,
+    "several slots an ONU under CPS (bs)": lambda s, d: (
+        s.mode == "bs" and s.has_cps and _slots_an_onu(d) > 1),
+    "a row of 16,385 queues": lambda s, d: s.N == WIDE_ROW and s.has_bg,
+}
+
+
 def _phase_bound(spec, dyn, k_stop) -> tuple:
     """``(bytes, float64 adds, threefry draws)`` of one phase: its inputs
     read once and its outputs (``done_t``, ``rem``, the exact flags)
@@ -858,6 +957,27 @@ def phase_kphase():
     missing = set(PHASE_COVER) - covered
     if missing:
         raise SystemExit(f"phase checks did not cover {sorted(missing)}")
+    # past the widths the kernel once refused
+    wide_covered, wide_ms, smem = set(), {}, {}
+    for i, (name, args, kwargs) in enumerate(wide_phases("cuda")):
+        sc, tc, e, _ = _hold_phase(name, args, kwargs)
+        err = max(err, e)
+        n_checks += 1
+        hits = {c for c, hit in WIDE_COVER.items() if hit(sc, tc)}
+        wide_covered |= hits
+        if hits:
+            what = f"{name}_{i}_{sc.mode}"
+            wide_ms[what] = _device_ms(kernel.launch_phase, [(sc, tc)],
+                                       reps=3)
+            smem[what] = kernel.phase_plan(sc, tc)
+    missing = set(WIDE_COVER) - wide_covered
+    if missing:
+        raise SystemExit(f"wide phase checks did not cover "
+                         f"{sorted(missing)}")
+    if any("sort" in plan["regions_on_chip"] for what, plan in smem.items()
+           if what.startswith("row16385")):
+        raise SystemExit("the 16,385-queue row's sort was not in global "
+                         "scratch")
 
     # the main path's phases: the fig2b-16 sweep's three
     _, cases = fig2b_cases()
@@ -885,7 +1005,8 @@ def phase_kphase():
     total = sum(ms)
     us_cycle = [m * 1e3 / c for m, c in zip(ms, cycles)]
     _line("k_phase", time.time() - t0, checks=n_checks,
-          covered=len(covered), done_t_bitwise="yes",
+          covered=len(covered), wide_covered=len(wide_covered),
+          done_t_bitwise="yes",
           rem_max_abs_err=f"{err:.3g}",
           ms=",".join(f"{m:.4f}" for m in ms),
           cycles=",".join(str(c) for c in cycles),
@@ -893,7 +1014,10 @@ def phase_kphase():
           plain_ms=",".join(f"{m:.1f}" for m in plain_ms),
           bound_ms=f"{bound:.6f}", bytes_ms=f"{bytes_ms:.6f}",
           ops_ms=f"{ops_ms:.6f}", n_bytes=n_bytes, f64_adds=n_adds,
-          draws=n_draws)
+          draws=n_draws,
+          wide_ms=",".join(f"{k}:{v:.4f}" for k, v in wide_ms.items()),
+          on_chip=",".join(f"{k}:{v['smem_bytes']}B/{v['threads']}t"
+                           for k, v in smem.items()))
     return {
         "name": "ponsim_phase", "route": "cuda",
         "source": "src/repro_torch/csrc/ponsim_phase.cu",
@@ -905,6 +1029,7 @@ def phase_kphase():
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None, "ms_by_phase": ms, "cycles_by_phase": cycles,
         "us_per_cycle_by_phase": us_cycle, "plain_ms_by_phase": plain_ms,
+        "wide_checks_ms": wide_ms,
     }
 
 
@@ -1639,6 +1764,127 @@ def phase_full_width():
     _line("full_width", time.time() - t0, **out)
 
 
+WIDE_PONS, WIDE_ONUS = 100, 1024
+
+
+def wide_pons_spec(backend=None):
+    """``benchmarks/timeline.py::stacked_run``'s deployment, one round:
+    100 PONs of 1,024 ONUs in one case (10 Gb/s x 1,024 / 128 a PON, no
+    CPS), 1,024 clients of 26.416 Mbit, FCFS at load 0.8, seed 0."""
+    from repro_torch.net import (
+        FLRoundWorkload,
+        MultiPonTopology,
+        PONConfig,
+        SweepCase,
+        SweepSpec,
+    )
+
+    cfg = PONConfig(n_onus=WIDE_ONUS,
+                    line_rate_bps=10e9 * WIDE_ONUS / 128)
+    wl = FLRoundWorkload(clients=_clients(WIDE_ONUS, WIDE_ONUS),
+                         model_bits=M_BITS)
+    case = SweepCase(workload=wl, load=0.8, policy="fcfs", seed=0,
+                     topology=MultiPonTopology(n_pons=WIDE_PONS))
+    return SweepSpec(cases=(case,), pon=cfg, backend=backend)
+
+
+def _hold_round(what: str, got, want) -> None:
+    """Every client's times and left-over bits of round ``got`` within
+    ``ROUND_RTOL`` of ``want``'s, and the sync within ``SYNC_TOL``."""
+    if not (math.isfinite(got.sync_time)
+            and abs(got.sync_time - want.sync_time) <= SYNC_TOL):
+        raise SystemExit(f"{what} sync {got.sync_time!r} != "
+                         f"{want.sync_time!r}")
+    for attr in ("dl_done", "ready", "ul_done", "ul_remaining"):
+        g, w = getattr(got, attr) or {}, getattr(want, attr) or {}
+        ids = sorted(w)
+        if sorted(g) != ids or not np.allclose(
+                [g[i] for i in ids], [w[i] for i in ids], rtol=ROUND_RTOL,
+                atol=0.0, equal_nan=True):
+            raise SystemExit(f"{what}: {attr} differs")
+
+
+ROUND_RTOL = 1e-6     # a client's time or bits, jit against the per-cycle loop
+
+
+def phase_wide_pons():
+    """One FCFS load-0.8 round on 100 PONs x 1,024 ONUs in one case
+    through ``backend="jit"`` (each phase one launch of one CTA, its
+    state past shared memory in global scratch), held to the per-cycle
+    loop on the same card client by client (:func:`_hold_round`); each of
+    its two phases then held in full, at its full widths, to the plain
+    version on CPU copies (:func:`_hold_phase`). Prints the wall, each
+    phase's device ms and µs a cycle, and the device's busy share of the
+    wall."""
+    from repro_torch.kernels.ponsim import kernel
+    from repro_torch.net import engine, simulate
+
+    t0 = time.time()
+    launch = kernel.launch_phase
+    run = engine.run_phase_device
+    timed, calls = [], []
+
+    def timed_launch(spec, dyn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state = launch(spec, dyn)
+        end.record()
+        timed.append((start, end, state["k_stop"], spec.mode))
+        return state
+
+    def record(*args, **kwargs):
+        calls.append((args, {k: v for k, v in kwargs.items()
+                             if k != "device"}))
+        return run(*args, **kwargs)
+
+    _reset_round_counts()
+    kernel.launch_phase = timed_launch
+    engine.run_phase_device = record
+    try:
+        t_run = time.time()
+        jit = simulate(wide_pons_spec("jit"), device="cuda")[0]
+        torch.cuda.synchronize()
+        wall = time.time() - t_run
+    finally:
+        kernel.launch_phase = launch
+        engine.run_phase_device = run
+    counts = _round_counts()
+    _hold_jit_counts(counts, 2, "wide_pons")
+    ms = [s.elapsed_time(e) for s, e, _, _ in timed]
+    cycles = [int(k.max()) for _, _, k, _ in timed]
+    t_run = time.time()
+    loop = simulate(wide_pons_spec(), device="cuda")[0]
+    torch.cuda.synchronize()
+    loop_wall = time.time() - t_run
+    _hold_round("wide_pons jit against the per-cycle loop", jit, loop)
+    t_hold = time.time()
+    err = max(_hold_phase("wide_pons", args, kwargs)[2]
+              for args, kwargs in calls)
+    hold_s = time.time() - t_hold
+    out = {"wide_pons_wall_s": wall, "wide_pons_ms_by_phase": ms,
+           "wide_pons_cycles_by_phase": cycles,
+           "wide_pons_us_per_cycle_by_phase": [
+               m * 1e3 / c for m, c in zip(ms, cycles)],
+           "wide_pons_device_busy": sum(ms) / (wall * 1e3),
+           "wide_pons_sync": jit.sync_time,
+           "wide_pons_per_cycle_wall_s": loop_wall,
+           "wide_pons_max_abs_err": err}
+    _line("wide_pons", time.time() - t0, pons=WIDE_PONS, onus=WIDE_ONUS,
+          sync=repr(jit.sync_time), loop_sync=repr(loop.sync_time),
+          wall_s=f"{wall:.3f}", loop_wall_s=f"{loop_wall:.3f}",
+          ms=",".join(f"{m:.2f}" for m in ms),
+          cycles=",".join(str(c) for c in cycles),
+          us_per_cycle=",".join(f"{u:.2f}" for u in
+                                out["wide_pons_us_per_cycle_by_phase"]),
+          device_busy=f"{out['wide_pons_device_busy']:.3f}",
+          phase_launches=counts["phase"], fallbacks=counts["fallbacks"],
+          clients_match="yes", phases_held=len(calls),
+          done_t_bitwise="yes", rem_max_abs_err=f"{err:.3g}",
+          hold_s=f"{hold_s:.1f}")
+    return out
+
+
 def _serve_run(cfg, params, prompts, kernels, feed=None):
     """Prefill, then decode: greedy for ``SERVE_NEW - 1`` steps, or the
     tokens of ``feed``. Returns (last-position logits of each step,
@@ -2121,6 +2367,9 @@ def main() -> int:
     launches["ponsim_phase"], jit_walls = phase_main_jit(main_walls)
     phase_entry.update(jit_walls)
     phase_full_width()
+    phase_entry.update(phase_wide_pons())
+    phase_entry["max_abs_err"] = max(phase_entry["max_abs_err"],
+                                     phase_entry["wide_pons_max_abs_err"])
     # K3 and K3' run once a leaf of every arrived update of the int8 run
     launches["quantize_int8"] = launches["dequantize_int8"] = \
         phase_fl_fig2a()

@@ -2,6 +2,7 @@
 
     python3 scripts/profile_port_round.py [--out chiprun_out/profile.json]
     python3 scripts/profile_port_round.py --backend jit   # or numpy, both
+    python3 scripts/profile_port_round.py --backend jit --root DIR
 
 Runs the Fig. 2b operating point (12 clients, 128 ONUs, FCFS, load 0.8,
 seed 1) once to warm up, then once under ``torch.profiler`` and reports:
@@ -14,6 +15,15 @@ in one process, the per-cycle loop first. It also times one small
 kernel launch and one host read of a device value in isolation, the
 two costs the per-cycle loop is made of. The JSON summary (one object a
 backend under ``"backends"``) is printed and written to ``--out``.
+
+For ``jit`` it also splits the host's time by function: a run with
+timers around the phase's host functions (tables, packing, launch, the
+copy back; each inclusive, in ms and as a share of the wall), the
+host-to-device and device-to-host copies a phase that the profiler saw,
+the host ms (wall less the device's busy time), and a ``cProfile`` run's
+functions of the port by cumulative time. ``--root`` profiles another
+checkout's port (for example the parent commit unpacked with
+``git archive`` into a git-ignored directory) with this script.
 """
 from __future__ import annotations
 
@@ -25,7 +35,15 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(ROOT, "src"))
+if "--root" in sys.argv[:-1]:
+    SRC = os.path.join(os.path.abspath(
+        sys.argv[sys.argv.index("--root") + 1]), "src")
+else:
+    SRC = os.path.join(ROOT, "src")
+sys.path.insert(0, SRC)
+
+import cProfile  # noqa: E402
+import pstats  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -62,6 +80,8 @@ def main() -> int:
                                                   "profile.json"))
     ap.add_argument("--backend", choices=("numpy", "jit", "both"),
                     default="numpy")
+    ap.add_argument("--root", default=ROOT,
+                    help="the checkout whose src/ is profiled")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port_round: no CUDA device", file=sys.stderr)
@@ -70,6 +90,7 @@ def main() -> int:
                 else (args.backend,))
     x = torch.zeros(16, device="cuda")
     summary = {
+        "src": SRC,
         "device": torch.cuda.get_device_name(0),
         "smi": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -147,6 +168,10 @@ def profile_backend(backend: str) -> dict:
     busy_us = sum(t for t, _, _ in kernels)
     launches = count("cudaLaunchKernel")
     reads = count("aten::_local_scalar_dense")
+    h2d = sum(e.count for e in events if e.device_type == DeviceType.CUDA
+              and e.key.startswith("Memcpy HtoD"))
+    d2h = sum(e.count for e in events if e.device_type == DeviceType.CUDA
+              and e.key.startswith("Memcpy DtoH"))
     summary = {
         "backend": backend,
         "sync_time": res.sync_time,
@@ -160,6 +185,10 @@ def profile_backend(backend: str) -> dict:
         "host_reads": reads,
         "host_reads_per_cycle": reads / cycles,
         "host_reads_per_phase": reads / n_phases,
+        "h2d_copies": h2d,
+        "d2h_copies": d2h,
+        "h2d_copies_per_phase": h2d / n_phases,
+        "d2h_copies_per_phase": d2h / n_phases,
         "device_busy_share_profiled": busy_us * 1e-6 / wall,
         "device_busy_us": busy_us,
         "k1_launches": k1.launches,
@@ -178,7 +207,76 @@ def profile_backend(backend: str) -> dict:
     # profiler's host overhead
     summary["device_busy_share_unprofiled"] = (
         busy_us * 1e-6 / summary["wall_s_unprofiled"])
+    if backend == "jit":
+        summary.update(host_split(spec, busy_us))
     return summary
+
+
+# the phase's host functions, timed inclusive (module, name); a checkout
+# that lacks one is timed without it
+_TIMED = (("ops", "run_phase_device"), ("ops", "phase_inputs"),
+          ("ops", "phase_tables"), ("ops", "_fast_tables"),
+          ("ops", "_layout_tables"), ("ops", "_slot_tables"),
+          ("ops", "pack"), ("kernel", "run_phase_cuda"),
+          ("kernel", "launch_phase"))
+
+
+def host_split(spec, busy_us: float) -> dict:
+    """The jit round's host time by function: one run with timers around
+    ``_TIMED``, then one under ``cProfile``."""
+    from repro_torch.kernels.ponsim import kernel, ops
+    from repro_torch.net import engine, simulate
+
+    mods = {"ops": ops, "kernel": kernel}
+    spent = {}
+    saved = []
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                ms, n = spent.get(name, (0.0, 0))
+                spent[name] = (ms + (time.perf_counter() - t0) * 1e3, n + 1)
+        return wrapper
+
+    for mod, name in _TIMED:
+        fn = getattr(mods[mod], name, None)
+        if fn is not None:
+            saved.append((mods[mod], name, fn))
+            setattr(mods[mod], name, timed(f"{mod}.{name}", fn))
+    saved.append((engine, "run_phase_device", engine.run_phase_device))
+    engine.run_phase_device = ops.run_phase_device
+    try:
+        t0 = time.perf_counter()
+        simulate(spec, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    prof = cProfile.Profile()
+    prof.enable()
+    simulate(spec, device="cuda")
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof)
+    port = []
+    for (path, line, name), (_, _, tt, ct, _) in stats.stats.items():
+        if "repro_torch" in path:
+            port.append((ct, tt, f"{path.split('repro_torch')[-1]}:{line}"
+                         f"({name})"))
+    port.sort(reverse=True)
+    return {
+        "timed_wall_ms": wall * 1e3,
+        "host_ms": wall * 1e3 - busy_us * 1e-3,
+        "host_split_ms": {k: {"ms": ms, "calls": n,
+                              "share_of_wall": ms / (wall * 1e3)}
+                          for k, (ms, n) in spent.items()},
+        "cprofile_top": [{"fn": f, "cum_ms": ct * 1e3, "self_ms": tt * 1e3}
+                         for ct, tt, f in port[:15]],
+    }
 
 
 if __name__ == "__main__":

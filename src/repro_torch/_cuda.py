@@ -104,16 +104,16 @@ def library() -> ctypes.CDLL:
         lib.repro_waterfill_grants.restype = i
         lib.repro_waterfill_scratch_bytes.argtypes = [i]
         lib.repro_waterfill_scratch_bytes.restype = ctypes.c_longlong
-        lib.repro_ponsim_phase.argtypes = [p, i, i, ctypes.c_longlong, p]
+        lib.repro_ponsim_phase.argtypes = [p, i, p, p]
         lib.repro_ponsim_phase.restype = i
+        lib.repro_phase_plan.argtypes = [p, p]
+        lib.repro_phase_plan.restype = i
+        lib.repro_phase_plan_words.argtypes = []
+        lib.repro_phase_plan_words.restype = i
+        lib.repro_phase_region_name.argtypes = [i]
+        lib.repro_phase_region_name.restype = ctypes.c_char_p
         lib.repro_phase_args_bytes.argtypes = []
         lib.repro_phase_args_bytes.restype = ctypes.c_longlong
-        lib.repro_phase_smem_limit.argtypes = []
-        lib.repro_phase_smem_limit.restype = ctypes.c_longlong
-        lib.repro_phase_max_pons.argtypes = []
-        lib.repro_phase_max_pons.restype = ctypes.c_longlong
-        lib.repro_phase_max_clients.argtypes = []
-        lib.repro_phase_max_clients.restype = ctypes.c_longlong
         lib.repro_flash_attn_fwd.argtypes = [
             p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
         lib.repro_flash_attn_fwd.restype = i

@@ -52,18 +52,29 @@ def _fast_tables(cyc: float, k_max: int, lay, rem_init, ready_t) -> dict:
     one cumulative-service scalar a row against per-rank demand
     boundaries."""
     R, U = rem_init.shape
-    t_seq = np.empty(k_max, np.float64)
-    t_seq[0] = 0.0
-    if k_max > 1:
-        np.cumsum(np.full(k_max - 1, cyc), out=t_seq[1:])
-    tc = t_seq + cyc                    # the loop's t + cyc values
     ready = np.asarray(ready_t, np.float64)
-    kp = np.searchsorted(tc, ready.ravel()).reshape(R, U)
+    finite = np.isfinite(ready)
+    # the loop's clock t (added cycle by cycle, as the kernel adds it) and
+    # t + cyc, only as far as the latest finite ready time needs: a push
+    # past it is no push (k_max), as over the whole clock
+    last = float(ready[finite].max()) if finite.any() else 0.0
+    n = min(k_max, int(last / cyc) + 16)
+    while True:
+        t_seq = np.empty(n, np.float64)
+        t_seq[0] = 0.0
+        if n > 1:
+            np.cumsum(np.full(n - 1, cyc), out=t_seq[1:])
+        tc = t_seq + cyc
+        if n == k_max or tc[-1] >= last:
+            break
+        n = min(k_max, 2 * n)
+    kp = np.where(finite, np.searchsorted(tc, ready.ravel()).reshape(R, U),
+                  k_max)
     part_b = np.asarray(lay.part, bool)
     rem_b = np.asarray(rem_init, np.float64)
     pushes = part_b & (rem_b > 0.0) & (kp < k_max)
     pt = np.where(pushes,
-                  np.maximum(ready, t_seq[np.minimum(kp, k_max - 1)]),
+                  np.maximum(ready, t_seq[np.minimum(kp, n - 1)]),
                   np.inf)
     # rank order: the waterfill's stable sort over per-ONU push times,
     # ties broken by ONU index
@@ -82,56 +93,89 @@ def _fast_tables(cyc: float, k_max: int, lay, rem_init, ready_t) -> dict:
         "p_incl": p_incl,
         "q_bound": q_bound,
         "rank_u": rank_u.astype(np.int32),
+        "rank_col": rk.astype(np.int32),
         "q_col": q_bound[rows, rank_u],
         "pushes": pushes,
         "m_live": (part_b & (rem_b > 0.0)).sum(axis=1).astype(np.int32),
     }
 
 
-def _layout_tables(lay, N: int) -> dict:
-    """Column ↔ ONU maps of the static slot layout: ``onu_map[n]`` is
-    ONU n's column (one client an ONU) or its segment (several), -1 for
-    an ONU without one; ``seg_idx`` pads each segment's columns to the
-    longest with the dummy column ``U``."""
+def _layout_tables(lay) -> dict:
+    """Column ↔ ONU maps of the static slot layout: each ONU segment's
+    first column, length and ONU; ``seg_idx`` pads each segment's
+    columns to the longest with the dummy column ``U``."""
     U = len(lay.onu)
     seg_starts = np.asarray(lay.seg_starts, np.int64)
     seg_len = np.asarray(lay.seg_len, np.int64)
-    seg_onus = np.asarray(lay.seg_onus, np.int64)
-    onu_map = np.full(N, -1, np.int32)
-    onu_map[seg_onus] = (seg_starts if lay.single
-                         else np.arange(len(seg_onus)))
-    L = int(seg_len.max())
-    seg_idx = np.full((len(seg_starts), L), U, np.int64)
-    for s, (a, n) in enumerate(zip(seg_starts, seg_len)):
-        seg_idx[s, :n] = np.arange(a, a + n)
+    j = np.arange(int(seg_len.max()), dtype=np.int64)
+    seg_idx = np.where(j < seg_len[:, None], seg_starts[:, None] + j, U)
     return {
         "lay_onu": np.asarray(lay.onu, np.int64),
         "lay_pos": np.arange(U, dtype=np.int64),
         "seg_starts": seg_starts,
         "seg_len": seg_len,
-        "seg_onus": seg_onus,
+        "seg_onus": np.asarray(lay.seg_onus, np.int64),
         "seg_idx": seg_idx,
-        "onu_map": onu_map,
     }
 
 
-def phase_inputs(cfg, lay, rem_init, ready_t, mode: str, *, keys=None,
+def _slot_tables(sonu, svalid, N: int) -> dict:
+    """Each row's valid slots grouped by ONU: ``sorder`` the slots in
+    order of ONU, slot order within an ONU (a stable sort; the invalid
+    slots last, in no group), and ``ostart`` each ONU's first place in
+    it (``N + 1`` offsets a row). Adding an ONU's slot grants in this
+    order is the per-target order of the plain version's
+    ``scatter_add_``; an invalid slot's grant is a zero, which changes
+    no sum."""
+    R, S = sonu.shape
+    key = np.where(svalid, sonu, N)
+    sorder = np.argsort(key, axis=1, kind="stable").astype(np.int32)
+    counts = np.bincount((np.arange(R)[:, None] * (N + 1) + key).ravel(),
+                         minlength=R * (N + 1)).reshape(R, N + 1)
+    ostart = np.zeros((R, N + 1), np.int32)
+    np.cumsum(counts[:, :N], axis=1, out=ostart[:, 1:])
+    return {"sorder": sorder, "ostart": ostart}
+
+
+def pack(arrays: dict, device) -> dict:
+    """The tensors of ``arrays`` (name -> numpy array) on ``device`` in
+    one buffer: each array at a 16-byte boundary of one host buffer
+    (pinned for a card), sent in one copy, and a view of it a name. On
+    the CPU the views are of the host buffer itself."""
+    dev = torch.device(device)
+    arrays = {k: np.ascontiguousarray(v) for k, v in arrays.items()}
+    offs, total = {}, 0
+    for name, arr in arrays.items():
+        offs[name] = total
+        total += -(-arr.nbytes // 16) * 16
+    host = torch.empty(total, dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
+    flat = host.numpy()
+    for name, arr in arrays.items():
+        flat[offs[name]:offs[name] + arr.nbytes] = arr.reshape(-1).view(
+            np.uint8)
+    buf = host.to(dev, non_blocking=True) if dev.type == "cuda" else host
+    out = {}
+    for name, arr in arrays.items():
+        dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+        view = buf[offs[name]:offs[name] + arr.nbytes].view(dtype)
+        out[name] = view.view(arr.shape)
+    return out
+
+
+def phase_tables(cfg, lay, rem_init, ready_t, mode: str, *, keys=None,
                  lams=None, slot_arrays=None, max_t: float = 600.0,
                  fill_unfinished: bool = True, cap_row=None,
                  cps_cap: Optional[float] = None, n_pons: int = 1,
-                 deadline_row=None, outage_row=None,
-                 use_k2: Optional[bool] = None, device=DEFAULT_DEVICE):
-    """``(spec, tensors)`` of one phase on ``device``: the
-    ``ref.PhaseSpec`` and the phase's tensors, with the host tables built
-    as the JAX package builds them. The arguments are
-    :func:`run_phase_device`'s."""
-    from repro_torch.kernels.traffic.ops import _table, _tail_bound
+                 deadline_row=None, outage_row=None, use_k2: bool = False):
+    """``(spec, arrays)`` of one phase: the ``ref.PhaseSpec`` and the
+    phase's host tables (name -> numpy array), built as the JAX package
+    builds them. The arguments are :func:`run_phase_device`'s."""
+    from repro_torch.kernels.traffic.ops import _tail_bound
     from repro_torch.kernels.traffic.ref import WINDOW, poisson_thresholds
+    from repro_torch.kernels.traffic.tables import burst_table
     from repro_torch.net.traffic import PACKET_BITS
 
-    dev = resolve_device(device)
-    if use_k2 is None:
-        use_k2 = dev.type == "cuda"
     R, U = rem_init.shape
     N = int(cfg.n_onus)
     P = int(n_pons)
@@ -157,7 +201,7 @@ def phase_inputs(cfg, lay, rem_init, ready_t, mode: str, *, keys=None,
         "ready": np.asarray(ready_t, np.float64),
         "list_pos": np.asarray(lay.list_pos, np.int64),
         "cap_col": np.asarray(cap_row, np.float64),
-        **_layout_tables(lay, N),
+        **_layout_tables(lay),
     }
     if fast:
         dyn.update(_fast_tables(cyc, k_max, lay, rem_init, ready_t))
@@ -174,15 +218,19 @@ def phase_inputs(cfg, lay, rem_init, ready_t, mode: str, *, keys=None,
         n_draws = _tail_bound(float(lam_w.max()))
         dyn["keys"] = np.asarray(keys, np.uint32).astype(np.int64)
         dyn["thr"] = poisson_thresholds(lam_w, n_draws)
+        starts, lengths = burst_table(inv_burst)
+        dyn["bp_start"] = np.asarray(starts, np.int32)
+        dyn["bp_len"] = np.asarray(lengths, np.int32)
     S = 1
     if mode == "bs":
         ts, te, sonu, srate, svalid = slot_arrays
         S = ts.shape[1]
+        sonu = np.asarray(sonu, np.int64)
+        svalid = np.asarray(svalid, bool)
         dyn.update(ts=np.asarray(ts, np.float64),
-                   te_g=np.asarray(te, np.float64) + cyc,
-                   sonu=np.asarray(sonu, np.int64),
-                   srate=np.asarray(srate, np.float64),
-                   svalid=np.asarray(svalid, bool))
+                   te_g=np.asarray(te, np.float64) + cyc, sonu=sonu,
+                   srate=np.asarray(srate, np.float64), svalid=svalid,
+                   **_slot_tables(sonu, svalid, N))
     spec = _ref.PhaseSpec(
         mode=mode, R=R, U=U, N=N, S=S, P=P, k_max=k_max, n_draws=n_draws,
         max_slots=int(np.asarray(lay.seg_len).max()), has_bg=has_bg,
@@ -193,11 +241,20 @@ def phase_inputs(cfg, lay, rem_init, ready_t, mode: str, *, keys=None,
         use_k2=bool(use_k2), cyc=cyc, prop=float(cfg.propagation_s),
         tmax=tmax, cps_cap=0.0 if cps_cap is None else float(cps_cap),
         packet_bits=float(PACKET_BITS), inv_burst=inv_burst)
-    tens = {name: torch.as_tensor(np.ascontiguousarray(val), device=dev)
-            for name, val in dyn.items()}
-    if has_bg:
-        tens["bp_start"], tens["bp_len"] = _table(inv_burst, dev)
-    return spec, tens
+    return spec, dyn
+
+
+def phase_inputs(*args, use_k2: Optional[bool] = None,
+                 device=DEFAULT_DEVICE, **kwargs):
+    """``(spec, tensors)`` of one phase on ``device``: the
+    ``ref.PhaseSpec`` and the phase's tensors, views of one buffer that
+    crossed to the device in one copy (:func:`pack`). The arguments are
+    :func:`run_phase_device`'s."""
+    dev = resolve_device(device)
+    if use_k2 is None:
+        use_k2 = dev.type == "cuda"
+    spec, arrays = phase_tables(*args, use_k2=use_k2, **kwargs)
+    return spec, pack(arrays, dev)
 
 
 def run_phase_device(cfg, lay, rem_init, ready_t, mode: str, *,
@@ -231,9 +288,10 @@ def run_phase_device(cfg, lay, rem_init, ready_t, mode: str, *,
         n_pons=n_pons, deadline_row=deadline_row, outage_row=outage_row,
         use_k2=use_k2, device=device)
     if tens["rem0"].is_cuda:
+        # one launch, then one copy back (CPU tensors)
         done_t, rem, exact = _kernel.run_phase_cuda(spec, tens)
     else:
         done_t, rem, exact = _ref.run_phase_ref(spec, tens)
     if not exact:
         return None
-    return done_t.cpu().numpy(), rem.cpu().numpy()
+    return done_t.numpy(), rem.numpy()

@@ -303,31 +303,53 @@ def test_jit_full_width_4096_round_on_card(cuda):
     assert abs(res.sync_time - cs.SYNC_4096) <= 1e-9
 
 
-def test_phase_kernel_rejects_wide_cases(cuda):
-    """More PONs a case or clients an ONU than the library's limits raise
-    in the wrapper, and the library's entry refuses them before any
-    launch; the counting pour raises on the card."""
-    import ctypes
+def _wide_phases(cuda, names):
+    cs = _chip_smoke()
+    return [(args, kwargs) for name, args, kwargs in cs.wide_phases(cuda)
+            if name in names], cs
+
+
+@pytest.mark.parametrize("names", [("pons33", "pons100"), ("clients33",),
+                                   ("row16385",)])
+def test_phase_kernel_at_any_width(cuda, names):
+    """Past the widths the phase kernel once refused (F4), every phase of
+    ``chip_smoke.wide_check_sweeps()`` against ``run_phase_ref`` on CPU
+    copies: 33 and 100 PONs a case (CPS binding), an ONU with 33 clients,
+    one row of 16,385 queues (its sort's pairs in global scratch); the
+    counting pour still raises on the card."""
     import dataclasses
 
-    from repro_torch import _cuda
-
-    cs = _chip_smoke()
-    args, kwargs = cs._record_phases(cs.phase_check_sweeps()["fast_bs"],
-                                     cuda)[0]
-    sc, tc = k2_ops.phase_inputs(*args, **kwargs, use_k2=True, device=cuda)
-    max_pons, max_clients = k2.phase_limits()
-    assert (max_pons, max_clients) == (32, 32)
-    for wide in (dataclasses.replace(sc, P=max_pons + 1),
-                 dataclasses.replace(sc, max_slots=max_clients + 1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            k2.run_phase_cuda(wide, tc)
-        raw = k2._PhaseArgs(P=wide.P, max_slots=wide.max_slots)
-        rc = _cuda.library().repro_ponsim_phase(ctypes.byref(raw), 1, 128,
-                                                0, None)
-        assert rc == 1                  # cudaErrorInvalidValue
+    calls, cs = _wide_phases(cuda, names)
+    assert calls
+    seen = set()
+    for args, kwargs in calls:
+        _hold_phase_to_plain(cuda, args, kwargs)
+        sc, tc = k2_ops.phase_inputs(*args, **kwargs, use_k2=True,
+                                     device=cuda)
+        seen |= {c for c, hit in cs.WIDE_COVER.items() if hit(sc, tc)}
+        if sc.N > 16_384:
+            assert "sort" not in k2.phase_plan(sc, tc)["regions_on_chip"]
+    want = {"pons33": {"33 PONs a case", "100 PONs a case"},
+            "clients33": {"33 clients an ONU"},
+            "row16385": {"a row of 16,385 queues"}}[names[0]]
+    assert want <= seen
     with pytest.raises(NotImplementedError, match="counting pour"):
         k2.run_phase_cuda(dataclasses.replace(sc, use_k2=False), tc)
+
+
+def test_phase_kernel_bs_several_slots_an_onu_under_cps(cuda):
+    """A bs phase under a binding 2-PON CPS whose ONUs hold 3 slots each
+    (``chip_smoke.wide_phases``' ``slots_cps``): each ONU's grants added
+    in slot order, at each PON's capacity and at the CPS level, against
+    ``run_phase_ref`` on CPU copies."""
+    calls, cs = _wide_phases(cuda, ("slots_cps",))
+    bs = [(a, kw) for a, kw in calls if a[4] == "bs"]
+    assert bs
+    for args, kwargs in bs:
+        sc, tc = k2_ops.phase_inputs(*args, **kwargs, use_k2=True,
+                                     device=cuda)
+        assert sc.has_cps and cs._slots_an_onu(tc) == 3
+        _hold_phase_to_plain(cuda, args, kwargs)
 
 
 # (B, S, T, H, K, D, causal, window): the grid of tests/test_kernels.py,

@@ -108,6 +108,32 @@ def _scenario(name):
     return cases, {}
 
 
+def _wide_scenario(name):
+    """``(cfg, cases, kwargs)`` of a narrow multi-PON sweep with a CPS
+    that binds and short phases, one fcfs case and one bs case: 33 PONs
+    of 4 ONUs, or 100 PONs of 8 ONUs (past the 32 PONs a case the phase
+    kernel once took)."""
+    if name == "pons33":
+        cfg, topo = CFG, J.MultiPonTopology(n_pons=33, cps_rate_bps=10.5e9)
+        ids = [0, 5, 9, 30, 61, 77, 100, 131]
+    else:
+        assert name == "pons100"
+        cfg = J.PONConfig(n_onus=8, line_rate_bps=1e9)
+        topo = J.MultiPonTopology(n_pons=100, cps_rate_bps=31e9)
+        ids = [0, 9, 130, 257, 400, 555, 642, 799]
+    cases = [J.SweepCase(workload=_workload(ids, seed=4), load=0.3,
+                         policy=policy, seed=6, topology=topo)
+             for policy in ("fcfs", "bs")]
+    return cfg, cases, {}
+
+
+def _any_scenario(name):
+    if name in WIDE:
+        return _wide_scenario(name)
+    return (CFG, *_scenario(name))
+
+
+WIDE = ["pons33", "pons100"]
 SCENARIOS = ["fcfs_0.2", "fcfs_0.6", "fcfs_0.9", "bs_0.2", "bs_0.9",
              "deadline_outage_fcfs", "deadline_outage_bs", "cps_fcfs",
              "cps_bs", "cps_fcfs_masks", "cps_bs_masks", "mixed"]
@@ -121,7 +147,7 @@ def _jax_phases(jax_phase, name):
     scenario ``name``: ``(args, kwargs, result)`` (recorded once)."""
     if name in _RECORDED:
         return _RECORDED[name]
-    cases, kw = _scenario(name)
+    cfg, cases, kw = _any_scenario(name)
     calls = _RECORDED[name] = []
     run = jax_phase.run_phase_device
 
@@ -134,7 +160,7 @@ def _jax_phases(jax_phase, name):
     try:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", DeprecationWarning)
-            J.simulate_round_sweep(CFG, cases, backend="jit", **kw)
+            J.simulate_round_sweep(cfg, cases, backend="jit", **kw)
     finally:
         jax_phase.run_phase_device = run
     assert calls
@@ -175,9 +201,9 @@ def _assert_round_parity(a, b):
         assert rb[cid] == pytest.approx(bits, rel=RTOL)
 
 
-def _port_jit(cases, **kw):
+def _port_jit(cases, cfg=CFG, **kw):
     spec = T.SweepSpec(cases=tuple(T.from_reference(cases)),
-                       pon=T.from_reference(CFG), backend="jit", **kw)
+                       pon=T.from_reference(cfg), backend="jit", **kw)
     return T.simulate(spec, device="cpu")
 
 
@@ -321,9 +347,34 @@ def test_row_sum_order():
         assert got.tolist() == want
 
 
-def test_kernel_arguments_match_the_source():
-    """The wrapper's ctypes struct lists ``PhaseArgs``'s fields in order."""
+def test_region_names_match_the_enum():
+    """The library names each state region (``repro_phase_region_name``,
+    which ``kernel.phase_plan`` decodes the plan's mask by) in the order
+    of its ``enum Region``, and the wrapper keeps no list of its own."""
     src = (ROOT / "src/repro_torch/csrc/ponsim_phase.cu").read_text()
+    enum = re.search(r"enum Region \{(.*?)\};", src, re.S).group(1)
+    regions = [r.strip() for r in enum.split(",")]
+    assert regions[-1] == "kRegions"
+    names = re.search(r"kRegionName\[\] = \{(.*?)\};", src, re.S).group(1)
+    names = re.findall(r'"([^"]+)"', names)
+    assert len(names) == len(regions) - 1 == len(set(names))
+    assert names[:3] == ["rows", "background", "sort"]
+    assert not hasattr(phase_kernel, "_REGIONS")
+
+
+def test_kernel_arguments_match_the_source():
+    """The wrapper's ctypes struct lists ``PhaseArgs``'s fields in order:
+    sizes and flags, the scalars, the inputs, the outputs (one block,
+    copied back at once) and the global scratch; the library defines no
+    limit on PONs a case or clients an ONU."""
+    src = (ROOT / "src/repro_torch/csrc/ponsim_phase.cu").read_text()
+    for gone in ("kMaxP", "kMaxClients", "repro_phase_max_pons",
+                 "repro_phase_max_clients"):
+        assert gone not in src
+    assert not hasattr(phase_kernel, "phase_limits")
+    fields = [f[0] for f in phase_kernel._PhaseArgs._fields_]
+    assert fields[-1] == "scratch"
+    assert fields[-7:-1] == [n for n, _, _ in phase_kernel._OUTPUTS]
     body = re.search(r"struct PhaseArgs \{(.*?)\};", src, re.S).group(1)
     names = []
     for decl in body.split(";"):
@@ -339,11 +390,13 @@ def test_kernel_arguments_match_the_source():
 
 
 def test_card_pours_with_k2_only():
+    """The card refuses the counting pour, and only that: a case of 100
+    PONs with 40 clients an ONU is refused for its pour alone."""
     spec = phase_ref.PhaseSpec(
-        mode="fcfs", R=1, U=1, N=1, S=1, P=1, k_max=1, n_draws=8,
-        max_slots=1, has_bg=True, has_cps=False, has_deadline=False,
-        has_outage=False, fill_unfinished=True, fast=True, single=True,
-        identity=True, use_k2=False, cyc=1e-3, prop=1e-4, tmax=1.0,
+        mode="fcfs", R=100, U=40, N=1, S=1, P=100, k_max=1, n_draws=8,
+        max_slots=40, has_bg=True, has_cps=False, has_deadline=False,
+        has_outage=False, fill_unfinished=True, fast=False, single=False,
+        identity=False, use_k2=False, cyc=1e-3, prop=1e-4, tmax=1.0,
         cps_cap=0.0, packet_bits=12000.0, inv_burst=1 / 16)
     with pytest.raises(NotImplementedError, match="counting pour"):
         phase_kernel.run_phase_cuda(spec, {})
@@ -356,3 +409,167 @@ def test_spec_backends():
     T.SweepSpec(cases=(case,), backend="jit").validate()
     with pytest.raises(ValueError, match="backend"):
         T.SweepSpec(cases=(case,), backend="pallas").validate()
+
+
+@pytest.mark.parametrize("name", WIDE)
+def test_wide_phase_matches_jax_program(jax_phase, name):
+    """Every phase of a 33-PON and a 100-PON sweep (CPS binding, fcfs
+    and bs): ``run_phase_ref`` (the counting pour) against the JAX
+    program on the same inputs."""
+    calls = _jax_phases(jax_phase, name)
+    assert {args[0].n_onus for args, _, _ in calls} == {
+        _wide_scenario(name)[0].n_onus}
+    assert {kw["n_pons"] for _, kw, _ in calls} == {int(name[4:])}
+    for args, kwargs, want in calls:
+        got = phase_ops.run_phase_device(*args, **_port_kwargs(kwargs),
+                                         use_k2=False, device="cpu")
+        _assert_phase_close(want, got)
+
+
+def test_wide_jit_sweep_matches_numpy_engine():
+    """The 100-PON sweep through ``backend="jit"`` equals the JAX numpy
+    engine: every sync within 1e-9 s, the rest at rtol 1e-6."""
+    cfg, cases, kw = _wide_scenario("pons100")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        want = J.simulate_round_sweep(cfg, cases, **kw)
+    got = _port_jit(cases, cfg, **kw)
+    assert len(got) == len(want) == 2
+    for a, b in zip(want, got):
+        assert abs(b.sync_time - a.sync_time) <= 1e-9
+        _assert_round_parity(a, b)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_slot_table_adds_like_scatter_add(seed):
+    """Adding each ONU's slot grants in the order of the slots-by-ONU
+    table (``ops._slot_tables``, the phase kernel's order) equals
+    ``scatter_add_`` into zeros bit for bit, on grants of spread
+    magnitudes with ONUs repeated many times a row; the table leaves out
+    the invalid slots, whose grants are zeros of either sign."""
+    rng = np.random.default_rng(seed)
+    R, S, N = 5, 64, 9
+    sonu = rng.integers(0, N, (R, S))
+    sonu[0] = 3                                   # one ONU takes every slot
+    valid = rng.random((R, S)) < 0.8
+    valid[1, 40:] = False                         # a row's padding
+    sonu[1, 40:] = 0
+    g = rng.uniform(0, 1, (R, S)) * 10.0 ** rng.integers(-3, 17, (R, S))
+    g[rng.random((R, S)) < 0.2] = 0.0
+    g[~valid] = rng.choice([0.0, -0.0], size=int((~valid).sum()))
+    want = torch.zeros((R, N), dtype=torch.float64).scatter_add_(
+        1, torch.as_tensor(sonu), torch.as_tensor(g))
+    tab = phase_ops._slot_tables(sonu, valid, N)
+    sorder, ostart = tab["sorder"], tab["ostart"]
+    assert sorder.dtype == ostart.dtype == np.int32
+    got = np.zeros((R, N))
+    for r in range(R):
+        for n in range(N):
+            grp = sorder[r, ostart[r, n]:ostart[r, n + 1]]
+            assert (sonu[r, grp] == n).all() and valid[r, grp].all()
+            assert (np.diff(grp) > 0).all()
+            acc = 0.0
+            for s in grp:
+                acc += float(g[r, s])
+            got[r, n] = acc
+        assert ostart[r, -1] == valid[r].sum()
+        assert sorted(sorder[r]) == list(range(S))
+    assert np.array_equal(got.view(np.uint64),
+                          want.numpy().view(np.uint64))
+
+
+def _record_port_phases(cases, **kw):
+    """Every ``run_phase_device`` call of the port's jit sweep on the
+    CPU: ``(args, kwargs, result)``."""
+    calls = []
+    run = t_engine.run_phase_device
+
+    def record(*args, **kwargs):
+        out = run(*args, **kwargs)
+        calls.append((args, {k: v for k, v in kwargs.items()
+                             if k != "device"}, out))
+        return out
+
+    t_engine.run_phase_device = record
+    try:
+        _port_jit(cases, **kw)
+    finally:
+        t_engine.run_phase_device = run
+    return calls
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_packed_inputs_equal_the_tensors_one_by_one():
+    """``phase_inputs``'s tensors are views of one buffer (one copy to a
+    card); each equals, bit for bit and in dtype and shape, the tensor
+    built from its host table on its own (as ``phase_inputs`` built them
+    before), on phases of every kind ``chip_smoke.PHASE_COVER`` names."""
+    from repro_torch.kernels.traffic.ops import _table
+
+    cover = _chip_smoke().PHASE_COVER
+    fast = [J.SweepCase(workload=WL, load=0.6, policy="fcfs", seed=7)]
+    covered = set()
+    for cases, kw in (_scenario("deadline_outage_fcfs"),
+                      _scenario("cps_bs_masks"), (fast, {})):
+        for args, kwargs, out in _record_port_phases(cases, **kw):
+            spec, arrays = phase_ops.phase_tables(*args, **kwargs)
+            packed = phase_ops.phase_inputs(*args, **kwargs,
+                                            device="cpu")[1]
+            assert set(packed) == set(arrays)
+            base = packed["rem0"].untyped_storage().data_ptr()
+            for name, val in arrays.items():
+                one = torch.as_tensor(np.ascontiguousarray(val))
+                view = packed[name]
+                assert view.untyped_storage().data_ptr() == base
+                assert view.dtype == one.dtype and view.shape == one.shape
+                assert np.array_equal(view.numpy().view(np.uint8),
+                                      one.numpy().view(np.uint8)), name
+            if spec.has_bg:
+                for view, old in zip((packed["bp_start"], packed["bp_len"]),
+                                     _table(spec.inv_burst, "cpu")):
+                    assert view.dtype == old.dtype and torch.equal(view, old)
+            covered |= {c for c, hit in cover.items()
+                        if hit(spec, out is not None)}
+    assert covered == set(cover)
+
+
+def test_fast_tables_cut_clock_equals_the_whole_clock():
+    """The scalar-S tables built on the clock only as far as the latest
+    finite ready time equal those built on all ``k_max`` cycles, with
+    ready times past the phase's end, infinite and on a cycle's edge."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(5)
+    R, U, cyc, k_max = 4, 6, 1e-3, 900
+    ready = rng.uniform(0.0, 0.5, (R, U))
+    ready[0, 0] = np.inf
+    ready[1, 1] = 2.0                      # past k_max cycles
+    ready[2, 2] = 0.25                     # k_max-free of the clock's edges
+    t_seq = np.zeros(k_max)
+    np.cumsum(np.full(k_max - 1, cyc), out=t_seq[1:])
+    ready[3] = t_seq[[3, 10, 11, 400, 401, 402]] + cyc
+    lay = SimpleNamespace(part=rng.random((R, U)) < 0.9,
+                          onu=np.arange(U, dtype=np.int64))
+    rem = rng.uniform(0, 1e6, (R, U))
+    got = phase_ops._fast_tables(cyc, k_max, lay, rem, ready)
+    # the whole clock, as the JAX package builds it
+    tc = t_seq + cyc
+    kp = np.searchsorted(tc, ready.ravel()).reshape(R, U)
+    pushes = lay.part & (rem > 0.0) & (kp < k_max)
+    pt = np.where(pushes, np.maximum(ready, t_seq[np.minimum(kp, k_max - 1)]),
+                  np.inf)
+    rk = np.lexsort((np.broadcast_to(lay.onu, (R, U)), pt), axis=1)
+    assert np.array_equal(got["rank_col"], rk)
+    assert np.array_equal(got["pushes"], pushes)
+    rows = np.arange(R)[:, None]
+    kp_rank = np.where(pushes[rows, rk], kp[rows, rk], k_max)
+    assert np.array_equal(got["kp_rank"], kp_rank)
