@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-The port has six paths, each driven through its user entry point with
+The port has eight paths, each driven through its user entry point with
 the kernel counts set to 0 just before and read just after:
 
 * the Fig. 2b round engine (``repro_torch.net.simulate``), through K1
@@ -21,7 +21,12 @@ the kernel counts set to 0 just before and read just after:
 * the Fig. 2a FL round (``repro_torch.fl.CPSServer.run_round``: LEAF
   CNN clients' local SGD, int8 update compression with error feedback,
   FedAvg), through K3 and K3' (int8 quantise, dequantise) on every leaf
-  of every arrived update.
+  of every arrived update;
+* the multi-round timeline (``simulate`` with a ``TimelineSchedule``:
+  folded, sequential and async rounds), through the phase kernel with
+  ``backend="jit"`` and through K1 and K2 on the per-cycle loop;
+* the FL × PON co-simulation (``repro_torch.fl.FLNetworkCoSim``), whose
+  int8 updates run through K3 and K3'.
 
 Phases, each printing its own line with its seconds; any failure exits
 nonzero:
@@ -119,7 +124,49 @@ nonzero:
    (``done_t`` bit for bit, ``rem`` within ``PHASE_RTOL``, the same exact
    flag); prints the wall, each phase's device ms and µs a cycle and the
    device's busy share. Nothing is cut;
-7b. ``fl_fig2a``: ``benchmarks/fig2a_accuracy.py``'s settings (16
+7b. ``timeline``: (a) ``benchmarks/timeline.py``'s Fig. 3 grid (128
+   ONUs, 10 Gb/s, 26.416 Mbit updates, {fcfs, bs} x load {0.3, 0.8},
+   seed 0, 24 rounds of elastic membership 0.8, membership seed 7)
+   folded into one stacked simulation of 96 rows, through
+   ``backend="jit"`` and through the per-cycle loop, every round's sync
+   within ``SYNC_TOL`` of ``FIG3_SYNC``, and every round's arrivals and
+   every client's times and left-over bits of the jit run held to the
+   per-cycle loop's (``_hold_round``); (b)
+   ``benchmarks/training_time_saving.py``'s 8-round timeline (load 0.8,
+   seeds {0, 1}) through jit, each round held to ``SAVING_SYNC`` and
+   ``fcfs_total_s``, ``bs_total_s``, ``saving_pct`` and the analytic BS
+   round time (``core.round_model.bs_round_time``) to ``SAVING_TOTALS``;
+   (c) the op point of ``benchmarks/async_timeline.py`` (12 clients,
+   FCFS and BS, load 0.8, seed 1, 6 rounds) under deadline 4 s with
+   defer, drop and partial, and async with a buffer of 6, through jit,
+   every round held to ``OP_SYNC``; (d) ``stacked_run``'s timeline
+   (100 PONs x 1,024 ONUs, 2 elastic rounds, load 0.05) through jit,
+   every round and client within ``ROUND_RTOL`` of the per-cycle loop
+   on the card; (e) the same schedules at 16 ONUs and 3 rounds. Every
+   phase of (a), (b), (c) and (e) is recorded and held to the plain
+   version on CPU copies (``_hold_phases``: ``done_t`` bit for bit,
+   ``rem`` within ``PHASE_RTOL``, the same exact flag; the plain runs in
+   worker processes, one a core but one); (e)'s must cover
+   ``TIMELINE_COVER`` (folded rows with dead columns, carriers with no
+   download, a deadlined BS row, both passes of an async round). Prints,
+   for each run, the wall, phase
+   launches, ``phase_fallbacks``, K1/K2 launches, the device's busy
+   share, each phase's ms, CTAs and µs a cycle and the host's ms for
+   the phases' tables;
+7c. ``cosim``: ``benchmarks/async_timeline.py::accuracy_part``'s
+   co-simulation (8 clients x 64 samples, LEAF CNN, lr 0.04, batch 16,
+   2 local epochs; BS, load 0.8, model 2e6 bits, uploads 3e8 bits, 8
+   ONUs at 1 Gb/s; int8 updates) on the card for 4 rounds in each of
+   sync, defer, drop and partial (deadline 3.5 s) and async (buffer 4),
+   the network through ``backend="jit"`` (the run's template ``spec``):
+   every round's sync within ``SYNC_TOL`` of ``COSIM_SYNC``, K3 and K3'
+   8 launches an update; then the same on the CPU from the same initial
+   weights (its network on the per-cycle loop): syncs within
+   ``SYNC_TOL`` of ``COSIM_SYNC``, arrivals and staleness identical,
+   every round's accuracy
+   within ``FL_REF_GAP`` and its mean loss within ``FL_REF_GAP`` of
+   itself. Prints ``time_to_metric`` for each mode;
+7d. ``fl_fig2a``: ``benchmarks/fig2a_accuracy.py``'s settings (16
    clients x 64 samples, lr 0.04, batch 16, 2 local epochs, data seed 0,
    server seed 1, 10 rounds, fractions {0.25, 0.5, 1.0}, 512 test images)
    through the port's ``CPSServer``, the CNN at width 1 from a torch
@@ -178,7 +225,8 @@ nonzero:
 
 Before the last line it prints one JSON object with each kernel's
 launches on its path (K4's and K5's ``launches_tc`` of them on the
-tensor-core kernels), its error against the plain version, its time, the plain
+tensor-core kernels; ``launches_by_path`` for the kernels several paths
+run), its error against the plain version, its time, the plain
 version's time, a library call's time where one computes the same
 function, and the least time the card could take (``bound_ms``). Every
 time is ``_device_ms``'s: launches queued back to back behind a sleep
@@ -919,9 +967,17 @@ def _hold_phase(what: str, args, kwargs) -> tuple:
 
     sc, tc = ops.phase_inputs(*args, **kwargs, use_k2=True, device="cuda")
     sh, th = ops.phase_inputs(*args, **kwargs, use_k2=True, device="cpu")
-    got_t, got_r, got_x = kernel.run_phase_cuda(sc, tc)
+    got = kernel.run_phase_cuda(sc, tc)
     torch.cuda.synchronize()
-    want_t, want_r, want_x = ref.run_phase_ref(sh, th)
+    want = ref.run_phase_ref(sh, th)
+    return sc, tc, _check_phase(what, sc.mode, got, want), want[2]
+
+
+def _check_phase(what: str, mode: str, got, want) -> float:
+    """The kernel's ``(done_t, rem, exact)`` against the plain version's:
+    ``done_t`` bit for bit, ``rem`` within ``PHASE_RTOL``, the same exact
+    flag, or the smoke fails. Returns the largest ``rem`` error."""
+    (got_t, got_r, got_x), (want_t, want_r, want_x) = got, want
     got_t, got_r = got_t.cpu(), got_r.cpu()
     if (got_x != want_x
             or not np.array_equal(got_t.numpy(), want_t.numpy(),
@@ -929,8 +985,48 @@ def _hold_phase(what: str, args, kwargs) -> tuple:
             or not torch.allclose(got_r, want_r, rtol=PHASE_RTOL,
                                   atol=0.0)):
         raise SystemExit(f"phase kernel differs from its plain version on "
-                         f"{what} {sc.mode} (exact {got_x} vs {want_x})")
-    return sc, tc, float((got_r - want_r).abs().max()), want_x
+                         f"{what} {mode} (exact {got_x} vs {want_x})")
+    return float((got_r - want_r).abs().max())
+
+
+def _plain_phase(spec, tens):
+    """``run_phase_ref`` in a worker process of :func:`_hold_phases`."""
+    from repro_torch.kernels.ponsim import ref
+
+    torch.set_num_threads(1)
+    return ref.run_phase_ref(spec, tens)
+
+
+def _hold_phases(groups: dict) -> dict:
+    """:func:`_hold_phase` on every recorded phase of ``groups`` (name ->
+    ``_record_phases`` calls): each through the phase kernel here, and
+    through the plain version on CPU copies in worker processes, one a
+    core but one (these phases have narrow rows: one thread each does as
+    well as a shared pool). Returns name -> ``[(card inputs, rem error,
+    exact flag)]``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.kernels.ponsim import kernel, ops
+
+    cards, hosts = [], []
+    for name, calls in groups.items():
+        for args, kwargs in calls:
+            sc, tc = ops.phase_inputs(*args, **kwargs, use_k2=True,
+                                      device="cuda")
+            cards.append((name, sc, tc, kernel.run_phase_cuda(sc, tc)))
+            hosts.append(ops.phase_inputs(*args, **kwargs, use_k2=True,
+                                          device="cpu"))
+    torch.cuda.synchronize()
+    workers = max(1, min(len(hosts), len(os.sched_getaffinity(0)) - 1))
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        wants = list(pool.map(_plain_phase, *zip(*hosts)))
+    out = {name: [] for name in groups}
+    for (name, sc, tc, got), want in zip(cards, wants):
+        out[name].append((sc, tc, _check_phase(name, sc.mode, got, want),
+                          want[2]))
+    return out
 
 
 def phase_kphase():
@@ -1885,6 +1981,662 @@ def phase_wide_pons():
     return out
 
 
+# ---- multi-round timelines and the co-simulation ---------------------------
+
+# benchmarks/timeline.py's Fig. 3 grid: {fcfs, bs} x load {0.3, 0.8}, seed 0,
+# every ONU a client, FIG3_ROUNDS rounds under its elastic_schedule
+# (participation 0.8, membership seed 7)
+FIG3_ROUNDS = 24
+FIG3_PARTICIPATION, FIG3_MEMBERSHIP_SEED = 0.8, 7
+FIG3_GRID = (("fcfs", 0.3), ("fcfs", 0.8), ("bs", 0.3), ("bs", 0.8))
+# benchmarks/training_time_saving.py's timeline: load 0.8, seeds {0, 1}
+SAVING_ROUNDS, SAVING_SEEDS = 8, 2
+# benchmarks/async_timeline.py's op point: 12 clients, load 0.8, seed 1
+OP_CLIENTS, OP_ROUNDS = 12, 6
+OP_MODES = {"defer": {"deadline_s": 4.0},
+            "drop": {"deadline_s": 4.0, "deadline_policy": "drop"},
+            "partial": {"deadline_s": 4.0, "deadline_policy": "partial"},
+            "async": {"buffer_k": 6}}
+# benchmarks/timeline.py::stacked_run's timeline: 100 PONs x 1,024 ONUs,
+# FCFS at load 0.05, seed 0, WIDE_TL_ROUNDS elastic rounds
+WIDE_TL_ROUNDS, WIDE_TL_LOAD = 2, 0.05
+# the short timelines whose every phase is held to the plain version: the
+# same schedules at 16 ONUs (1 Gb/s), 3 rounds, clients ready within 0.5 s
+SHORT_ONUS, SHORT_ROUNDS, SHORT_DEADLINE = 16, 3, 0.35
+# benchmarks/async_timeline.py::accuracy_part's co-simulation
+COSIM_CLIENTS, COSIM_SAMPLES, COSIM_DATA_SEED, COSIM_SERVER_SEED = 8, 64, 0, 1
+COSIM_LR, COSIM_BATCH, COSIM_EPOCHS, COSIM_TEST = 0.04, 16, 2, 512
+COSIM_LOAD, COSIM_MODEL_BITS, COSIM_UPLOAD_BITS = 0.8, 2e6, 3e8
+COSIM_ONUS, COSIM_RATE, COSIM_ROUNDS, COSIM_TARGET = 8, 1e9, 4, 0.8
+COSIM_MODES = {
+    "sync": {},
+    "defer": {"deadline_s": 3.5, "deadline_policy": "defer"},
+    "drop": {"deadline_s": 3.5, "deadline_policy": "drop"},
+    "partial": {"deadline_s": 3.5, "deadline_policy": "partial"},
+    "async": {"mode": "async", "async_buffer": 4},
+}
+
+# the JAX package's values of these runs on the CPU (its numpy engine), as
+# tests/test_torch_timeline.py::reference_pins computes them (that test
+# checks they equal these constants)
+FIG3_SYNC = {
+    "fcfs_load0.3": (
+        5.277100000000097, 5.187100000000067, 5.210100000000074,
+        5.216100000000076, 5.217100000000077, 5.218100000000077,
+        5.217100000000077, 5.182100000000065, 5.195100000000069,
+        5.16710000000006, 5.220100000000078, 4.975099999999996,
+        5.211100000000075, 5.212100000000075, 5.184100000000066,
+        5.209100000000074, 5.234100000000082, 5.19610000000007,
+        4.9740999999999955, 5.151100000000055, 4.966099999999993,
+        5.216100000000076, 5.207100000000073, 5.213100000000075,
+    ),
+    "fcfs_load0.8": (
+        6.378100000000464, 6.078100000000364, 6.115100000000377,
+        6.188100000000401, 6.128100000000381, 6.188100000000401,
+        6.199100000000405, 6.09610000000037, 6.12510000000038,
+        6.012100000000342, 6.210100000000408, 5.899100000000304,
+        6.153100000000389, 6.198100000000404, 6.062100000000359,
+        6.150100000000388, 6.257100000000424, 6.148100000000388,
+        5.8851000000003, 6.027100000000347, 5.964100000000326,
+        6.192100000000402, 6.0881000000003676, 6.177100000000397,
+    ),
+    "bs_load0.3": (
+        4.909099999999974, 4.909099999999974, 4.909099999999974,
+        4.909099999999974, 4.909099999999974, 4.909099999999974,
+        4.909099999999974, 4.909099999999974, 4.909099999999974,
+        4.883099999999965, 4.889099999999967, 4.909099999999974,
+        4.909099999999974, 4.909099999999974, 4.889099999999967,
+        4.909099999999974, 4.909099999999974, 4.889099999999967,
+        4.909099999999974, 4.909099999999974, 4.909099999999974,
+        4.909099999999974, 4.889099999999967, 4.889099999999967,
+    ),
+    "bs_load0.8": (
+        4.909099999999974, 4.909099999999974, 4.909099999999974,
+        4.909099999999974, 4.909099999999974, 4.909099999999974,
+        4.909099999999974, 4.909099999999974, 4.909099999999974,
+        4.883099999999965, 4.889099999999967, 4.909099999999974,
+        4.909099999999974, 4.909099999999974, 4.889099999999967,
+        4.909099999999974, 4.909099999999974, 4.889099999999967,
+        4.909099999999974, 4.909099999999974, 4.909099999999974,
+        4.909099999999974, 4.889099999999967, 4.889099999999967,
+    ),
+}
+SAVING_SYNC = {
+    "fcfs_seed0": (
+        6.378100000000464, 6.36510000000046, 6.300100000000438,
+        6.373100000000463, 6.297100000000437, 6.346100000000454,
+        6.387100000000467, 6.410100000000475,
+    ),
+    "fcfs_seed1": (
+        6.312100000000442, 6.318100000000444, 6.33510000000045,
+        6.36510000000046, 6.36610000000046, 6.393100000000469,
+        6.376100000000464, 6.343100000000453,
+    ),
+    "bs_seed0": (
+        4.909099999999974, 4.909099999999974, 4.909099999999974,
+        4.909099999999974, 4.909099999999974, 4.909099999999974,
+        4.909099999999974, 4.909099999999974,
+    ),
+    "bs_seed1": (
+        4.909099999999974, 4.909099999999974, 4.909099999999974,
+        4.909099999999974, 4.909099999999974, 4.909099999999974,
+        4.909099999999974, 4.909099999999974,
+    ),
+}
+SAVING_TOTALS = {
+    "fcfs_total_s": 50.83280000000365,
+    "bs_total_s": 39.27279999999979,
+    "saving_pct": 22.741222202993004,
+    "bs_analytic_s": 4.905560710894849,
+}
+OP_SYNC = {
+    "fcfs_defer": (
+        4.0, 3.850099999999687, 4.0,
+        3.842099999999688, 4.0, 3.853099999999687,
+    ),
+    "fcfs_drop": (
+        4.0, 4.0, 4.0,
+        4.0, 4.0, 4.0,
+    ),
+    "fcfs_partial": (
+        4.0, 4.0, 4.0,
+        4.0, 4.0, 4.0,
+    ),
+    "fcfs_async": (
+        3.9090999999996807, 0.13010000000000008, 0.11110000000000009,
+        0.12610000000000007, 0.11510000000000009, 0.10410000000000008,
+    ),
+    "bs_defer": (
+        4.0, 3.796099999999693, 4.0,
+        3.796099999999693, 4.0, 3.796099999999693,
+    ),
+    "bs_drop": (
+        4.0, 4.0, 4.0,
+        4.0, 4.0, 4.0,
+    ),
+    "bs_partial": (
+        4.0, 4.0, 4.0,
+        4.0, 4.0, 4.0,
+    ),
+    "bs_async": (
+        3.796099999999693, 0.01810000000000001, 0.01810000000000001,
+        0.01810000000000001, 0.01810000000000001, 0.01810000000000001,
+    ),
+}
+COSIM_SYNC = {
+    "sync": (
+        5.4501000000001545, 5.4501000000001545, 5.4501000000001545,
+        5.4501000000001545,
+    ),
+    "defer": (
+        3.5, 3.2920999999997487, 3.5,
+        3.2920999999997487,
+    ),
+    "drop": (
+        3.5, 3.5, 3.5,
+        3.5,
+    ),
+    "partial": (
+        3.5, 3.5, 3.5,
+        3.5,
+    ),
+    "async": (
+        3.2920999999997487, 1.3030999999999673, 1.305099999999967,
+        1.305099999999967,
+    ),
+}
+
+
+def _elastic(rounds: int, n_clients: int):
+    """``benchmarks/timeline.py::elastic_schedule``'s membership mask."""
+    memb = (np.random.default_rng(FIG3_MEMBERSHIP_SEED).random(
+        (rounds, n_clients)) < FIG3_PARTICIPATION)
+    memb[0] = True
+    return memb
+
+
+def _timeline_setup(short: bool):
+    """``(PONConfig, workload of n clients)``: full size, or the short
+    timelines' 16 ONUs at 1 Gb/s with clients ready within 0.5 s."""
+    from repro_torch.net import FLRoundWorkload, PONConfig
+
+    if short:
+        return (PONConfig(n_onus=SHORT_ONUS, line_rate_bps=1e9),
+                _short_workload(range(SHORT_ONUS), 7))
+    return PONConfig(n_onus=N_ONUS), FLRoundWorkload(
+        clients=_clients(N_ONUS, N_ONUS), model_bits=M_BITS)
+
+
+def fig3_spec(backend=None, short=False):
+    """The Fig. 3 grid, folded: 4 cases x ``FIG3_ROUNDS`` elastic rounds
+    in one stacked simulation (names in ``FIG3_SYNC`` order)."""
+    from repro_torch.net import SweepCase, SweepSpec, TimelineSchedule
+
+    cfg, wl = _timeline_setup(short)
+    rounds = SHORT_ROUNDS if short else FIG3_ROUNDS
+    cases = tuple(SweepCase(workload=wl, load=load, policy=policy, seed=0)
+                  for policy, load in FIG3_GRID)
+    sched = TimelineSchedule(n_rounds=rounds,
+                             membership=_elastic(rounds, len(wl.clients)))
+    return SweepSpec(cases=cases, pon=cfg, schedule=sched, mode="folded",
+                     backend=backend)
+
+
+def saving_spec(backend=None, short=False):
+    """``training_time_saving.py``'s timeline: {fcfs, bs} x seeds {0, 1}
+    at load 0.8, ``SAVING_ROUNDS`` rounds (``SAVING_SYNC`` order)."""
+    from repro_torch.net import SweepCase, SweepSpec, TimelineSchedule
+
+    cfg, wl = _timeline_setup(short)
+    cases = tuple(SweepCase(workload=wl, load=0.8, policy=policy, seed=s)
+                  for policy in ("fcfs", "bs") for s in range(SAVING_SEEDS))
+    sched = TimelineSchedule(n_rounds=SHORT_ROUNDS if short
+                             else SAVING_ROUNDS)
+    return SweepSpec(cases=cases, pon=cfg, schedule=sched, backend=backend)
+
+
+def op_point_spec(mode: str, backend=None, short=False):
+    """The op point's 12 clients, FCFS and BS at load 0.8, seed 1, under
+    ``OP_MODES[mode]`` for ``OP_ROUNDS`` rounds (the short one: 12 of 16
+    ONUs, 3 rounds, deadlines at ``SHORT_DEADLINE``)."""
+    from repro_torch.net import (
+        FLRoundWorkload,
+        PONConfig,
+        SweepCase,
+        SweepSpec,
+        TimelineSchedule,
+    )
+
+    kw = dict(OP_MODES[mode])
+    if short:
+        cfg = PONConfig(n_onus=SHORT_ONUS, line_rate_bps=1e9)
+        wl = _short_workload(range(OP_CLIENTS), 8)
+        if "deadline_s" in kw:
+            kw["deadline_s"] = SHORT_DEADLINE
+    else:
+        cfg = PONConfig(n_onus=N_ONUS)
+        wl = FLRoundWorkload(clients=_clients(OP_CLIENTS, N_ONUS),
+                             model_bits=M_BITS)
+    cases = tuple(SweepCase(workload=wl, load=0.8, policy=policy, seed=1)
+                  for policy in ("fcfs", "bs"))
+    sched = TimelineSchedule(n_rounds=SHORT_ROUNDS if short else OP_ROUNDS,
+                             **kw)
+    return SweepSpec(cases=cases, pon=cfg, schedule=sched, backend=backend)
+
+
+def wide_timeline_spec(backend=None):
+    """``stacked_run``'s timeline: 100 PONs x 1,024 ONUs in one case (80
+    Gb/s a PON), 1,024 clients, FCFS at load 0.05, seed 0,
+    ``WIDE_TL_ROUNDS`` elastic rounds, folded."""
+    import dataclasses
+
+    from repro_torch.net import TimelineSchedule
+
+    spec = wide_pons_spec(backend)
+    case = dataclasses.replace(spec.cases[0], load=WIDE_TL_LOAD)
+    sched = TimelineSchedule(n_rounds=WIDE_TL_ROUNDS,
+                             membership=_elastic(WIDE_TL_ROUNDS, WIDE_ONUS))
+    return dataclasses.replace(spec, cases=(case,), schedule=sched)
+
+
+def _timeline_run(spec):
+    """``spec`` through ``simulate`` on the card: ``(results, stats)``,
+    stats the wall, the round engine's counts, and for each launch of the
+    phase kernel its device ms (CUDA events around the launch), cycles
+    and CTAs, and the host ms of each phase's tables and copy in
+    (``ops.phase_inputs``). The device's busy share is the phases' ms
+    over the wall."""
+    from repro_torch.kernels.ponsim import kernel, ops
+    from repro_torch.net import simulate
+
+    launch, inputs = kernel.launch_phase, ops.phase_inputs
+    timed, host = [], []
+
+    def timed_launch(sc, dyn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state = launch(sc, dyn)
+        end.record()
+        timed.append((start, end, state["k_stop"], sc.R // sc.P))
+        return state
+
+    def timed_inputs(*args, **kwargs):
+        t_in = time.perf_counter()
+        out = inputs(*args, **kwargs)
+        host.append((time.perf_counter() - t_in) * 1e3)
+        return out
+
+    _reset_round_counts()
+    kernel.launch_phase, ops.phase_inputs = timed_launch, timed_inputs
+    try:
+        torch.cuda.synchronize()
+        t_run = time.time()
+        results = simulate(spec, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t_run
+    finally:
+        kernel.launch_phase, ops.phase_inputs = launch, inputs
+    ms = [s.elapsed_time(e) for s, e, _, _ in timed]
+    cycles = [int(k.max()) for _, _, k, _ in timed]
+    return results, {
+        "wall_s": wall, "counts": _round_counts(), "ms": ms,
+        "cycles": cycles, "ctas": [c for _, _, _, c in timed],
+        "us_per_cycle": [m * 1e3 / max(c, 1) for m, c in zip(ms, cycles)],
+        "host_ms": host, "busy": sum(ms) / (wall * 1e3)}
+
+
+def _print_run(what: str, stats) -> None:
+    c = stats["counts"]
+    print(f"  {what}: wall {stats['wall_s']:.3f}s; phase launches "
+          f"{c['phase']}, phase_fallbacks {c['fallbacks']}, K1 {c['k1']}, "
+          f"K2 {c['k2']}; device busy {stats['busy']:.3f}; phase ms "
+          f"{','.join(f'{m:.2f}' for m in stats['ms'])}; CTAs "
+          f"{','.join(str(n) for n in stats['ctas'])}; us a cycle "
+          f"{','.join(f'{u:.3f}' for u in stats['us_per_cycle'])}; host "
+          f"tables+copy ms {sum(stats['host_ms']):.2f}", flush=True)
+
+
+def _hold_timeline_counts(stats, what: str, jit: bool) -> None:
+    """A jit run launched the phase kernel and, unless a phase fell back
+    to the per-cycle loop, no standalone K1/K2; a per-cycle run launched
+    K1 and K2 and no phase."""
+    c = stats["counts"]
+    if jit:
+        bad = c["phase"] < 1 or (not c["fallbacks"] and (c["k1"]
+                                                        or c["k2"]))
+    else:
+        bad = c["phase"] or not (c["k1"] and c["k2"])
+    if bad:
+        raise SystemExit(f"{what}: engine counts {c}")
+
+
+def _hold_timeline(what: str, results, names, pins) -> None:
+    """Every round's sync of every case within ``SYNC_TOL`` of its pin."""
+    for name, tl in zip(names, results):
+        got, want = tl.sync_times.tolist(), pins[name]
+        if len(got) != len(want) or not all(
+                math.isfinite(g) and abs(g - w) <= SYNC_TOL
+                for g, w in zip(got, want)):
+            raise SystemExit(f"{what} {name}: syncs {got} != {list(want)}")
+
+
+def _hold_rounds(what: str, got, want, names) -> None:
+    """Every round of every case of timelines ``got`` against ``want``'s:
+    the same arrivals, and the sync, every client's times and left-over
+    bits as :func:`_hold_round` holds them."""
+    for name, a_tl, b_tl in zip(names, got, want):
+        if len(a_tl.rounds) != len(b_tl.rounds):
+            raise SystemExit(f"{what} {name}: {len(a_tl.rounds)} rounds != "
+                             f"{len(b_tl.rounds)}")
+        for r, (a, b) in enumerate(zip(a_tl.rounds, b_tl.rounds)):
+            at = f"{what} {name} round {r}"
+            if a.arrived != b.arrived or (a.result is None) != (
+                    b.result is None):
+                raise SystemExit(f"{at}: arrivals {a.arrived} != "
+                                 f"{b.arrived}")
+            if a.result is None:
+                if abs(a.sync_time - b.sync_time) > SYNC_TOL:
+                    raise SystemExit(f"{at}: sync {a.sync_time!r} != "
+                                     f"{b.sync_time!r}")
+            else:
+                _hold_round(at, a.result, b.result)
+
+
+# what the short timelines' phases must have covered between them
+TIMELINE_COVER = {
+    "folded rows with dead columns": lambda run, sc, d: (
+        run == "fig3" and bool((~d["part"].cpu()).any())),
+    "carriers with no download": lambda run, sc, d: (
+        run in ("op_defer", "op_async") and sc.mode == "fcfs"
+        and bool((d["part"] & (d["rem0"] == 0.0)).any())),
+    "a deadlined BS row": lambda run, sc, d: (
+        sc.mode == "bs" and sc.has_deadline and bool(d["finite_dl"].any())),
+    "an async round's free pass": lambda run, sc, d: (
+        run == "op_async" and not sc.has_deadline),
+    "an async round's cut pass": lambda run, sc, d: (
+        run == "op_async" and sc.has_deadline),
+}
+
+
+def _short_timelines():
+    return {"fig3": fig3_spec("jit", short=True),
+            "saving": saving_spec("jit", short=True),
+            **{f"op_{mode}": op_point_spec(mode, "jit", short=True)
+               for mode in OP_MODES}}
+
+
+def phase_timeline():
+    """The multi-round timeline on the card (``repro_torch.net.simulate``
+    with a ``TimelineSchedule``): (a) the Fig. 3 grid folded, through
+    ``backend="jit"`` and the per-cycle loop, every round's sync held to
+    its pin; (b) the training-time saving's timeline through jit, its
+    rounds and totals held to their pins, beside the analytic BS time;
+    (c) the op point under defer, drop, partial and async through jit,
+    every round held to its pin; (d) ``stacked_run``'s wide timeline
+    through jit, every round and client held to the per-cycle loop on the
+    card; (e) every phase of the short timelines held to the plain
+    version on CPU copies, covering ``TIMELINE_COVER``."""
+    from repro_torch.core.round_model import bs_round_time
+    from repro_torch.kernels.ponsim import kernel, ops
+    from repro_torch.net import simulate
+
+    t0 = time.time()
+    out, by_path = {}, {}
+    # (a) the Fig. 3 grid
+    names = [f"{p}_load{load}" for p, load in FIG3_GRID]
+    res, jit = _timeline_run(fig3_spec("jit"))
+    _hold_timeline("fig3 jit", res, names, FIG3_SYNC)
+    _hold_timeline_counts(jit, "fig3 jit", True)
+    _print_run("fig3-timeline-24 jit", jit)
+    # its three phases timed as k_phase times fig2b-16's (8 CTAs), for µs
+    # a cycle at 48 CTAs against 8
+    steady_ms, steady_us = [], []
+    held = {"fig3": _record_phases(fig3_spec("jit"), "cuda")}
+    for args, kwargs in held["fig3"]:
+        sc, tc = ops.phase_inputs(*args, **kwargs, use_k2=True,
+                                  device="cuda")
+        cycles = int(kernel.launch_phase(sc, tc)["k_stop"].max())
+        steady_ms.append(_device_ms(kernel.launch_phase, [(sc, tc)],
+                                    reps=3))
+        steady_us.append(steady_ms[-1] * 1e3 / cycles)
+    jit.update(steady_ms=steady_ms, steady_us_per_cycle=steady_us)
+    print(f"  fig3-timeline-24 jit phases, back to back: ms "
+          f"{','.join(f'{m:.4f}' for m in steady_ms)}; us a cycle "
+          f"{','.join(f'{u:.3f}' for u in steady_us)}", flush=True)
+    loop_res, loop = _timeline_run(fig3_spec())
+    _hold_timeline("fig3 per-cycle", loop_res, names, FIG3_SYNC)
+    _hold_timeline_counts(loop, "fig3 per-cycle", False)
+    _hold_rounds("fig3 jit against the per-cycle loop", res, loop_res, names)
+    _print_run("fig3-timeline-24 per-cycle", loop)
+    by_path["fig3-timeline-24"] = jit["counts"]
+    by_path["fig3-timeline-24-per-cycle"] = loop["counts"]
+    out["fig3"] = {"jit": jit, "per_cycle": loop}
+
+    # (b) the training-time saving
+    names = [f"{p}_seed{s}" for p in ("fcfs", "bs")
+             for s in range(SAVING_SEEDS)]
+    res, saving = _timeline_run(saving_spec("jit"))
+    _hold_timeline("saving", res, names, SAVING_SYNC)
+    _hold_timeline_counts(saving, "saving", True)
+    held["saving"] = _record_phases(saving_spec("jit"), "cuda")
+    n = SAVING_SEEDS
+    fcfs = float(np.mean([r.total_time_s for r in res[:n]]))
+    bs = float(np.mean([r.total_time_s for r in res[n:]]))
+    cfg, wl = _timeline_setup(False)
+    got = {"fcfs_total_s": fcfs, "bs_total_s": bs,
+           "saving_pct": 100.0 * (1 - bs / fcfs),
+           "bs_analytic_s": bs_round_time(
+               wl.clients, cfg.line_rate_bps * cfg.efficiency).sync_time}
+    for key, want in SAVING_TOTALS.items():
+        if abs(got[key] - want) > SYNC_TOL * SAVING_ROUNDS:
+            raise SystemExit(f"saving {key}: {got[key]!r} != {want!r}")
+    print(f"  time-saving-8: fcfs_total_s={got['fcfs_total_s']!r} "
+          f"bs_total_s={got['bs_total_s']!r} "
+          f"saving_pct={got['saving_pct']!r} "
+          f"bs_analytic_s={got['bs_analytic_s']!r}", flush=True)
+    _print_run("time-saving-8 jit", saving)
+    by_path["time-saving-8"] = saving["counts"]
+    out["saving"] = dict(got, **saving)
+
+    # (c) the op point
+    op_counts = dict.fromkeys(("phase", "k1", "k2", "fallbacks"), 0)
+    for mode in OP_MODES:
+        res, stats = _timeline_run(op_point_spec(mode, "jit"))
+        _hold_timeline(f"op point {mode}", res,
+                       [f"{p}_{mode}" for p in ("fcfs", "bs")], OP_SYNC)
+        _hold_timeline_counts(stats, f"op point {mode}", True)
+        _print_run(f"async-op-point {mode} jit", stats)
+        held[f"op_{mode}"] = _record_phases(op_point_spec(mode, "jit"),
+                                            "cuda")
+        for key in op_counts:
+            op_counts[key] += stats["counts"][key]
+        out[f"op_{mode}"] = stats
+    by_path["async-op-point"] = op_counts
+
+    # (d) the wide timeline, against the per-cycle loop on the card
+    res, wide = _timeline_run(wide_timeline_spec("jit"))
+    _hold_timeline_counts(wide, "wide timeline jit", True)
+    _print_run("wide-timeline-jit", wide)
+    _reset_round_counts()
+    t_run = time.time()
+    loop_res = simulate(wide_timeline_spec(), device="cuda")
+    torch.cuda.synchronize()
+    wide_loop = {"wall_s": time.time() - t_run, "counts": _round_counts()}
+    _hold_rounds("wide timeline", res, loop_res, ["fcfs"])
+    print(f"  wide-timeline per-cycle: wall {wide_loop['wall_s']:.3f}s, "
+          f"syncs {res[0].sync_times.tolist()}", flush=True)
+    by_path["wide-timeline-jit"] = wide["counts"]
+    by_path["wide-timeline-per-cycle"] = wide_loop["counts"]
+    out["wide"] = dict(wide, per_cycle_wall_s=wide_loop["wall_s"],
+                       syncs=res[0].sync_times.tolist())
+
+    # every phase of (a)-(c) and of (e), the short timelines, held to the
+    # plain version
+    t_hold = time.time()
+    short = _short_timelines()
+    held.update({f"short_{run}": _record_phases(spec, "cuda")
+                 for run, spec in short.items()})
+    checked = _hold_phases(held)
+    hold_s = time.time() - t_hold
+    covered = {c for run in short for sc, tc, _, _ in checked[f"short_{run}"]
+               for c, hit in TIMELINE_COVER.items() if hit(run, sc, tc)}
+    missing = set(TIMELINE_COVER) - covered
+    if missing:
+        raise SystemExit(f"short timelines did not cover {sorted(missing)}")
+    n_full = sum(len(v) for k, v in checked.items()
+                 if not k.startswith("short_"))
+    n_short = sum(len(v) for v in checked.values()) - n_full
+    err = max(e for v in checked.values() for _, _, e, _ in v)
+    print(f"  phases held to the plain version: "
+          f"{', '.join(f'{k} {len(v)}' for k, v in checked.items())}; "
+          f"hold wall {hold_s:.1f}s", flush=True)
+    out["short"] = {"phases_held": n_short, "full_phases_held": n_full,
+                    "max_abs_err": err, "hold_s": hold_s}
+    _line("timeline", time.time() - t0, fig3_rounds_held=4 * FIG3_ROUNDS,
+          fig3_jit_wall_s=f"{jit['wall_s']:.3f}",
+          fig3_loop_wall_s=f"{loop['wall_s']:.3f}",
+          saving_pct=f"{got['saving_pct']:.4f}",
+          op_rounds_held=2 * len(OP_MODES) * OP_ROUNDS,
+          wide_syncs=",".join(repr(s) for s in out["wide"]["syncs"]),
+          fig3_clients_match="yes", wide_clients_match="yes",
+          full_phases_held=n_full, short_phases_held=n_short,
+          short_covered=len(covered), done_t_bitwise="yes",
+          rem_max_abs_err=f"{err:.3g}", hold_s=f"{hold_s:.1f}",
+          phase_fallbacks=sum(c["fallbacks"] for c in by_path.values()))
+    return out, by_path
+
+
+def _curve(res, key: str) -> str:
+    return "/".join(f"{r[key]:.4f}" for r in res.rounds)
+
+
+def _cosim_runs(device, clients, test_batch, params, count, backend=None):
+    """Every mode of ``COSIM_MODES`` through ``FLNetworkCoSim`` on
+    ``device`` from ``params``, its network on the round engine's
+    ``backend`` (given by the run's template ``spec``): mode -> (result,
+    wall s)."""
+    from repro_torch import fl
+    from repro_torch.models import cnn
+    from repro_torch.net import PONConfig, SweepCase, SweepSpec
+
+    pon = PONConfig(n_onus=COSIM_ONUS, line_rate_bps=COSIM_RATE)
+    spec = SweepSpec(cases=(SweepCase(workload=None, load=COSIM_LOAD,
+                                      policy="bs"),),
+                     pon=pon, backend=backend)
+    out = {}
+    for mode, kw in COSIM_MODES.items():
+        server = fl.CPSServer(
+            global_params=params, clients=clients,
+            selection=fl.SelectionConfig(strategy="all"),
+            compression=fl.CompressorConfig(scheme="int8"),
+            seed=COSIM_SERVER_SEED)
+        cfg = fl.CoSimConfig(
+            policy="bs", total_load=COSIM_LOAD, model_bits=COSIM_MODEL_BITS,
+            upload_bits=COSIM_UPLOAD_BITS, timing_seeds=1, pon=pon)
+        t_run = time.time()
+        with count:
+            res = fl.FLNetworkCoSim(server, cfg, device=device).run(
+                COSIM_ROUNDS, eval_fn=lambda p: cnn.accuracy(p, test_batch),
+                spec=spec, **kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out[mode] = (res, time.time() - t_run)
+    return out
+
+
+def phase_cosim():
+    """``accuracy_part``'s co-simulation (``FLNetworkCoSim``, BS at load
+    0.8, int8 updates through K3/K3') on the card in every mode of
+    ``COSIM_MODES``, its network through ``backend="jit"``: each round's
+    sync held to its pin, K3 and K3' run 8 times an update, the phase
+    kernel at least as often as there are modes; then the same on the CPU (its network
+    on the per-cycle loop), from the same initial weights: syncs held to
+    the pins, arrivals and staleness identical, every round's accuracy
+    within ``FL_REF_GAP`` of the CPU's and its mean loss within
+    ``FL_REF_GAP`` of it, relatively. Prints ``time_to_metric``. Returns
+    the card runs' launches of K3, K3' and the round engine's kernels."""
+    from repro_torch import fl
+    from repro_torch._tree import tree_map
+    from repro_torch.data import build_federated_cnn_clients
+    from repro_torch.fl import server as server_mod
+    from repro_torch.kernels.quant import kernel as k3
+    from repro_torch.models import cnn
+
+    t0 = time.time()
+    clients, test = build_federated_cnn_clients(
+        n_clients=COSIM_CLIENTS, samples_per_client=COSIM_SAMPLES,
+        loss_fn=cnn.loss_fn,
+        train_cfg=fl.LocalTrainConfig(lr=COSIM_LR, batch_size=COSIM_BATCH,
+                                      local_epochs=COSIM_EPOCHS),
+        seed=COSIM_DATA_SEED)
+    test_batch = {k: v[:COSIM_TEST] for k, v in test.items()}
+    params = cnn.init_params(torch.Generator(device="cuda").manual_seed(0))
+    updates = [0]
+    compress = server_mod.compress_delta
+
+    def counted(*args, **kwargs):
+        updates[0] += 1
+        return compress(*args, **kwargs)
+
+    k3.quantize_launches = k3.dequantize_launches = 0
+    _reset_round_counts()
+    card = _cosim_runs("cuda", clients, test_batch, params,
+                       mock.patch.object(server_mod, "compress_delta",
+                                         counted), backend="jit")
+    launches = (k3.quantize_launches, k3.dequantize_launches)
+    engine_counts = _round_counts()
+    if launches != (8 * updates[0],) * 2 or not updates[0]:
+        raise SystemExit(f"cosim: K3/K3' ran {launches} times for "
+                         f"{updates[0]} updates")
+    if engine_counts["phase"] < len(COSIM_MODES):
+        raise SystemExit(f"cosim: engine counts {engine_counts}")
+    cpu = _cosim_runs("cpu", clients, test_batch,
+                      tree_map(lambda t: t.cpu(), params),
+                      contextlib.nullcontext())
+    out = {}
+    for mode, (res, wall) in card.items():
+        want = COSIM_SYNC[mode]
+        ref, cpu_wall = cpu[mode]
+        for where, got in (("card", res), ("CPU", ref)):
+            syncs = [r["sync_time_s"] for r in got.rounds]
+            if len(syncs) != len(want) or not all(
+                    abs(a - b) <= SYNC_TOL for a, b in zip(syncs, want)):
+                raise SystemExit(f"cosim {mode} on the {where}: syncs "
+                                 f"{syncs} != {list(want)}")
+        syncs = [r["sync_time_s"] for r in res.rounds]
+        for a, b in zip(res.rounds, ref.rounds):
+            if (a["n_arrived"], a.get("staleness")) != (
+                    b["n_arrived"], b.get("staleness")):
+                raise SystemExit(f"cosim {mode} round {a['round']}: "
+                                 f"arrivals differ from the CPU's")
+            if (abs(a["eval_metric"] - b["eval_metric"]) > FL_REF_GAP
+                    or abs(a["mean_loss"] - b["mean_loss"])
+                    > FL_REF_GAP * abs(b["mean_loss"])):
+                raise SystemExit(
+                    f"cosim {mode} round {a['round']}: accuracy "
+                    f"{a['eval_metric']} loss {a['mean_loss']} against the "
+                    f"CPU's {b['eval_metric']} {b['mean_loss']}")
+        ttm = res.time_to_metric(COSIM_TARGET)
+        print(f"  cosim {mode}: syncs {syncs}; acc "
+              f"{_curve(res, 'eval_metric')} (CPU "
+              f"{_curve(ref, 'eval_metric')}); loss "
+              f"{_curve(res, 'mean_loss')} (CPU {_curve(ref, 'mean_loss')});"
+              f" arrived {[r['n_arrived'] for r in res.rounds]}; "
+              f"time_to_metric({COSIM_TARGET}) {ttm!r} (CPU "
+              f"{ref.time_to_metric(COSIM_TARGET)!r}); wall {wall:.2f}s "
+              f"(CPU {cpu_wall:.2f}s)", flush=True)
+        out[mode] = {"syncs": syncs, "time_to_metric": ttm, "wall_s": wall}
+    _line("cosim", time.time() - t0, modes=len(COSIM_MODES),
+          rounds=COSIM_ROUNDS, updates=updates[0], k3_launches=launches[0],
+          k3p_launches=launches[1], phase_launches=engine_counts["phase"],
+          phase_fallbacks=engine_counts["fallbacks"],
+          k1_launches=engine_counts["k1"], k2_launches=engine_counts["k2"],
+          syncs_held="yes", learning_held="yes")
+    return {"quantize_int8": launches[0], "dequantize_int8": launches[1],
+            **engine_counts}, out
+
+
 def _serve_run(cfg, params, prompts, kernels, feed=None):
     """Prefill, then decode: greedy for ``SERVE_NEW - 1`` steps, or the
     tokens of ``feed``. Returns (last-position logits of each step,
@@ -2370,6 +3122,26 @@ def main() -> int:
     phase_entry.update(phase_wide_pons())
     phase_entry["max_abs_err"] = max(phase_entry["max_abs_err"],
                                      phase_entry["wide_pons_max_abs_err"])
+    timeline, by_path = phase_timeline()
+    fig3 = timeline["fig3"]
+    phase_entry.update({
+        "fig3_jit_wall_s": fig3["jit"]["wall_s"],
+        "fig3_jit_ms_by_phase": fig3["jit"]["ms"],
+        "fig3_jit_cycles_by_phase": fig3["jit"]["cycles"],
+        "fig3_jit_us_per_cycle_by_phase": fig3["jit"]["us_per_cycle"],
+        "fig3_jit_steady_ms_by_phase": fig3["jit"]["steady_ms"],
+        "fig3_jit_steady_us_per_cycle_by_phase":
+            fig3["jit"]["steady_us_per_cycle"],
+        "fig3_jit_ctas_by_phase": fig3["jit"]["ctas"],
+        "fig3_jit_host_tables_ms": sum(fig3["jit"]["host_ms"]),
+        "fig3_jit_device_busy": fig3["jit"]["busy"],
+        "fig3_per_cycle_wall_s": fig3["per_cycle"]["wall_s"],
+        "short_timeline_phases_held": timeline["short"]["phases_held"],
+        "timeline_phases_held": timeline["short"]["full_phases_held"]})
+    phase_entry["max_abs_err"] = max(phase_entry["max_abs_err"],
+                                     timeline["short"]["max_abs_err"])
+    cosim, _ = phase_cosim()
+    by_path["cosim-accuracy"] = cosim
     # K3 and K3' run once a leaf of every arrived update of the int8 run
     launches["quantize_int8"] = launches["dequantize_int8"] = \
         phase_fl_fig2a()
@@ -2381,8 +3153,21 @@ def main() -> int:
     # there on the tensor-core kernel alone
     launches["flash_attention"] = olmo["k4"] + rg["k4"]
     launches["rglru_scan"] = rg["k6"]
+    engine_paths = {"traffic_sampler": "k1", "waterfill_grants": "k2",
+                    "ponsim_phase": "phase"}
+    main_path = {"traffic_sampler": "fig2b-16", "waterfill_grants":
+                 "fig2b-16", "ponsim_phase": "fig2b-16-jit"}
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
+        name = entry["name"]
+        if name in engine_paths:
+            entry["launches_by_path"] = {
+                main_path[name]: launches[name],
+                **{path: c[engine_paths[name]]
+                   for path, c in by_path.items()}}
+        if name in ("quantize_int8", "dequantize_int8"):
+            entry["launches_by_path"] = {"fig2a-int8": launches[name],
+                                         "cosim-accuracy": cosim[name]}
         if entry["name"] == "flash_attention":
             entry["launches_tc"] = olmo["k4_tc"] + rg["k4_tc"]
             entry["launches_by_path"] = {"olmo-1b": olmo["k4"],

@@ -144,3 +144,25 @@ def compute_slice(
         demanded_bps=demanded,
         round_index=h,
     )
+
+
+def validate_round_deadline(
+    clients: Sequence[ClientProfile],
+    spec: SliceSpec,
+    t_round: float,
+    t_aggregate: float = 0.0,
+) -> bool:
+    """Whether ``t_round`` covers every client's download, training,
+    upload and the aggregation: each upload ends inside the slice, by
+    ``t_max``, so the test is ``t_max + T_a <= t_round``."""
+    return spec.t_max + t_aggregate <= t_round
+
+
+def min_round_time(
+    clients: Sequence[ClientProfile],
+    capacity_bps: float,
+    t_aggregate: float = 0.0,
+) -> float:
+    """The smallest feasible ``T^round`` for this client set."""
+    spec = compute_slice(clients, 0.0, 0.0, capacity_bps, h=1)
+    return spec.t_max + t_aggregate

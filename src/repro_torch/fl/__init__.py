@@ -1,8 +1,5 @@
-"""Federated-learning substrate: server, clients, aggregation, compression.
-
-The co-simulation (the reference's ``fl/simulation.py``) comes with the
-coupled network timeline.
-"""
+"""Federated-learning substrate: server, clients, aggregation, compression
+and the FL × PON co-simulation (``FLNetworkCoSim``)."""
 from repro_torch.fl.aggregation import (
     FedBuffAggregator,
     fedadam_init,
@@ -26,3 +23,4 @@ from repro_torch.fl.compression import (
 )
 from repro_torch.fl.selection import SelectionConfig, select_clients
 from repro_torch.fl.server import CPSServer, PendingUpdate, RoundLog
+from repro_torch.fl.simulation import CoSimConfig, CoSimResult, FLNetworkCoSim

@@ -1,6 +1,7 @@
-"""PON network substrate on PyTorch: traffic, the batched round engine
-and its sweep facade. Build a :class:`SweepSpec` and run it with
-:func:`simulate` (``device="cuda"`` by default)."""
+"""PON network substrate on PyTorch: traffic, the batched round engine,
+the multi-round timeline and their sweep facade. Build a
+:class:`SweepSpec` (with a :class:`TimelineSchedule` for a timeline) and
+run it with :func:`simulate` (``device="cuda"`` by default)."""
 from repro_torch.net.api import SweepSpec, simulate
 from repro_torch.net.convert import from_reference
 from repro_torch.net.engine import SweepCase, simulate_round_sweep
@@ -10,6 +11,14 @@ from repro_torch.net.multi_pon import (
     pon_bg_rates,
 )
 from repro_torch.net.sim import FLRoundWorkload, PONConfig, RoundResult
+from repro_torch.net.timeline import (
+    DEADLINE_POLICIES,
+    TimelineResult,
+    TimelineRound,
+    TimelineSchedule,
+    simulate_timeline_per_round,
+    simulate_timeline_sweep,
+)
 from repro_torch.net.traffic import (
     PACKET_BITS,
     CounterStream,
@@ -28,6 +37,12 @@ __all__ = [
     "cps_waterfill",
     "pon_bg_rates",
     "simulate_round_sweep",
+    "DEADLINE_POLICIES",
+    "TimelineSchedule",
+    "TimelineRound",
+    "TimelineResult",
+    "simulate_timeline_sweep",
+    "simulate_timeline_per_round",
     "from_reference",
     "PACKET_BITS",
     "CounterStream",

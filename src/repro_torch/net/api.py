@@ -1,15 +1,21 @@
-"""Frozen sweep-spec facade over the round engine.
+"""Frozen sweep-spec facade over the round and timeline engines.
 
-:class:`SweepSpec` carries the cases and every sweep-level knob,
-validates the bundle once and runs through :func:`simulate` on a
-device. Only single-round sweeps are ported: a ``schedule`` (timeline),
-tenant ``jobs`` and a ``collector`` raise ``NotImplementedError`` naming
-the ROADMAP item that adds them. ``backend="jit"`` runs each phase in
-one call (the fused phase kernel on a card).
+:class:`SweepSpec` carries the cases, the optional multi-round
+``schedule`` and every sweep-level knob, validates the bundle once and
+runs through :func:`simulate` on a device: the timeline when the
+spec has a schedule, else the round engine. ``backend="jit"`` runs each
+phase in one call (the fused phase kernel on a card). Tenant ``jobs``,
+fault injection and a ``collector`` raise ``NotImplementedError`` naming
+the ROADMAP item that adds them::
+
+    spec = SweepSpec.single_job(clients, model_bits=25e6,
+                                load=0.6, policy="bs")
+    spec = spec.with_schedule(TimelineSchedule(n_rounds=8))
+    results = simulate(spec)
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
 from repro_torch._device import DEFAULT_DEVICE
@@ -20,28 +26,33 @@ from repro_torch.net.engine import (
     _round_sweep,
     _sweep_topology,
 )
-from repro_torch.net.sim import PONConfig
+from repro_torch.net.sim import FLRoundWorkload, PONConfig
+from repro_torch.net.timeline import TimelineSchedule, _timeline_sweep
 
 __all__ = ["SweepSpec", "simulate"]
 
+_MODES = ("auto", "folded", "sequential")
 _POLICIES = ("fcfs", "bs")
 
 
 @dataclass(frozen=True)
 class SweepSpec:
-    """One immutable single-round sweep: cases + knobs.
+    """One immutable sweep: cases + schedule + knobs.
 
     ``pon`` is the :class:`PONConfig` (``None`` = the defaults, or the
-    config passed to :func:`simulate`). ``ul_deadline_s`` and
-    ``ul_outage_s`` are the round's upload deadline and outage windows
-    (see ``engine._round_sweep``). ``backend`` is ``None``/``"numpy"``
+    config passed to :func:`simulate`). ``schedule`` (a
+    :class:`TimelineSchedule`) makes the spec a multi-round timeline;
+    without it ``ul_deadline_s`` and ``ul_outage_s`` are the round's
+    upload deadline and outage windows (see ``engine._round_sweep``).
+    ``mode`` is the timeline's fold/sequential selector and stays
+    ``"auto"`` for round sweeps. ``backend`` is ``None``/``"numpy"``
     (the per-cycle loop) or ``"jit"`` (each phase in one call).
-    ``schedule`` mirrors the reference's field; only ``None`` runs.
     """
 
     cases: Tuple[SweepCase, ...] = field(default_factory=tuple)
     pon: Optional[PONConfig] = None
-    schedule: Optional[object] = None
+    schedule: Optional[TimelineSchedule] = None
+    mode: str = "auto"
     t_round_hint: float = 10.0
     max_t: float = 600.0
     ul_deadline_s: Optional[object] = None
@@ -55,10 +66,6 @@ class SweepSpec:
         """Check the whole bundle; returns ``self`` for chaining."""
         if not self.cases:
             raise ValueError("SweepSpec needs at least one case")
-        if self.schedule is not None:
-            raise _not_ported("schedule")
-        if self.backend not in _BACKENDS:
-            raise ValueError(f"unknown backend {self.backend!r}")
         for b, case in enumerate(self.cases):
             if not isinstance(case, SweepCase):
                 raise TypeError(
@@ -76,12 +83,65 @@ class SweepSpec:
         if self.pon is not None and not isinstance(self.pon, PONConfig):
             raise TypeError("pon must be a repro_torch.net.PONConfig or "
                             "None")
+        if self.mode not in _MODES:
+            raise ValueError(
+                f"unknown mode {self.mode!r}; have {_MODES}"
+            )
+        if self.backend not in _BACKENDS:
+            raise ValueError(
+                f"unknown backend {self.backend!r}; have {_BACKENDS}"
+            )
+        if self.schedule is not None:
+            if not isinstance(self.schedule, TimelineSchedule):
+                raise TypeError(
+                    "schedule must be a repro_torch.net.TimelineSchedule"
+                )
+            if (self.ul_deadline_s is not None
+                    or self.ul_outage_s is not None):
+                raise ValueError(
+                    "timeline specs take deadlines and faults from "
+                    "the schedule; ul_deadline_s/ul_outage_s are "
+                    "single-round sweep knobs"
+                )
+        elif self.mode != "auto":
+            raise ValueError(
+                "mode is a timeline knob; a round sweep (no schedule) "
+                "has no folded/sequential split"
+            )
         return self
+
+    @classmethod
+    def single_job(cls, clients, model_bits: float, *, load: float,
+                   policy: str = "bs", seed: int = 0,
+                   t_aggregate: float = 0.0, topology=None,
+                   pon: Optional[PONConfig] = None,
+                   **kwargs) -> "SweepSpec":
+        """A one-case, single-tenant spec from bare FL inputs."""
+        wl = FLRoundWorkload(
+            clients=list(clients), model_bits=float(model_bits),
+            t_aggregate=float(t_aggregate),
+        )
+        case = SweepCase(workload=wl, load=float(load), policy=policy,
+                         seed=int(seed), topology=topology)
+        return cls(cases=(case,), pon=pon, **kwargs)
+
+    def with_schedule(self, schedule: TimelineSchedule) -> "SweepSpec":
+        """The same sweep as a multi-round timeline."""
+        return replace(self, schedule=schedule)
+
+    def with_faults(self, faults, retry=None) -> "SweepSpec":
+        """Fault injection on the spec's schedule (not ported yet)."""
+        raise _not_ported("faults")
+
+    def with_jobs(self, jobs, fairness: str = "maxmin") -> "SweepSpec":
+        """Multi-tenant cases (not ported yet)."""
+        raise _not_ported("jobs")
 
 
 def simulate(spec: SweepSpec, cfg: Optional[PONConfig] = None,
              collector=None, *, device=DEFAULT_DEVICE):
-    """Run a validated :class:`SweepSpec` on ``device``; returns
+    """Run a validated :class:`SweepSpec` on ``device``: a
+    ``List[TimelineResult]`` when the spec has a ``schedule``, else a
     ``List[RoundResult]``. ``cfg`` overrides ``spec.pon``; with neither,
     the default :class:`PONConfig` runs."""
     if not isinstance(spec, SweepSpec):
@@ -94,8 +154,15 @@ def simulate(spec: SweepSpec, cfg: Optional[PONConfig] = None,
     pon = cfg if cfg is not None else (
         spec.pon if spec.pon is not None else PONConfig()
     )
+    cases = list(spec.cases)
+    if spec.schedule is not None:
+        return _timeline_sweep(
+            pon, cases, spec.schedule, mode=spec.mode,
+            t_round_hint=spec.t_round_hint, max_t=spec.max_t,
+            backend=spec.backend, device=device,
+        )
     return _round_sweep(
-        pon, list(spec.cases), t_round_hint=spec.t_round_hint,
-        max_t=spec.max_t, ul_deadline_s=spec.ul_deadline_s,
-        ul_outage_s=spec.ul_outage_s, backend=spec.backend, device=device,
+        pon, cases, t_round_hint=spec.t_round_hint, max_t=spec.max_t,
+        ul_deadline_s=spec.ul_deadline_s, ul_outage_s=spec.ul_outage_s,
+        backend=spec.backend, device=device,
     )

@@ -2,8 +2,9 @@
 
 :func:`from_reference` reads attributes only: it duck-types the
 reference's ``PONConfig``, ``ClientProfile``, ``FLRoundWorkload``,
-``MultiPonTopology`` and ``SweepCase`` by class name and imports nothing
-of that package, so the same inputs can feed both engines.
+``MultiPonTopology``, ``SweepCase`` and ``TimelineSchedule`` by class
+name and imports nothing of that package, so the same inputs can feed
+both engines. Arrays are copied.
 """
 from __future__ import annotations
 
@@ -15,20 +16,24 @@ from repro_torch.core.slicing import ClientProfile
 from repro_torch.net.engine import SweepCase
 from repro_torch.net.multi_pon import MultiPonTopology
 from repro_torch.net.sim import FLRoundWorkload, PONConfig
+from repro_torch.net.timeline import TimelineSchedule
 
 _TYPES = {cls.__name__: cls for cls in (
     PONConfig, ClientProfile, FLRoundWorkload, MultiPonTopology, SweepCase,
+    TimelineSchedule,
 )}
 
 
 def from_reference(obj):
-    """The port's counterpart of ``obj``: one of the five types above,
-    or a list/tuple of them; ``None``, numbers, strings, frozensets and
-    numpy arrays pass through."""
+    """The port's counterpart of ``obj``: one of the six types above,
+    or a list/tuple of them; ``None``, numbers, strings and frozensets
+    pass through, numpy arrays as copies."""
     if isinstance(obj, (list, tuple)):
         return type(obj)(from_reference(o) for o in obj)
+    if isinstance(obj, np.ndarray):
+        return obj.copy()
     if obj is None or isinstance(
-            obj, (int, float, str, frozenset, np.ndarray, np.generic)):
+            obj, (int, float, str, frozenset, np.generic)):
         return obj
     cls = _TYPES.get(type(obj).__name__)
     if cls is None:

@@ -33,9 +33,10 @@ loop on the same device, and :data:`phase_fallbacks` counts the
 re-runs.
 
 Public API: ``SweepCase`` + ``simulate_round_sweep``; prefer building a
-``repro_torch.net.SweepSpec`` and calling ``simulate(spec)``. Multi-tenant
-jobs, ``collector`` instrumentation and timelines are not ported yet and
-raise.
+``repro_torch.net.SweepSpec`` and calling ``simulate(spec)``. Multi-round
+timelines run over this engine (``repro_torch.net.timeline``).
+Multi-tenant jobs, fault injection and ``collector`` instrumentation are
+not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -76,7 +77,8 @@ _NOT_PORTED = {
     "jobs": "multi-tenant jobs (net/jobs.py) are ROADMAP Queue 1 item 8",
     "collector": "collector instrumentation (obs/) is ROADMAP Queue 1 "
                  "item 8",
-    "schedule": "timelines (net/timeline.py) are ROADMAP Queue 1 item 7",
+    "faults": "fault injection and retries (faults/) are ROADMAP Queue 1 "
+              "item 8",
 }
 _BACKENDS = (None, "numpy", "jit")
 
@@ -1151,7 +1153,10 @@ def simulate_round_sweep(cfg, cases=None,
         spec, pon = cases, cfg
     if spec is not None:
         if spec.schedule is not None:
-            raise _not_ported("schedule")
+            raise ValueError(
+                "spec carries a schedule; call simulate(spec) or "
+                "simulate_timeline_sweep(spec) for timelines"
+            )
         return simulate(spec, pon, collector=collector, device=device)
     warnings.warn(
         "simulate_round_sweep(cfg, cases, **kwargs) is deprecated; "

@@ -292,6 +292,37 @@ def test_jit_sweep_on_card(cuda):
         _hold_phase_to_plain(cuda, args, kwargs)
 
 
+def test_timeline_on_card(cuda):
+    """A 16-ONU, 3-round defer timeline (``chip_smoke.op_point_spec``'s
+    short one: FCFS and BS, deadline 0.35 s) through ``backend="jit"``:
+    every round and client within ``ROUND_RTOL`` of the per-cycle loop on
+    the card, no phase re-run on the per-cycle loop, and each round's
+    phases launched once each (fcfs download, fcfs upload, bs upload)
+    with no standalone K1/K2 launch."""
+    import dataclasses
+
+    from repro_torch.net import engine
+
+    cs = _chip_smoke()
+    spec = cs.op_point_spec("defer", "jit", short=True)
+    k1_before, k2_before = k1.launches, k2.launches
+    phases, fallbacks = k2.phase_launches, engine.phase_fallbacks
+    jit = simulate(spec, device=cuda)
+    assert engine.phase_fallbacks == fallbacks
+    assert k2.phase_launches - phases == 3 * cs.SHORT_ROUNDS
+    assert (k1.launches, k2.launches) == (k1_before, k2_before)
+    loop = simulate(dataclasses.replace(spec, backend=None), device=cuda)
+    assert k1.launches > k1_before and k2.launches > k2_before
+    deferred = 0
+    for a, b in zip(jit, loop):
+        for x, y in zip(a.rounds, b.rounds):
+            assert abs(x.sync_time - y.sync_time) <= 1e-9
+            assert x.arrived == y.arrived and x.staleness == y.staleness
+            cs._hold_round(f"round {x.round_index}", x.result, y.result)
+            deferred += len(x.deferred)
+    assert deferred
+
+
 def test_jit_full_width_4096_round_on_card(cuda):
     """The 4096-ONU round through the phase kernel (K2's sort at 4096
     queues inside it): the numpy engine's sync."""

@@ -195,9 +195,13 @@ def test_not_ported_features_raise():
     with pytest.raises(NotImplementedError, match="collector"):
         T.simulate(T.SweepSpec(cases=(case,), pon=cfg), collector=object(),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="timeline"):
+    # timelines are ported: a schedule that is not a TimelineSchedule is
+    # refused as the reference refuses it; fault injection is not ported
+    with pytest.raises(TypeError, match="TimelineSchedule"):
         T.simulate(T.SweepSpec(cases=(case,), pon=cfg, schedule=object()),
                    device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        T.TimelineSchedule(n_rounds=1, faults=object())
     # backend="jit" is ported; like the reference it takes no injected
     # arrival matrices
     injected = T.SweepCase(workload=wl, load=0.3, policy="fcfs",
