@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-The port has eight paths, each driven through its user entry point with
+The port has ten paths, each driven through its user entry point with
 the kernel counts set to 0 just before and read just after:
 
 * the Fig. 2b round engine (``repro_torch.net.simulate``), through K1
@@ -26,7 +26,14 @@ the kernel counts set to 0 just before and read just after:
   folded, sequential and async rounds), through the phase kernel with
   ``backend="jit"`` and through K1 and K2 on the per-cycle loop;
 * the FL × PON co-simulation (``repro_torch.fl.FLNetworkCoSim``), whose
-  int8 updates run through K3 and K3'.
+  int8 updates run through K3 and K3';
+* fault injection on the timeline (``TimelineSchedule.faults``), through
+  the phase kernel with ``backend="jit"`` (outage windows as its outage
+  rows), and through K1 and K2 where a phase falls back to the per-cycle
+  loop;
+* multi-tenant jobs (``SweepCase.jobs``), through K1 and K2 on the
+  per-cycle loop, which a multi-job sweep runs with ``backend="jit"``
+  too.
 
 Phases, each printing its own line with its seconds; any failure exits
 nonzero:
@@ -120,10 +127,12 @@ nonzero:
    through ``backend="jit"``: its sync within ``SYNC_TOL`` of the
    per-cycle loop's on the same card and every client's times and
    left-over bits within ``ROUND_RTOL`` of the loop's; its two phases,
-   recorded, each held in full to the plain version on CPU copies
-   (``done_t`` bit for bit, ``rem`` within ``PHASE_RTOL``, the same exact
-   flag); prints the wall, each phase's device ms and µs a cycle and the
-   device's busy share. Nothing is cut;
+   recorded, each held in full, at its full widths, to the plain version
+   on CPU copies (``done_t`` bit for bit, ``rem`` within ``PHASE_RTOL``,
+   the same exact flag; the plain runs in two worker processes that go on
+   beside the later phases, checked in ``wide_pons_hold`` once the last
+   phase is done); prints the wall, each phase's device ms and µs a cycle
+   and the device's busy share. Nothing is cut;
 7b. ``timeline``: (a) ``benchmarks/timeline.py``'s Fig. 3 grid (128
    ONUs, 10 Gb/s, 26.416 Mbit updates, {fcfs, bs} x load {0.3, 0.8},
    seed 0, 24 rounds of elastic membership 0.8, membership seed 7)
@@ -157,8 +166,12 @@ nonzero:
    co-simulation (8 clients x 64 samples, LEAF CNN, lr 0.04, batch 16,
    2 local epochs; BS, load 0.8, model 2e6 bits, uploads 3e8 bits, 8
    ONUs at 1 Gb/s; int8 updates) on the card for 4 rounds in each of
-   sync, defer, drop and partial (deadline 3.5 s) and async (buffer 4),
-   the network through ``backend="jit"`` (the run's template ``spec``):
+   sync, defer, drop and partial (deadline 3.5 s), async (buffer 4) and
+   the benchmark's faulty modes (``benchmarks/faults.py::accuracy_part``:
+   dropout 0.2, loss 0.1, outage 0.5 under a 3.5 s drop deadline, with and
+   without quorum 0.5; arrivals, failed and lost clients a round held to
+   ``COSIM_FAULT_COUNTS``), the network through ``backend="jit"`` (the
+   run's template ``spec``):
    every round's sync within ``SYNC_TOL`` of ``COSIM_SYNC``, K3 and K3'
    8 launches an update; then the same on the CPU from the same initial
    weights (its network on the per-cycle loop): syncs within
@@ -166,6 +179,24 @@ nonzero:
    every round's accuracy
    within ``FL_REF_GAP`` and its mean loss within ``FL_REF_GAP`` of
    itself. Prints ``time_to_metric`` for each mode;
+7e. ``faults``: ``benchmarks/faults.py``'s grid (the op point, 6 rounds,
+   dropout {0, 0.2} x outage {0, 0.5}, modes sync (deadline 4 s, defer),
+   async (buffer 6) and quorum (drop, 0.75)) through ``backend="jit"``,
+   every round's sync, failed clients, losses, retry rounds, give-ups and
+   extensions held to ``FAULT_PINS``; every phase of the three dropout
+   0.2 x outage 0.5 cells held to the plain version; the all-zero
+   schedule bit for bit ``faults=None``; one cell on the per-cycle loop
+   held to jit client by client. A phase whose background outgrows the
+   phase kernel's 128-cycle ring (a 0.5 s outage at load 0.8) re-runs on
+   the per-cycle loop, as the JAX engine's does: each cell must re-run
+   exactly ``FAULT_FALLBACKS`` such upload phases (none without
+   outages), and the line counts those ``phase_fallbacks``;
+7f. ``jobs``: ``benchmarks/jobs.py``'s grid (one BS round at 2048 ONUs,
+   load 0.8, jobs {1, 2, 4, 8} x fairness {maxmin, weighted}), an FCFS
+   case of 4 jobs under deadline fairness, a 4-PON case under a binding
+   CPS and a cadenced 4-round timeline, on the per-cycle loop and with
+   ``backend="jit"``: every sync and job sync held to ``JOBS_PINS``, the
+   two runs equal, K2 launched by the FCFS case;
 7d. ``fl_fig2a``: ``benchmarks/fig2a_accuracy.py``'s settings (16
    clients x 64 samples, lr 0.04, batch 16, 2 local epochs, data seed 0,
    server seed 1, 10 rounds, fractions {0.25, 0.5, 1.0}, 512 test images)
@@ -989,11 +1020,11 @@ def _check_phase(what: str, mode: str, got, want) -> float:
     return float((got_r - want_r).abs().max())
 
 
-def _plain_phase(spec, tens):
-    """``run_phase_ref`` in a worker process of :func:`_hold_phases`."""
+def _plain_phase(spec, tens, threads: int = 1):
+    """``run_phase_ref`` in a worker process, on ``threads`` threads."""
     from repro_torch.kernels.ponsim import ref
 
-    torch.set_num_threads(1)
+    torch.set_num_threads(threads)
     return ref.run_phase_ref(spec, tens)
 
 
@@ -1903,15 +1934,59 @@ def _hold_round(what: str, got, want) -> None:
 ROUND_RTOL = 1e-6     # a client's time or bits, jit against the per-cycle loop
 
 
-def phase_wide_pons():
+class _WideHold:
+    """The wide round's recorded phases held in full, at their full
+    widths, to the plain version on CPU copies (as :func:`_hold_phase`
+    holds one): the kernel runs here at once, the plain runs (256-328 s of
+    CPU, the smoke's longest step) in one worker process a phase, which go
+    on beside the later phases until :meth:`finish`. The workers are
+    daemons: a smoke that fails before then stops them as it exits."""
+
+    def __init__(self, calls):
+        import multiprocessing
+
+        from repro_torch.kernels.ponsim import kernel, ops
+
+        self.t0 = time.time()
+        self.cards, hosts = [], []
+        for args, kwargs in calls:
+            sc, tc = ops.phase_inputs(*args, **kwargs, use_k2=True,
+                                      device="cuda")
+            self.cards.append((sc.mode, kernel.run_phase_cuda(sc, tc)))
+            hosts.append(ops.phase_inputs(*args, **kwargs, use_k2=True,
+                                          device="cpu"))
+        torch.cuda.synchronize()
+        threads = max(1, (len(os.sched_getaffinity(0)) - 2) // len(hosts))
+        self.pool = multiprocessing.get_context("spawn").Pool(len(hosts))
+        self.wants = [self.pool.apply_async(_plain_phase, (sh, th, threads))
+                      for sh, th in hosts]
+
+    def finish(self) -> dict:
+        """Waits for the plain runs and holds the kernel's phases to them;
+        prints the ``wide_pons_hold`` line."""
+        t_wait = time.time()
+        wants = [w.get() for w in self.wants]
+        self.pool.close()
+        self.pool.join()
+        err = max(_check_phase("wide_pons", mode, got, want)
+                  for (mode, got), want in zip(self.cards, wants))
+        hold_s = time.time() - self.t0
+        _line("wide_pons_hold", time.time() - t_wait,
+              phases_held=len(wants), done_t_bitwise="yes",
+              rem_max_abs_err=f"{err:.3g}", hold_s=f"{hold_s:.1f}")
+        return {"wide_pons_max_abs_err": err, "wide_pons_hold_s": hold_s}
+
+
+def phase_wide_pons(hold_later: bool = False):
     """One FCFS load-0.8 round on 100 PONs x 1,024 ONUs in one case
     through ``backend="jit"`` (each phase one launch of one CTA, its
     state past shared memory in global scratch), held to the per-cycle
     loop on the same card client by client (:func:`_hold_round`); each of
     its two phases then held in full, at its full widths, to the plain
-    version on CPU copies (:func:`_hold_phase`). Prints the wall, each
-    phase's device ms and µs a cycle, and the device's busy share of the
-    wall."""
+    version on CPU copies (:class:`_WideHold`; with ``hold_later`` its
+    plain runs go on in the background and the hold is returned to be
+    finished later). Prints the wall, each phase's device ms and µs a
+    cycle, and the device's busy share of the wall."""
     from repro_torch.kernels.ponsim import kernel
     from repro_torch.net import engine, simulate
 
@@ -1949,23 +2024,19 @@ def phase_wide_pons():
     _hold_jit_counts(counts, 2, "wide_pons")
     ms = [s.elapsed_time(e) for s, e, _, _ in timed]
     cycles = [int(k.max()) for _, _, k, _ in timed]
+    hold = _WideHold(calls)
     t_run = time.time()
     loop = simulate(wide_pons_spec(), device="cuda")[0]
     torch.cuda.synchronize()
     loop_wall = time.time() - t_run
     _hold_round("wide_pons jit against the per-cycle loop", jit, loop)
-    t_hold = time.time()
-    err = max(_hold_phase("wide_pons", args, kwargs)[2]
-              for args, kwargs in calls)
-    hold_s = time.time() - t_hold
     out = {"wide_pons_wall_s": wall, "wide_pons_ms_by_phase": ms,
            "wide_pons_cycles_by_phase": cycles,
            "wide_pons_us_per_cycle_by_phase": [
                m * 1e3 / c for m, c in zip(ms, cycles)],
            "wide_pons_device_busy": sum(ms) / (wall * 1e3),
            "wide_pons_sync": jit.sync_time,
-           "wide_pons_per_cycle_wall_s": loop_wall,
-           "wide_pons_max_abs_err": err}
+           "wide_pons_per_cycle_wall_s": loop_wall}
     _line("wide_pons", time.time() - t0, pons=WIDE_PONS, onus=WIDE_ONUS,
           sync=repr(jit.sync_time), loop_sync=repr(loop.sync_time),
           wall_s=f"{wall:.3f}", loop_wall_s=f"{loop_wall:.3f}",
@@ -1975,9 +2046,10 @@ def phase_wide_pons():
                                 out["wide_pons_us_per_cycle_by_phase"]),
           device_busy=f"{out['wide_pons_device_busy']:.3f}",
           phase_launches=counts["phase"], fallbacks=counts["fallbacks"],
-          clients_match="yes", phases_held=len(calls),
-          done_t_bitwise="yes", rem_max_abs_err=f"{err:.3g}",
-          hold_s=f"{hold_s:.1f}")
+          clients_match="yes", phases_to_hold=len(calls))
+    if hold_later:
+        return out, hold
+    out.update(hold.finish())
     return out
 
 
@@ -2014,6 +2086,8 @@ COSIM_MODES = {
     "drop": {"deadline_s": 3.5, "deadline_policy": "drop"},
     "partial": {"deadline_s": 3.5, "deadline_policy": "partial"},
     "async": {"mode": "async", "async_buffer": 4},
+    "faulty": {"deadline_s": 3.5, "deadline_policy": "drop"},
+    "faulty_quorum": {"deadline_s": 3.5, "deadline_policy": "drop"},
 }
 
 # the JAX package's values of these runs on the CPU (its numpy engine), as
@@ -2144,7 +2218,377 @@ COSIM_SYNC = {
         3.2920999999997487, 1.3030999999999673, 1.305099999999967,
         1.305099999999967,
     ),
+    "faulty": (3.5, 3.5, 3.5, 3.5),
+    "faulty_quorum": (7.0, 5.4501000000001545, 3.5, 3.5),
 }
+# the faulty co-simulation modes' (arrived, failed, lost) clients a round
+COSIM_FAULT_COUNTS = {
+    "faulty": ((2, 1, 0), (3, 2, 0), (5, 0, 0), (4, 1, 0)),
+    "faulty_quorum": ((5, 1, 0), (6, 2, 0), (5, 0, 0), (4, 1, 0)),
+}
+# fault_outcomes() of each cell of fault_cells() (tests/
+# test_torch_fault_pins.py recomputes them with the JAX package)
+FAULT_PINS = {'sync_d0.0_o0.0': ((4.0, (), (), (), (), 0),
+                    (3.850099999999687, (), (), (), (), 0),
+                    (4.0, (), (), (), (), 0),
+                    (3.842099999999688, (), (), (), (), 0),
+                    (4.0, (), (), (), (), 0),
+                    (3.853099999999687, (), (), (), (), 0)),
+ 'async_d0.0_o0.0': ((3.9090999999996807, (), (), (), (), 0),
+                     (0.13010000000000008, (), (), (), (), 0),
+                     (0.11110000000000009, (), (), (), (), 0),
+                     (0.12610000000000007, (), (), (), (), 0),
+                     (0.11510000000000009, (), (), (), (), 0),
+                     (0.10410000000000008, (), (), (), (), 0)),
+ 'quorum_d0.0_o0.0': ((5.058100000000024, (), (), (), (), 1),
+                      (5.045100000000019, (), (), (), (), 1),
+                      (5.072100000000028, (), (), (), (), 1),
+                      (5.044100000000019, (), (), (), (), 1),
+                      (5.073100000000029, (), (), (), (), 1),
+                      (5.049100000000021, (), (), (), (), 1)),
+ 'sync_d0.0_o0.5': ((4.0, (), (), (), (), 0),
+                    (0.26710000000000017, (), (), (), (), 0),
+                    (4.0, (), (), (), (), 0),
+                    (4.0, (), (), (), (), 0),
+                    (4.0, (), (), (), (), 0),
+                    (4.0, (), (), (), (), 0)),
+ 'async_d0.0_o0.5': ((5.161100000000058, (), (), (), (), 0),
+                     (0.12810000000000007, (), (), (), (), 0),
+                     (0.11110000000000009, (), (), (), (), 0),
+                     (0.12610000000000007, (), (), (), (), 0),
+                     (0.11510000000000009, (), (), (), (), 0),
+                     (0.10410000000000008, (), (), (), (), 0)),
+ 'quorum_d0.0_o0.5': ((5.289100000000101, (), (), (), (), 1),
+                      (5.045100000000019, (), (), (), (), 1),
+                      (5.072100000000028, (), (), (), (), 1),
+                      (5.812100000000275, (), (), (), (), 1),
+                      (5.073100000000029, (), (), (), (), 1),
+                      (5.3901000000001345, (), (), (), (), 1)),
+ 'sync_d0.2_o0.0': ((4.0,
+                     ((4, 8370800.325779244),
+                      (5, 0.0),
+                      (8, 1407600.2954188734)),
+                     (),
+                     ((4, 1), (5, 1), (8, 1)),
+                     (),
+                     0),
+                    (3.850099999999687,
+                     ((10, 24431894.32673715),),
+                     (),
+                     ((10, 2),),
+                     (),
+                     0),
+                    (4.0,
+                     ((0, 0.0),
+                      (8, 14567954.10994254),
+                      (9, 5551688.35969083)),
+                     (),
+                     ((0, 3), (8, 3), (9, 3)),
+                     (),
+                     0),
+                    (3.842099999999688,
+                     ((6, 2000739.2139937729),),
+                     (),
+                     ((6, 4),),
+                     (),
+                     0),
+                    (4.0,
+                     ((4, 6480049.086054787),
+                      (8, 23440153.384255245),
+                      (11, 0.0)),
+                     (),
+                     ((4, 5), (8, 5), (11, 5)),
+                     (),
+                     0),
+                    (4.0, ((3, 5108235.556380823),), (), ((3, 6),), (), 0)),
+ 'async_d0.2_o0.0': ((4.232099999999748,
+                      ((4, 8370800.325779244),
+                       (5, 0.0),
+                       (8, 1407600.2954188734)),
+                      (),
+                      ((4, 1), (5, 1), (8, 1)),
+                      (),
+                      0),
+                     (0.13010000000000008,
+                      ((10, 0.0),),
+                      (),
+                      ((10, 2),),
+                      (),
+                      0),
+                     (4.259099999999757,
+                      ((0, 15616846.97411023),
+                       (8, 14567954.10994254),
+                       (9, 5551688.35969083)),
+                      (),
+                      ((0, 3), (8, 3), (9, 3)),
+                      (),
+                      0),
+                     (0.12610000000000007, ((6, 0.0),), (), ((6, 4),), (), 0),
+                     (2.964099999999785,
+                      ((4, 6480049.086054787),
+                       (8, 23440153.384255245),
+                       (11, 0.0)),
+                      (),
+                      ((4, 5), (8, 5), (11, 5)),
+                      (),
+                      0),
+                     (0.10410000000000008,
+                      ((3, 0.0),),
+                      (),
+                      ((3, 6),),
+                      (),
+                      0)),
+ 'quorum_d0.2_o0.0': ((5.049100000000021,
+                       ((4, 8370800.325779244),
+                        (5, 2602602.047631517),
+                        (8, 1407600.2954188734)),
+                       (),
+                       ((4, 1), (5, 1), (8, 1)),
+                       (),
+                       1),
+                      (4.9290999999999805,
+                       ((10, 24431894.32673715),),
+                       (),
+                       ((10, 2),),
+                       (),
+                       1),
+                      (5.07610000000003,
+                       ((0, 15616846.97411023),
+                        (8, 14567954.10994254),
+                        (9, 5551688.35969083)),
+                       (),
+                       ((0, 3), (8, 3), (9, 3)),
+                       (),
+                       1),
+                      (5.021100000000011,
+                       ((6, 2000739.2139937729),),
+                       (),
+                       ((6, 4),),
+                       (),
+                       1),
+                      (5.073100000000029,
+                       ((4, 6480049.086054787),
+                        (8, 23440153.384255245),
+                        (11, 10977771.06876485)),
+                       (),
+                       ((4, 5), (8, 5), (11, 5)),
+                       (),
+                       1),
+                      (5.031100000000015,
+                       ((3, 5108235.556380823),),
+                       (),
+                       ((3, 6),),
+                       (),
+                       1)),
+ 'sync_d0.2_o0.5': ((4.0,
+                     ((4, 0.0), (5, 0.0), (8, 0.0)),
+                     (),
+                     ((4, 1), (5, 1), (8, 1)),
+                     (),
+                     0),
+                    (0.26510000000000017,
+                     ((10, 24431894.32673715),),
+                     (),
+                     ((10, 2),),
+                     (),
+                     0),
+                    (4.0,
+                     ((0, 0.0),
+                      (8, 14567954.10994254),
+                      (9, 5551688.35969083)),
+                     (),
+                     ((0, 3), (8, 3), (9, 3)),
+                     (),
+                     0),
+                    (4.0, ((6, 2000739.2139937729),), (), ((6, 4),), (), 0),
+                    (4.0,
+                     ((4, 6480049.086054787),
+                      (8, 23440153.384255245),
+                      (11, 0.0)),
+                     (),
+                     ((4, 5), (8, 5), (11, 5)),
+                     (),
+                     0),
+                    (4.0, ((3, 0.0),), (), ((3, 6),), (), 0)),
+ 'async_d0.2_o0.5': ((5.201100000000071,
+                      ((4, 8370800.325779244),
+                       (5, 0.0),
+                       (8, 1407600.2954188734)),
+                      (),
+                      ((4, 1), (5, 1), (8, 1)),
+                      (),
+                      0),
+                     (0.12810000000000007,
+                      ((10, 0.0),),
+                      (),
+                      ((10, 2),),
+                      (),
+                      0),
+                     (4.259099999999757,
+                      ((0, 15616846.97411023),
+                       (8, 14567954.10994254),
+                       (9, 5551688.35969083)),
+                      (),
+                      ((0, 3), (8, 3), (9, 3)),
+                      (),
+                      0),
+                     (0.12610000000000007, ((6, 0.0),), (), ((6, 4),), (), 0),
+                     (2.964099999999785,
+                      ((4, 6480049.086054787),
+                       (8, 23440153.384255245),
+                       (11, 0.0)),
+                      (),
+                      ((4, 5), (8, 5), (11, 5)),
+                      (),
+                      0),
+                     (0.10410000000000008,
+                      ((3, 0.0),),
+                      (),
+                      ((3, 6),),
+                      (),
+                      0)),
+ 'quorum_d0.2_o0.5': ((5.25610000000009,
+                       ((4, 8370800.325779244),
+                        (5, 2602602.047631517),
+                        (8, 1407600.2954188734)),
+                       (),
+                       ((4, 1), (5, 1), (8, 1)),
+                       (),
+                       1),
+                      (4.9290999999999805,
+                       ((10, 24431894.32673715),),
+                       (),
+                       ((10, 2),),
+                       (),
+                       1),
+                      (5.07610000000003,
+                       ((0, 15616846.97411023),
+                        (8, 14567954.10994254),
+                        (9, 5551688.35969083)),
+                       (),
+                       ((0, 3), (8, 3), (9, 3)),
+                       (),
+                       1),
+                      (5.773100000000262,
+                       ((6, 2000739.2139937729),),
+                       (),
+                       ((6, 4),),
+                       (),
+                       1),
+                      (5.073100000000029,
+                       ((4, 6480049.086054787),
+                        (8, 23440153.384255245),
+                        (11, 10977771.06876485)),
+                       (),
+                       ((4, 5), (8, 5), (11, 5)),
+                       (),
+                       1),
+                      (5.333100000000115,
+                       ((3, 5108235.556380823),),
+                       (),
+                       ((3, 6),),
+                       (),
+                       1))}
+# job_outcomes() of each run of jobs_specs() (tests/test_torch_jobs.py
+# recomputes them with the JAX package)
+JOBS_PINS = {'maxmin_j1': ((4.909099999999974, ((0, 4.909099999999974),)),),
+ 'maxmin_j2': ((4.909099999999974,
+                ((0, 4.909099999999974), (1, 4.711099999999908))),),
+ 'maxmin_j4': ((4.909099999999974,
+                ((0, 4.909099999999974),
+                 (1, 4.711099999999908),
+                 (2, 4.886099999999966),
+                 (3, 4.874099999999962))),),
+ 'maxmin_j8': ((4.909099999999974,
+                ((0, 4.909099999999974),
+                 (1, 4.711099999999908),
+                 (2, 4.886099999999966),
+                 (3, 4.874099999999962),
+                 (4, 3.6830999999997056),
+                 (5, 4.334099999999782),
+                 (6, 4.152099999999721),
+                 (7, 4.064099999999692))),),
+ 'weighted_j1': ((4.909099999999974, ((0, 4.909099999999974),)),),
+ 'weighted_j2': ((4.909099999999974,
+                  ((0, 4.909099999999974), (1, 4.711099999999908))),),
+ 'weighted_j4': ((4.909099999999974,
+                  ((0, 4.909099999999974),
+                   (1, 4.711099999999908),
+                   (2, 4.886099999999966),
+                   (3, 4.874099999999962))),),
+ 'weighted_j8': ((4.909099999999974,
+                  ((0, 4.909099999999974),
+                   (1, 4.711099999999908),
+                   (2, 4.886099999999966),
+                   (3, 4.874099999999962),
+                   (4, 3.6830999999997056),
+                   (5, 4.334099999999782),
+                   (6, 4.152099999999721),
+                   (7, 4.064099999999692))),),
+ 'fcfs_deadline_j4': ((5.270100000000094,
+                       ((0, 5.186100000000066),
+                        (1, 4.765099999999926),
+                        (2, 5.009100000000007),
+                        (3, 5.270100000000094))),),
+ 'cps4_weighted_j4': ((4.9140999999999755,
+                       ((0, 4.9140999999999755),
+                        (1, 4.714099999999909),
+                        (2, 4.889099999999967),
+                        (3, 4.877099999999963))),),
+ 'timeline_maxmin_j4': ((4.909099999999974,
+                         ((0, 4.909099999999974), (1, 4.711099999999908))),
+                        (4.909099999999974,
+                         ((0, 4.909099999999974), (2, 4.886099999999966))),
+                        (4.909099999999974,
+                         ((0, 4.909099999999974), (1, 4.711099999999908))),
+                        (4.909099999999974,
+                         ((0, 4.909099999999974),
+                          (2, 4.886099999999966),
+                          (3, 4.874099999999962))))}
+
+# benchmarks/faults.py's grid: the op point (OP_CLIENTS clients, FCFS,
+# load 0.8, seed 1, 128 ONUs at 10 Gb/s) for FAULT_ROUNDS rounds under
+# dropout x outage rates (no loss), in each aggregation mode; a cell with
+# no fault runs faults=None, as the benchmark does
+FAULT_ROUNDS, FAULT_SEED = 6, 3
+FAULT_DROPOUTS, FAULT_OUTAGES = (0.0, 0.2), (0.0, 0.5)
+FAULT_OUTAGE_S, FAULT_OUTAGE_START_MAX_S = 0.5, 2.0
+FAULT_MODES = {"sync": {"deadline_s": 4.0},
+               "async": {"buffer_k": 6},
+               "quorum": {"deadline_s": 4.0, "deadline_policy": "drop",
+                          "quorum_frac": 0.75}}
+# phases a cell with 0.5 s outages re-runs on the per-cycle loop (none
+# without outages): its upload phases whose outage outgrows the phase
+# kernel's HISTORY_CYCLES-cycle background ring (the JAX program's, which
+# the JAX engine re-runs the same way); in the d0.2 o0.5 cells every
+# phase's exact flag is also held to the plain version's
+FAULT_FALLBACKS = {"sync": 3, "async": 5, "quorum": 8}
+FAULT_LOOP_CELL = ("sync", 0.2, 0.5)   # held on the per-cycle loop too,
+FAULT_LOOP_ROUNDS = 3                  # over its first rounds
+# accuracy_part's faulty co-simulation modes (COSIM_MODES' run arguments)
+COSIM_FAULTS = {"seed": 3, "dropout_rate": 0.2, "loss_rate": 0.1,
+                "outage_rate": 0.5, "outage_duration_s": 0.5,
+                "outage_start_max_s": 2.0}
+COSIM_FAULTY = {"faulty": None, "faulty_quorum": 0.5}   # quorum_frac
+# FL_REF_GAP's loss half is not held in the faulty modes: their card runs'
+# round losses differ from the CPU's by up to 5.4% on cuDNN's default
+# (atomic, run to run different) algorithms at the smoke's weights, 3.95%
+# over 3 weight seeds, and a run with the clients' float32 in TF32 (the
+# lower-precision control) reads at most 3.2%: no limit tells it from a
+# sound run (scripts/cosim_learning_spread.py, PERF.md). Their accuracy
+# (sound runs within 0.027, the control 0.039) stays held at FL_REF_GAP,
+# as a gate on gross errors, with their syncs, arrivals and fault counts
+# benchmarks/jobs.py's grid: one BS round at 2048 ONUs (10 Gb/s), load
+# 0.8, JOBS_CLIENTS clients a job, the primary job and half-sized tenants
+# of weight 2, over jobs x fairness; then an FCFS case under "deadline"
+# fairness (per-job soft deadlines), a 4-PON case under a binding CPS
+# uplink and a cadenced timeline
+JOBS_ONUS, JOBS_LOAD, JOBS_CLIENTS = 2048, 0.8, 8
+JOBS_GRID, JOBS_FAIRNESS = (1, 2, 4, 8), ("maxmin", "weighted")
+JOBS_DEADLINES = (6.0, 3.0, 4.5, None)
+JOBS_CPS_PONS, JOBS_CPS_RATE = 4, 3e9
+JOBS_CADENCE = ((1, 0), (2, 0), (2, 1), (4, 3))
+JOBS_TL_ROUNDS = 4
 
 
 def _elastic(rounds: int, n_clients: int):
@@ -2239,18 +2683,127 @@ def wide_timeline_spec(backend=None):
     return dataclasses.replace(spec, cases=(case,), schedule=sched)
 
 
-def _timeline_run(spec):
+def _port_types():
+    """The port's ``(net, ClientProfile)``; the spec builders below take
+    the JAX package's instead when its tests recompute the pins."""
+    from repro_torch import net
+    from repro_torch.core.slicing import ClientProfile
+
+    return net, ClientProfile
+
+
+def fault_cells():
+    """``(name, mode, dropout, outage)`` of the fault grid, pin order."""
+    return [(f"{mode}_d{d}_o{o}", mode, d, o) for d in FAULT_DROPOUTS
+            for o in FAULT_OUTAGES for mode in FAULT_MODES]
+
+
+def faults_spec(mode: str, dropout: float, outage: float, backend=None,
+                rounds: int = FAULT_ROUNDS, trivial: bool = False,
+                types=None):
+    """``benchmarks/faults.py``'s cell: the op point under
+    ``FAULT_MODES[mode]`` and ``FaultSchedule(seed=3, dropout, outage,
+    0.5 s windows starting within 2 s)``; ``faults=None`` when both rates
+    are 0 (``trivial``: the all-zero schedule instead)."""
+    net, profile = types or _port_types()
+    faults = net.FaultSchedule(
+        seed=FAULT_SEED, dropout_rate=dropout, loss_rate=0.0,
+        outage_rate=outage, outage_duration_s=FAULT_OUTAGE_S,
+        outage_start_max_s=FAULT_OUTAGE_START_MAX_S)
+    if faults.trivial and not trivial:
+        faults = None
+    t_uds = np.random.default_rng(42).uniform(1.0, 5.0, N_ONUS)
+    wl = net.FLRoundWorkload(clients=[profile(
+        client_id=i, t_ud=float(t_uds[i]), t_dl=0.0, m_ud_bits=M_BITS)
+        for i in range(OP_CLIENTS)], model_bits=M_BITS)
+    case = net.SweepCase(workload=wl, load=0.8, policy="fcfs", seed=1)
+    sched = net.TimelineSchedule(n_rounds=rounds, faults=faults,
+                                 **FAULT_MODES[mode])
+    return net.SweepSpec(cases=(case,), pon=net.PONConfig(n_onus=N_ONUS),
+                         schedule=sched, backend=backend)
+
+
+def jobs_case(n_jobs: int, fairness: str, policy: str = "bs", ids=None,
+              topology=None, deadlines=None, cadence=None, types=None):
+    """``benchmarks/jobs.py::_case``: the primary job and ``n_jobs - 1``
+    half-sized tenants of weight 2, ``JOBS_CLIENTS`` clients each (ids
+    ``ids``, by default 0, 1, ...; compute times uniform in [1, 5] s from
+    seed 42), with optional per-job soft deadlines and cadences."""
+    net, profile = types or _port_types()
+    rng = np.random.default_rng(42)
+    ids = list(range(n_jobs * JOBS_CLIENTS)) if ids is None else ids
+    jobs, clients = [], []
+    for j in range(n_jobs):
+        cids = ids[j * JOBS_CLIENTS:(j + 1) * JOBS_CLIENTS]
+        mb = M_BITS if j == 0 else 0.5 * M_BITS
+        period, phase = cadence[j] if cadence else (1, 0)
+        jobs.append(net.JobSpec(
+            job_id=j, clients=tuple(cids), model_bits=mb,
+            weight=1.0 if j == 0 else 2.0,
+            deadline_s=deadlines[j] if deadlines else None,
+            period=period, phase=phase))
+        clients.extend(profile(client_id=i, t_ud=float(rng.uniform(1.0, 5.0)),
+                               t_dl=0.0, m_ud_bits=mb) for i in cids)
+    return net.SweepCase(
+        workload=net.FLRoundWorkload(clients=clients, model_bits=M_BITS),
+        load=JOBS_LOAD, policy=policy, seed=0, jobs=tuple(jobs),
+        fairness=fairness, topology=topology)
+
+
+def jobs_specs(backend=None, types=None) -> dict:
+    """name -> the jobs phase's specs: the grid, the FCFS deadline case,
+    the 4-PON CPS case and the cadenced timeline."""
+    net, _ = types or _port_types()
+    cfg = net.PONConfig(n_onus=JOBS_ONUS)
+
+    def spec(case, pon=cfg, schedule=None):
+        return net.SweepSpec(cases=(case,), pon=pon, schedule=schedule,
+                             backend=backend)
+
+    out = {f"{fair}_j{n}": spec(jobs_case(n, fair, types=types))
+           for fair in JOBS_FAIRNESS for n in JOBS_GRID}
+    out["fcfs_deadline_j4"] = spec(jobs_case(
+        4, "deadline", "fcfs", deadlines=JOBS_DEADLINES, types=types))
+    topo = net.MultiPonTopology(n_pons=JOBS_CPS_PONS,
+                                cps_rate_bps=JOBS_CPS_RATE)
+    out["cps4_weighted_j4"] = spec(jobs_case(
+        4, "weighted", ids=list(range(0, JOBS_ONUS, JOBS_ONUS // 32)),
+        topology=topo, types=types),
+        net.PONConfig(n_onus=JOBS_ONUS // JOBS_CPS_PONS))
+    out["timeline_maxmin_j4"] = spec(
+        jobs_case(4, "maxmin", cadence=JOBS_CADENCE, types=types),
+        schedule=net.TimelineSchedule(n_rounds=JOBS_TL_ROUNDS))
+    return out
+
+
+def _timeline_run(spec, record=None):
     """``spec`` through ``simulate`` on the card: ``(results, stats)``,
     stats the wall, the round engine's counts, and for each launch of the
     phase kernel its device ms (CUDA events around the launch), cycles
     and CTAs, and the host ms of each phase's tables and copy in
     (``ops.phase_inputs``). The device's busy share is the phases' ms
-    over the wall."""
+    over the wall. ``record`` (a list) gets each ``run_phase_device``
+    call, as :func:`_record_phases` returns them. For each phase that
+    fell back to the per-cycle loop the stats hold its longest outage
+    window in cycles (0 without one)."""
     from repro_torch.kernels.ponsim import kernel, ops
-    from repro_torch.net import simulate
+    from repro_torch.net import engine, simulate
 
     launch, inputs = kernel.launch_phase, ops.phase_inputs
-    timed, host = [], []
+    run_phase = engine.run_phase_device
+    timed, host, fell = [], [], []
+
+    def recorded(*args, **kwargs):
+        if record is not None:
+            record.append((args, {k: v for k, v in kwargs.items()
+                                  if k != "device"}))
+        out = run_phase(*args, **kwargs)
+        if out is None:
+            dark = kwargs.get("outage_row")
+            fell.append(0.0 if dark is None else float(np.max(np.where(
+                np.isfinite(dark[:, 0]), dark[:, 1] - dark[:, 0], 0.0)))
+                / args[0].cycle_time_s)
+        return out
 
     def timed_launch(sc, dyn):
         start = torch.cuda.Event(enable_timing=True)
@@ -2269,6 +2822,7 @@ def _timeline_run(spec):
 
     _reset_round_counts()
     kernel.launch_phase, ops.phase_inputs = timed_launch, timed_inputs
+    engine.run_phase_device = recorded
     try:
         torch.cuda.synchronize()
         t_run = time.time()
@@ -2277,13 +2831,15 @@ def _timeline_run(spec):
         wall = time.time() - t_run
     finally:
         kernel.launch_phase, ops.phase_inputs = launch, inputs
+        engine.run_phase_device = run_phase
     ms = [s.elapsed_time(e) for s, e, _, _ in timed]
     cycles = [int(k.max()) for _, _, k, _ in timed]
     return results, {
         "wall_s": wall, "counts": _round_counts(), "ms": ms,
         "cycles": cycles, "ctas": [c for _, _, _, c in timed],
         "us_per_cycle": [m * 1e3 / max(c, 1) for m, c in zip(ms, cycles)],
-        "host_ms": host, "busy": sum(ms) / (wall * 1e3)}
+        "host_ms": host, "busy": sum(ms) / (wall * 1e3),
+        "fallback_outage_cycles": fell}
 
 
 def _print_run(what: str, stats) -> None:
@@ -2518,7 +3074,7 @@ def _cosim_runs(device, clients, test_batch, params, count, backend=None):
     wall s)."""
     from repro_torch import fl
     from repro_torch.models import cnn
-    from repro_torch.net import PONConfig, SweepCase, SweepSpec
+    from repro_torch.net import FaultSchedule, PONConfig, SweepCase, SweepSpec
 
     pon = PONConfig(n_onus=COSIM_ONUS, line_rate_bps=COSIM_RATE)
     spec = SweepSpec(cases=(SweepCase(workload=None, load=COSIM_LOAD,
@@ -2531,9 +3087,13 @@ def _cosim_runs(device, clients, test_batch, params, count, backend=None):
             selection=fl.SelectionConfig(strategy="all"),
             compression=fl.CompressorConfig(scheme="int8"),
             seed=COSIM_SERVER_SEED)
+        faulty = ({} if mode not in COSIM_FAULTY else
+                  {"faults": FaultSchedule(**COSIM_FAULTS),
+                   "quorum_frac": COSIM_FAULTY[mode]})
         cfg = fl.CoSimConfig(
             policy="bs", total_load=COSIM_LOAD, model_bits=COSIM_MODEL_BITS,
-            upload_bits=COSIM_UPLOAD_BITS, timing_seeds=1, pon=pon)
+            upload_bits=COSIM_UPLOAD_BITS, timing_seeds=1, pon=pon,
+            **faulty)
         t_run = time.time()
         with count:
             res = fl.FLNetworkCoSim(server, cfg, device=device).run(
@@ -2554,7 +3114,10 @@ def phase_cosim():
     on the per-cycle loop), from the same initial weights: syncs held to
     the pins, arrivals and staleness identical, every round's accuracy
     within ``FL_REF_GAP`` of the CPU's and its mean loss within
-    ``FL_REF_GAP`` of it, relatively. Prints ``time_to_metric``. Returns
+    ``FL_REF_GAP`` of it, relatively, but for the faulty modes' loss
+    (see ``COSIM_FAULTY``); the faulty modes' arrivals, failed and lost
+    clients a round held to ``COSIM_FAULT_COUNTS`` and to the CPU's.
+    Prints ``time_to_metric`` and each mode's largest loss gap. Returns
     the card runs' launches of K3, K3' and the round engine's kernels."""
     from repro_torch import fl
     from repro_torch._tree import tree_map
@@ -2605,18 +3168,29 @@ def phase_cosim():
                 raise SystemExit(f"cosim {mode} on the {where}: syncs "
                                  f"{syncs} != {list(want)}")
         syncs = [r["sync_time_s"] for r in res.rounds]
+        worst = 0.0
         for a, b in zip(res.rounds, ref.rounds):
-            if (a["n_arrived"], a.get("staleness")) != (
-                    b["n_arrived"], b.get("staleness")):
+            if (a["n_arrived"], a.get("staleness"), a.get("n_failed"),
+                    a.get("n_lost")) != (b["n_arrived"], b.get("staleness"),
+                                         b.get("n_failed"), b.get("n_lost")):
                 raise SystemExit(f"cosim {mode} round {a['round']}: "
                                  f"arrivals differ from the CPU's")
+            loss_gap = abs(a["mean_loss"] - b["mean_loss"]) / abs(
+                b["mean_loss"])
+            worst = max(worst, loss_gap)
             if (abs(a["eval_metric"] - b["eval_metric"]) > FL_REF_GAP
-                    or abs(a["mean_loss"] - b["mean_loss"])
-                    > FL_REF_GAP * abs(b["mean_loss"])):
+                    or (loss_gap > FL_REF_GAP
+                        and mode not in COSIM_FAULTY)):
                 raise SystemExit(
                     f"cosim {mode} round {a['round']}: accuracy "
                     f"{a['eval_metric']} loss {a['mean_loss']} against the "
                     f"CPU's {b['eval_metric']} {b['mean_loss']}")
+        if mode in COSIM_FAULTY:
+            counts = tuple((r["n_arrived"], r["n_failed"], r["n_lost"])
+                           for r in res.rounds)
+            if counts != COSIM_FAULT_COUNTS[mode]:
+                raise SystemExit(f"cosim {mode}: (arrived, failed, lost) "
+                                 f"{counts} != {COSIM_FAULT_COUNTS[mode]}")
         ttm = res.time_to_metric(COSIM_TARGET)
         print(f"  cosim {mode}: syncs {syncs}; acc "
               f"{_curve(res, 'eval_metric')} (CPU "
@@ -2624,8 +3198,9 @@ def phase_cosim():
               f"{_curve(res, 'mean_loss')} (CPU {_curve(ref, 'mean_loss')});"
               f" arrived {[r['n_arrived'] for r in res.rounds]}; "
               f"time_to_metric({COSIM_TARGET}) {ttm!r} (CPU "
-              f"{ref.time_to_metric(COSIM_TARGET)!r}); wall {wall:.2f}s "
-              f"(CPU {cpu_wall:.2f}s)", flush=True)
+              f"{ref.time_to_metric(COSIM_TARGET)!r}); largest loss gap "
+              f"{worst:.4f}; wall {wall:.2f}s (CPU {cpu_wall:.2f}s)",
+              flush=True)
         out[mode] = {"syncs": syncs, "time_to_metric": ttm, "wall_s": wall}
     _line("cosim", time.time() - t0, modes=len(COSIM_MODES),
           rounds=COSIM_ROUNDS, updates=updates[0], k3_launches=launches[0],
@@ -2635,6 +3210,243 @@ def phase_cosim():
           syncs_held="yes", learning_held="yes")
     return {"quantize_int8": launches[0], "dequantize_int8": launches[1],
             **engine_counts}, out
+
+
+def fault_outcomes(tl) -> tuple:
+    """A timeline's rounds as ``FAULT_PINS`` holds them: ``(sync, failed
+    (client, served bits) pairs, lost, retry_at (client, due round)
+    pairs, gave_up, deadline extensions)`` a round."""
+    return tuple((float(r.sync_time),
+                  tuple(sorted((int(c), float(b))
+                               for c, b in r.failed.items())),
+                  tuple(sorted(int(c) for c in r.lost)),
+                  tuple(sorted((int(c), int(d))
+                               for c, d in r.retry_at.items())),
+                  tuple(sorted(int(c) for c in r.gave_up)),
+                  int(r.deadline_extensions)) for r in tl.rounds)
+
+
+def _hold_faults(what: str, tl, want) -> None:
+    """Every round's sync within ``SYNC_TOL``, the failed clients, the
+    lost, the retry rounds, the give-ups and the deadline extensions
+    exactly, and each failed client's served bits within ``ROUND_RTOL``,
+    against the pins ``want``."""
+    got = fault_outcomes(tl)
+    if len(got) != len(want):
+        raise SystemExit(f"{what}: {len(got)} rounds != {len(want)}")
+    for r, (g, w) in enumerate(zip(got, want)):
+        same = (abs(g[0] - w[0]) <= SYNC_TOL and g[2:] == tuple(w[2:])
+                and [c for c, _ in g[1]] == [c for c, _ in w[1]]
+                and all(abs(a - b) <= ROUND_RTOL * abs(b)
+                        for (_, a), (_, b) in zip(g[1], w[1])))
+        if not same:
+            raise SystemExit(f"{what} round {r}: {g} != {w}")
+
+
+def _same_results(what: str, got, want) -> None:
+    """Two timelines' rounds bit for bit: syncs and every client's
+    times."""
+    for a_tl, b_tl in zip(got, want):
+        if a_tl.sync_times.tolist() != b_tl.sync_times.tolist():
+            raise SystemExit(f"{what}: syncs {a_tl.sync_times.tolist()} "
+                             f"!= {b_tl.sync_times.tolist()}")
+        for a, b in zip(a_tl.rounds, b_tl.rounds):
+            for field in ("dl_done", "ready", "ul_done"):
+                x, y = getattr(a.result, field), getattr(b.result, field)
+                if sorted(x) != sorted(y) or not np.array_equal(
+                        [x[c] for c in sorted(x)], [y[c] for c in sorted(y)],
+                        equal_nan=True):
+                    raise SystemExit(f"{what} round {a.round_index}: "
+                                     f"{field} differs")
+
+
+def _hold_fallbacks(what: str, stats, mode: str, outage: float) -> None:
+    """A fault cell re-ran ``FAULT_FALLBACKS[mode]`` phases on the
+    per-cycle loop with outages (none without), each an upload phase
+    whose outage outgrows the phase kernel's background ring."""
+    from repro_torch.kernels.ponsim.ref import HISTORY_CYCLES
+
+    want = FAULT_FALLBACKS[mode] if outage else 0
+    fell = stats["fallback_outage_cycles"]
+    if (stats["counts"]["fallbacks"] != want or len(fell) != want
+            or any(c < HISTORY_CYCLES for c in fell)):
+        raise SystemExit(f"{what}: {stats['counts']['fallbacks']} phases "
+                         f"fell back (outages {fell} cycles), not {want} "
+                         f"upload phases with an outage past "
+                         f"{HISTORY_CYCLES} cycles")
+
+
+def phase_faults():
+    """``benchmarks/faults.py``'s grid on the card (``repro_torch.net``
+    timelines with a ``FaultSchedule``): the op point, 6 rounds, dropout
+    {0, 0.2} x outage {0, 0.5} in the sync (deadline 4 s, defer), async
+    (buffer 6) and quorum (drop, quorum 0.75) modes, all through
+    ``backend="jit"``: every round held to ``FAULT_PINS`` (sync, failed,
+    lost, retry rounds, give-ups, extensions), the phase kernel launched
+    (and K1/K2 only where a phase fell back to the per-cycle loop: exactly
+    ``FAULT_FALLBACKS`` upload phases a cell with outages, each with an
+    outage past the kernel's 128-cycle background ring); every
+    phase of the three dropout 0.2 x outage 0.5 cells held
+    to the plain version on CPU copies (``_hold_phases``); the all-zero
+    schedule bit for bit ``faults=None``'s result in each mode; and
+    ``FAULT_LOOP_CELL`` over ``FAULT_LOOP_ROUNDS`` rounds on the
+    per-cycle loop, held to its pins and to the jit run client by
+    client."""
+    import dataclasses
+
+    t0 = time.time()
+    grid = dict.fromkeys(("phase", "k1", "k2", "fallbacks"), 0)
+    out, jit_res, held = {}, {}, {}
+    for name, mode, d, o in fault_cells():
+        calls = []
+        res, stats = _timeline_run(faults_spec(mode, d, o, "jit"), calls)
+        _hold_faults(f"faults {name} jit", res[0], FAULT_PINS[name])
+        _hold_timeline_counts(stats, f"faults {name} jit", True)
+        _hold_fallbacks(f"faults {name} jit", stats, mode, o)
+        _print_run(f"faults {name} jit", stats)
+        for key in grid:
+            grid[key] += stats["counts"][key]
+        out[name] = stats
+        jit_res[name] = res
+        if (d, o) == (FAULT_DROPOUTS[-1], FAULT_OUTAGES[-1]):
+            held[name] = calls
+    for mode in FAULT_MODES:
+        res, _ = _timeline_run(faults_spec(mode, 0.0, 0.0, "jit",
+                                           trivial=True))
+        _same_results(f"faults {mode} trivial schedule against None", res,
+                      jit_res[f"{mode}_d0.0_o0.0"])
+    mode, d, o = FAULT_LOOP_CELL
+    name = f"{mode}_d{d}_o{o}"
+    loop_res, loop = _timeline_run(faults_spec(mode, d, o,
+                                               rounds=FAULT_LOOP_ROUNDS))
+    _hold_timeline_counts(loop, f"faults {name} per-cycle", False)
+    _hold_faults(f"faults {name} per-cycle", loop_res[0],
+                 FAULT_PINS[name][:FAULT_LOOP_ROUNDS])
+    first = [dataclasses.replace(tl, rounds=tl.rounds[:FAULT_LOOP_ROUNDS])
+             for tl in jit_res[name]]
+    _hold_rounds(f"faults {name} jit against the per-cycle loop", first,
+                 loop_res, [name])
+    _print_run(f"faults {name} per-cycle, {FAULT_LOOP_ROUNDS} rounds",
+               loop)
+    t_hold = time.time()
+    checked = _hold_phases(held)
+    hold_s = time.time() - t_hold
+    n_held = sum(len(v) for v in checked.values())
+    err = max(e for v in checked.values() for _, _, e, _ in v)
+    n_failed = sum(len(r.failed) for tl in jit_res.values()
+                   for r in tl[0].rounds)
+    _line("faults", time.time() - t0, cells=len(jit_res),
+          rounds_held=len(jit_res) * FAULT_ROUNDS, failed=n_failed,
+          retries=sum(len(r.retry_at) for tl in jit_res.values()
+                      for r in tl[0].rounds),
+          extensions=sum(r.deadline_extensions for tl in jit_res.values()
+                         for r in tl[0].rounds),
+          jit_wall_s=f"{sum(v['wall_s'] for v in out.values()):.3f}",
+          loop_wall_s=f"{loop['wall_s']:.3f}",
+          loop_rounds=FAULT_LOOP_ROUNDS, phases_held=n_held,
+          rem_max_abs_err=f"{err:.3g}", hold_s=f"{hold_s:.1f}",
+          trivial_bitwise="yes", phase_launches=grid["phase"],
+          phase_fallbacks=grid["fallbacks"], fallbacks_held="yes")
+    return ({"jit": out, "per_cycle": loop, "phases_held": n_held,
+             "max_abs_err": err},
+            {"fault-grid-jit": grid, "fault-grid-per-cycle": loop["counts"]})
+
+
+def job_outcomes(res) -> tuple:
+    """A jobs run as ``JOBS_PINS`` holds it: ``(sync, (job, sync)
+    pairs)`` a round (one for a round sweep's result)."""
+    if hasattr(res, "rounds"):
+        return tuple((float(r.sync_time), tuple(sorted(
+            (int(j), float(v)) for j, v in r.job_sync.items())))
+            for r in res.rounds)
+    return ((float(res.sync_time), tuple(sorted(
+        (int(j), float(v.sync_time)) for j, v in res.job_stats.items()))),)
+
+
+def _phase_cycles(res, cyc: float) -> int:
+    """A round's cycles: its FCFS download's and its upload's, counted
+    from their last completions."""
+    n = math.ceil(max(res.ul_done.values()) / cyc)
+    if res.policy == "fcfs":
+        n += math.ceil(max(res.dl_done.values()) / cyc)
+    return n
+
+
+def phase_jobs():
+    """``benchmarks/jobs.py``'s grid on the card (one BS round at 2048
+    ONUs, load 0.8, jobs {1, 2, 4, 8} x fairness {maxmin, weighted}), an
+    FCFS case of 4 jobs under "deadline" fairness, a 4-PON case under a
+    binding 3 Gb/s CPS and a cadenced 4-round timeline, each on the
+    per-cycle loop and with ``backend="jit"`` (which runs the same loop
+    for more than one job: the phase kernel has no job axis): every sync
+    and every job's sync held to ``JOBS_PINS``, the two runs equal bit
+    for bit with no phase launch, K1 and K2 launched by the FCFS case. A
+    one-job cell is the single-tenant path, so its jit run launches the
+    phase kernel and is held to the loop by ``_hold_round``. Prints each
+    job's sync and the loop's µs a cycle."""
+    import dataclasses
+
+    from repro_torch.net import simulate
+
+    t0 = time.time()
+    by_path = {}
+    cyc = 1e-3
+    specs = jobs_specs()
+    for name, spec in specs.items():
+        runs = {}
+        for backend in (None, "jit"):
+            _reset_round_counts()
+            torch.cuda.synchronize()
+            t_run = time.time()
+            res = simulate(dataclasses.replace(spec, backend=backend),
+                           device="cuda")
+            torch.cuda.synchronize()
+            runs[backend] = (res[0], time.time() - t_run, _round_counts())
+        (res, wall, counts), (jres, jwall, jcounts) = runs[None], runs["jit"]
+        got = job_outcomes(res)
+        want = JOBS_PINS[name]
+        if len(got) != len(want) or not all(
+                abs(g[0] - w[0]) <= SYNC_TOL and len(g[1]) == len(w[1])
+                and all(a[0] == b[0] and abs(a[1] - b[1]) <= SYNC_TOL
+                        for a, b in zip(g[1], w[1]))
+                for g, w in zip(got, want)):
+            raise SystemExit(f"jobs {name}: {got} != {want}")
+        rounds = res.rounds if hasattr(res, "rounds") else None
+        pairs = ([(a.result, b.result) for a, b in zip(res.rounds,
+                                                       jres.rounds)]
+                 if rounds else [(res, jres)])
+        single = len(spec.cases[0].jobs) == 1
+        if single:
+            # one job a case is the single-tenant path: jit runs the
+            # phase kernel, held to the loop as timelines are
+            for a, b in pairs:
+                _hold_round(f"jobs {name} jit", b, a)
+        elif job_outcomes(jres) != got or any(
+                a.ul_done != b.ul_done for a, b in pairs):
+            raise SystemExit(f"jobs {name}: jit {job_outcomes(jres)} "
+                             f"differs from the per-cycle loop's {got}")
+        fcfs = spec.cases[0].policy == "fcfs"
+        for c, jit in ((counts, False), (jcounts, True)):
+            phases = c["phase"] >= 1 if jit and single else not c["phase"]
+            if not phases or c["fallbacks"] or (fcfs and not (
+                    c["k1"] and c["k2"])):
+                raise SystemExit(f"jobs {name}: engine counts {c}")
+        n_cyc = sum(_phase_cycles(a, cyc) for a, _ in pairs)
+        path = ("jobs-timeline" if rounds else "jobs-2048")
+        for key, c in ((path, counts), (f"{path}-jit", jcounts)):
+            acc = by_path.setdefault(key, dict.fromkeys(c, 0))
+            for k, v in c.items():
+                acc[k] += v
+        print(f"  jobs {name}: syncs "
+              f"{[(s, dict(j)) for s, j in got]}; wall {wall:.3f}s (jit "
+              f"{jwall:.3f}s); K1 {counts['k1']}, K2 {counts['k2']}; "
+              f"cycles {n_cyc}, us a cycle {wall * 1e6 / max(n_cyc, 1):.1f}",
+              flush=True)
+    _line("jobs", time.time() - t0, cases=len(specs),
+          syncs_held="yes", jit_equals_loop="yes",
+          k2_launches=by_path["jobs-2048"]["k2"],
+          phase_launches=sum(c["phase"] for c in by_path.values()))
+    return by_path
 
 
 def _serve_run(cfg, params, prompts, kernels, feed=None):
@@ -3119,9 +3931,8 @@ def main() -> int:
     launches["ponsim_phase"], jit_walls = phase_main_jit(main_walls)
     phase_entry.update(jit_walls)
     phase_full_width()
-    phase_entry.update(phase_wide_pons())
-    phase_entry["max_abs_err"] = max(phase_entry["max_abs_err"],
-                                     phase_entry["wide_pons_max_abs_err"])
+    wide, wide_hold = phase_wide_pons(hold_later=True)
+    phase_entry.update(wide)
     timeline, by_path = phase_timeline()
     fig3 = timeline["fig3"]
     phase_entry.update({
@@ -3142,6 +3953,12 @@ def main() -> int:
                                      timeline["short"]["max_abs_err"])
     cosim, _ = phase_cosim()
     by_path["cosim-accuracy"] = cosim
+    faults, fault_paths = phase_faults()
+    by_path.update(fault_paths)
+    phase_entry["max_abs_err"] = max(phase_entry["max_abs_err"],
+                                     faults["max_abs_err"])
+    phase_entry["fault_grid_phases_held"] = faults["phases_held"]
+    by_path.update(phase_jobs())
     # K3 and K3' run once a leaf of every arrived update of the int8 run
     launches["quantize_int8"] = launches["dequantize_int8"] = \
         phase_fl_fig2a()
@@ -3153,6 +3970,9 @@ def main() -> int:
     # there on the tensor-core kernel alone
     launches["flash_attention"] = olmo["k4"] + rg["k4"]
     launches["rglru_scan"] = rg["k6"]
+    phase_entry.update(wide_hold.finish())
+    phase_entry["max_abs_err"] = max(phase_entry["max_abs_err"],
+                                     phase_entry["wide_pons_max_abs_err"])
     engine_paths = {"traffic_sampler": "k1", "waterfill_grants": "k2",
                     "ponsim_phase": "phase"}
     main_path = {"traffic_sampler": "fig2b-16", "waterfill_grants":

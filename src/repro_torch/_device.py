@@ -59,6 +59,81 @@ def seq_cumsum(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+_PW_BLOCK = 128      # numpy's pairwise-sum leaf size (PW_BLOCKSIZE)
+_NP_BUFSIZE = 8192   # numpy reduces in chunks of its buffer size
+_LEAF_IDX: dict = {}  # (n, leaf length, device) -> leaf column indices
+
+
+def _pw_leaves(n: int, start: int = 0):
+    """numpy's pairwise-sum split of ``n`` elements: a leaf
+    ``(start, length)`` or a pair of subtrees."""
+    if n <= _PW_BLOCK:
+        return (start, n)
+    half = n // 2
+    half -= half % 8
+    return (_pw_leaves(half, start), _pw_leaves(n - half, start + half))
+
+
+def np_sum(x: torch.Tensor) -> torch.Tensor:
+    """Row sums ``(R,)`` of ``x`` ``(R, n)`` added in ``np.sum(axis=1)``'s
+    order, bit for bit: under 8 elements left to right; else numpy's
+    pairwise sum, leaves of at most 128 elements each summed in eight
+    strided accumulators, ``((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7))``, then
+    its tail, and the leaves added up the split tree. Leaves of one
+    length are summed together, so the cost is a few dozen tensor
+    operations at any width. Past 8,192 elements numpy adds the rows'
+    8,192-element chunks in turn, and so does this."""
+    R, n = x.shape
+    if n > _NP_BUFSIZE:
+        acc = torch.zeros(R, dtype=x.dtype, device=x.device)
+        for s in range(0, n, _NP_BUFSIZE):
+            acc = acc + np_sum(x[:, s:s + _NP_BUFSIZE])
+        return acc
+    if n < 8:
+        acc = torch.zeros(R, dtype=x.dtype, device=x.device)
+        for j in range(n):
+            acc = acc + x[:, j]
+        return acc
+    tree = _pw_leaves(n)
+    leaves = []
+
+    def collect(node):
+        if isinstance(node[0], tuple):
+            collect(node[0])
+            collect(node[1])
+        else:
+            leaves.append(node)
+
+    collect(tree)
+    sums = {}
+    for length in sorted({ln for _, ln in leaves}):
+        starts = [s for s, ln in leaves if ln == length]
+        key = (n, length, str(x.device))
+        idx = _LEAF_IDX.get(key)
+        if idx is None:
+            idx = _LEAF_IDX[key] = (
+                torch.as_tensor(starts, device=x.device)[:, None]
+                + torch.arange(length, device=x.device))
+        seg = x[:, idx]                              # (R, leaves, length)
+        body = length - length % 8
+        r = seg[:, :, :8]
+        for i in range(8, body, 8):
+            r = r + seg[:, :, i:i + 8]
+        res = (((r[..., 0] + r[..., 1]) + (r[..., 2] + r[..., 3]))
+               + ((r[..., 4] + r[..., 5]) + (r[..., 6] + r[..., 7])))
+        for i in range(body, length):
+            res = res + seg[:, :, i]
+        for k, s in enumerate(starts):
+            sums[s] = res[:, k]
+
+    def add(node):
+        if isinstance(node[0], tuple):
+            return add(node[0]) + add(node[1])
+        return sums[node[0]]
+
+    return add(tree)
+
+
 @contextlib.contextmanager
 def full_float32():
     """Float32 products and convolutions in full float32 inside the block.

@@ -18,11 +18,14 @@ Timing backends of :meth:`FLNetworkCoSim.run`:
 With a deadline or ``mode="async"`` timing and learning couple: the
 timeline runs first and decides who arrives at each aggregation, how
 stale and with what served fraction, and training follows it update by
-update (:meth:`FLNetworkCoSim._run_coupled`).
+update (:meth:`FLNetworkCoSim._run_coupled`). Fault injection
+(``CoSimConfig.faults``/``retry``/``quorum_frac``) rides that coupled
+timeline; outage-only faults also reach the decoupled one. Competing
+tenant jobs (``CoSimConfig.jobs``) contend for the PON and CPS with
+the FL task, which becomes job 0 and whose sync gates each round.
 
-Not ported yet (ROADMAP Queue 1 item 8): fault injection and retries,
-competing tenant jobs and a ``collector``; each raises
-``NotImplementedError``.
+Not ported yet: a ``collector`` raises ``NotImplementedError`` (ROADMAP
+Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -33,9 +36,11 @@ import numpy as np
 
 from repro_torch._device import DEFAULT_DEVICE
 from repro_torch.core.slicing import ClientProfile
+from repro_torch.faults import FaultSchedule, RetryPolicy
 from repro_torch.fl.server import CPSServer, PendingUpdate
 from repro_torch.net.api import SweepSpec, simulate
 from repro_torch.net.engine import SweepCase, _not_ported
+from repro_torch.net.jobs import JobSpec
 from repro_torch.net.multi_pon import MultiPonTopology
 from repro_torch.net.sim import FLRoundWorkload, PONConfig
 from repro_torch.net.timeline import TimelineSchedule
@@ -52,24 +57,27 @@ class CoSimConfig:
     # several wavelength segments sharing a CPS uplink: ``pon`` then
     # describes one segment (None = a single PON)
     topology: Optional[MultiPonTopology] = None
-    # the reference's instrumentation, fault and tenant fields: only
-    # their defaults are ported (ROADMAP Queue 1 item 8)
+    # the reference's instrumentation hub: only None is ported (ROADMAP
+    # Queue 1 item 8)
     collector: Optional[object] = None
-    faults: Optional[object] = None
-    retry: Optional[object] = None
+    # fault injection (repro_torch.faults): dropout/loss faults and
+    # quorum aggregation need the coupled deadline/async path (who
+    # retries or arrives is an event); outage-only faults also reach
+    # the decoupled timeline
+    faults: Optional[FaultSchedule] = None
+    retry: Optional[RetryPolicy] = None
     quorum_frac: Optional[float] = None
-    jobs: Optional[tuple] = None
-    job_clients: Optional[tuple] = None
+    # multi-tenant contention: competitor jobs (net.jobs.JobSpec,
+    # job_id >= 1) sharing the PON and CPS with this FL task, and the
+    # ClientProfiles of their client ids; the FL task becomes job 0 and
+    # each round's capacity is split by ``fairness``
+    jobs: Optional[Tuple[JobSpec, ...]] = None
+    job_clients: Optional[Tuple[ClientProfile, ...]] = None
     fairness: str = "maxmin"
 
     def __post_init__(self):
         if self.collector is not None:
             raise _not_ported("collector")
-        if self.faults is not None or self.retry is not None:
-            raise _not_ported("faults")
-        if (self.jobs is not None or self.job_clients is not None
-                or self.fairness != "maxmin"):
-            raise _not_ported("jobs")
 
     @classmethod
     def from_fed_model(cls, model_cfg, compress: str = "int8", **kw):
@@ -123,10 +131,27 @@ class FLNetworkCoSim:
                                   schedule=schedule, backend=self._backend),
                         device=self.device)
 
-    def _cases(self, wl: FLRoundWorkload, seeds) -> List[SweepCase]:
+    def _cases(self, wl: FLRoundWorkload, seeds, jobs: Optional[tuple] = None,
+               fairness: str = "maxmin") -> List[SweepCase]:
         return [SweepCase(workload=wl, load=self.cfg.total_load,
                           policy=self.cfg.policy, seed=s,
-                          topology=self.cfg.topology) for s in seeds]
+                          topology=self.cfg.topology, jobs=jobs,
+                          fairness=fairness) for s in seeds]
+
+    def _jobs_bundle(
+        self, clients: List[ClientProfile],
+    ) -> Tuple[List[ClientProfile], Optional[tuple]]:
+        """``(workload clients with the tenants' clients, all jobs)``:
+        the FL task becomes job 0 over the server's clients."""
+        if self.cfg.jobs is None:
+            return clients, None
+        primary = JobSpec(
+            job_id=0,
+            clients=tuple(sorted(c.client_id for c in clients)),
+            model_bits=float(self.cfg.model_bits),
+        )
+        return (clients + list(self.cfg.job_clients or ()),
+                (primary,) + tuple(self.cfg.jobs))
 
     def _round_sync_time(self, clients: List[ClientProfile]) -> float:
         # the key pins every cfg field the timing depends on, payload
@@ -139,17 +164,24 @@ class FLNetworkCoSim:
             self.cfg.upload_bits,
             self.cfg.pon,
             self.cfg.topology,
+            self.cfg.jobs,
+            self.cfg.job_clients,
+            self.cfg.fairness,
             tuple(sorted((c.client_id, round(c.t_ud, 6), c.m_ud_bits)
                          for c in clients)),
         )
         if key not in self._timing_cache:
-            wl = FLRoundWorkload(clients=clients,
+            wl_clients, jobs = self._jobs_bundle(clients)
+            wl = FLRoundWorkload(clients=wl_clients,
                                  model_bits=self.cfg.model_bits)
             # all timing seeds as one stacked engine simulation
-            results = self._simulate(
-                self._cases(wl, range(self.cfg.timing_seeds)))
-            self._timing_cache[key] = float(np.mean(
-                [r.sync_time for r in results]))
+            results = self._simulate(self._cases(
+                wl, range(self.cfg.timing_seeds), jobs, self.cfg.fairness))
+            # a multi-tenant round waits for the FL task (job 0) alone:
+            # the competitors contend but do not hold its aggregation
+            self._timing_cache[key] = float(np.mean([
+                r.sync_time if jobs is None else r.job_stats[0].sync_time
+                for r in results]))
         return self._timing_cache[key]
 
     def _client_profiles(
@@ -193,6 +225,30 @@ class FLNetworkCoSim:
             for p in profs:
                 union.setdefault(p.client_id, p)
         ids = sorted(union)
+        if self.cfg.jobs is not None:
+            # multi-tenant timelines take a plain schedule, so the client
+            # set and upload size must hold across rounds (per-job
+            # cadence goes through JobSpec)
+            static = all(
+                {p.client_id for p in profs} == set(ids)
+                for profs in per_round
+            ) and len({float(b) for b in m_bits}) <= 1
+            if not static or self.cfg.faults is not None:
+                raise ValueError(
+                    "multi-tenant co-simulation needs a static client "
+                    "set, uniform upload size and no fault schedule "
+                    "on the decoupled timeline backend; use "
+                    "backend='per_round' for varying rounds"
+                )
+            wl_clients, jobs = self._jobs_bundle([union[c] for c in ids])
+            wl = FLRoundWorkload(clients=wl_clients,
+                                 model_bits=self.cfg.model_bits)
+            results = self._simulate(
+                self._cases(wl, range(self.cfg.timing_seeds), jobs,
+                            self.cfg.fairness),
+                TimelineSchedule(n_rounds=R))
+            return np.mean([[rnd.job_sync[0] for rnd in r.rounds]
+                            for r in results], axis=0)
         pos = {cid: j for j, cid in enumerate(ids)}
         membership = np.zeros((R, len(ids)), bool)
         for r, profs in enumerate(per_round):
@@ -205,6 +261,7 @@ class FLNetworkCoSim:
         schedule = TimelineSchedule(
             n_rounds=R, membership=membership,
             m_ud_bits=np.asarray(m_bits),
+            faults=self.cfg.faults,
         )
         results = self._simulate(
             self._cases(wl, range(self.cfg.timing_seeds)), schedule)
@@ -228,6 +285,14 @@ class FLNetworkCoSim:
         aggregation the network delivers it to, discounted by staleness
         and served fraction (``fl.aggregation.fedbuff_merge``). One
         arrival realisation is followed, so ``timing_seeds`` must be 1.
+
+        Faults (``cfg.faults``) ride the same timeline: a dropout or loss
+        victim's trained update stays pending while its re-send is in
+        flight (the retry re-sends the same payload, nothing retrains),
+        a ``gave_up`` client drops it and trains fresh at its next
+        entry, and ``cfg.quorum_frac`` gates each aggregation
+        (``CPSServer.apply_updates`` keeps the previous global model
+        below quorum).
         """
         if self.cfg.timing_seeds != 1:
             raise ValueError(
@@ -242,6 +307,7 @@ class FLNetworkCoSim:
         schedule = TimelineSchedule(
             n_rounds=n_rounds, deadline_s=deadline_s,
             deadline_policy=deadline_policy, buffer_k=buffer_k,
+            faults=self.cfg.faults, retry=self.cfg.retry,
             quorum_frac=self.cfg.quorum_frac,
         )
         net = self._simulate(self._cases(wl, (0,)), schedule)[0]
@@ -268,6 +334,11 @@ class FLNetworkCoSim:
                 if u is not None and frac > 0.0:
                     items.append((u, 0, frac))
             for cid in rnd.dropped:
+                pending.pop(cid, None)
+            # fault outcomes: a failed (dropout) or lost (corrupted)
+            # client keeps its trained update pending, the retry re-sends
+            # the same payload; a client that gave up abandons it
+            for cid in rnd.gave_up:
                 pending.pop(cid, None)
             log = self.server.apply_updates(
                 items, eval_fn=eval_fn,
@@ -315,7 +386,8 @@ class FLNetworkCoSim:
 
         ``spec`` (a schedule-free :class:`repro_torch.net.SweepSpec` with
         one template case) re-points the network side: its case gives
-        policy, load and topology, ``spec.pon`` the PON config, and
+        policy, load, topology and fairness, ``spec.pon`` the PON
+        config, and
         ``spec.backend`` the round engine's backend (``"jit"``: each
         transfer phase one launch of the fused phase kernel).
         ``backend="timeline"`` resolves all rounds' timings in one
@@ -344,7 +416,7 @@ class FLNetworkCoSim:
             case = spec.cases[0]
             self.cfg = _dc_replace(
                 self.cfg, policy=case.policy, total_load=case.load,
-                topology=case.topology,
+                topology=case.topology, fairness=case.fairness,
                 pon=spec.pon if spec.pon is not None else self.cfg.pon,
             )
             self._backend = spec.backend
@@ -358,12 +430,28 @@ class FLNetworkCoSim:
             # fails in TimelineSchedule's validation
             mode = "async"
         coupled = mode == "async" or deadline_s is not None
-        if not coupled and self.cfg.quorum_frac is not None:
+        if coupled and self.cfg.jobs is not None:
             raise ValueError(
-                "quorum aggregation gates per-round arrivals; use "
-                "the coupled path (deadline_s, per "
-                "TimelineSchedule's quorum validation)"
+                "multi-tenant contention (cfg.jobs) takes per-job "
+                "deadlines (JobSpec.deadline_s, fairness='deadline'); "
+                "round-level deadline/async coupling is single-tenant"
             )
+        if not coupled:
+            if (self.cfg.faults is not None
+                    and self.cfg.faults.couples_rounds):
+                raise ValueError(
+                    "dropout/loss fault injection decides who retries "
+                    "and who arrives per round — an event, not a "
+                    "timing average; use the coupled path (deadline_s "
+                    "or mode='async'). Outage-only faults are fine "
+                    "decoupled."
+                )
+            if self.cfg.quorum_frac is not None:
+                raise ValueError(
+                    "quorum aggregation gates per-round arrivals; use "
+                    "the coupled path (deadline_s, per "
+                    "TimelineSchedule's quorum validation)"
+                )
         if coupled:
             if update_bits_from_compression:
                 raise ValueError(

@@ -8,7 +8,7 @@ the fused device phase.
   demand sits at least one bit under capacity keep their backlog
   bitwise.
 * :func:`cps_waterfill_ref` — the max-min CPS split across a case's
-  PONs, at the closed-form water level.
+  PONs (or a row's jobs), at the closed-form water level.
 * :func:`sample_window_ref` — one 64-cycle window of the Poisson-burst
   arrival stream, float32, the sampler the phase runs inside itself.
 * :func:`run_phase_ref` — a whole transfer phase, one cycle per loop
@@ -27,7 +27,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from repro_torch._device import FLOAT, seq_cumsum
+from repro_torch._device import FLOAT, np_sum, seq_cumsum
 from repro_torch.kernels.traffic.ops import _table
 from repro_torch.kernels.traffic.ref import WINDOW, packet_counts
 
@@ -63,14 +63,18 @@ def waterfill_grants_ref(backlog, hol, cap, hard=None) -> torch.Tensor:
     return torch.where(hard[:, None], g, backlog)
 
 
-def cps_waterfill_ref(want: torch.Tensor, cap: float) -> torch.Tensor:
+def cps_waterfill_ref(want: torch.Tensor, cap) -> torch.Tensor:
     """Max-min fair split of ``cap`` over each row of ``want`` ``(G, P)``.
 
-    Rows within ``cap`` return ``want`` unchanged; over rows sit at the
-    water level ``eff_p = min(want_p, mu)``.
+    ``cap`` is a float or a per-row ``(G,)`` tensor. Rows within ``cap``
+    (their total added in ``np.sum``'s order) return ``want`` unchanged;
+    over rows sit at the water level ``eff_p = min(want_p, mu)``.
     """
     P = want.shape[1]
-    over = want.sum(dim=1) > cap + CAP_EPS
+    cap = torch.as_tensor(cap, dtype=want.dtype, device=want.device
+                          ).broadcast_to(want.shape[:1])
+    over = np_sum(want) > cap + CAP_EPS
+    cap = cap[:, None]
     ws = torch.sort(want, dim=1).values
     prev = seq_cumsum(ws) - ws
     # after granting the k smallest demands in full, the rest split the

@@ -1,10 +1,19 @@
 """PON network substrate on PyTorch: traffic, the batched round engine,
-the multi-round timeline and their sweep facade. Build a
-:class:`SweepSpec` (with a :class:`TimelineSchedule` for a timeline) and
-run it with :func:`simulate` (``device="cuda"`` by default)."""
+the multi-round timeline (fault injection included), multi-tenant jobs
+and their sweep facade. Build a :class:`SweepSpec` (with a
+:class:`TimelineSchedule` for a timeline) and run it with
+:func:`simulate` (``device="cuda"`` by default)."""
+from repro_torch.faults import FaultSchedule, RetryPolicy
 from repro_torch.net.api import SweepSpec, simulate
 from repro_torch.net.convert import from_reference
 from repro_torch.net.engine import SweepCase, simulate_round_sweep
+from repro_torch.net.jobs import (
+    FAIRNESS_POLICIES,
+    JobRoundStats,
+    JobSpec,
+    job_fair_split,
+    make_competing_jobs,
+)
 from repro_torch.net.multi_pon import (
     MultiPonTopology,
     cps_waterfill,
@@ -33,6 +42,11 @@ __all__ = [
     "PONConfig",
     "FLRoundWorkload",
     "RoundResult",
+    "FAIRNESS_POLICIES",
+    "JobSpec",
+    "JobRoundStats",
+    "job_fair_split",
+    "make_competing_jobs",
     "MultiPonTopology",
     "cps_waterfill",
     "pon_bg_rates",
@@ -43,6 +57,8 @@ __all__ = [
     "TimelineResult",
     "simulate_timeline_sweep",
     "simulate_timeline_per_round",
+    "FaultSchedule",
+    "RetryPolicy",
     "from_reference",
     "PACKET_BITS",
     "CounterStream",

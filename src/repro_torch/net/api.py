@@ -4,13 +4,15 @@
 ``schedule`` and every sweep-level knob, validates the bundle once and
 runs through :func:`simulate` on a device: the timeline when the
 spec has a schedule, else the round engine. ``backend="jit"`` runs each
-phase in one call (the fused phase kernel on a card). Tenant ``jobs``,
-fault injection and a ``collector`` raise ``NotImplementedError`` naming
-the ROADMAP item that adds them::
+phase in one call (the fused phase kernel on a card; multi-job sweeps
+run the per-cycle loop). A ``collector`` raises ``NotImplementedError``
+naming the ROADMAP item that adds it::
 
     spec = SweepSpec.single_job(clients, model_bits=25e6,
                                 load=0.6, policy="bs")
     spec = spec.with_schedule(TimelineSchedule(n_rounds=8))
+    spec = spec.with_faults(FaultSchedule(dropout_rate=0.05))
+    spec = spec.with_jobs(jobs, fairness="weighted")
     results = simulate(spec)
 """
 from __future__ import annotations
@@ -26,6 +28,7 @@ from repro_torch.net.engine import (
     _round_sweep,
     _sweep_topology,
 )
+from repro_torch.net.jobs import FAIRNESS_POLICIES, validate_case_jobs
 from repro_torch.net.sim import FLRoundWorkload, PONConfig
 from repro_torch.net.timeline import TimelineSchedule, _timeline_sweep
 
@@ -77,8 +80,16 @@ class SweepSpec:
                     f"cases[{b}]: unknown policy {case.policy!r}; "
                     f"have {_POLICIES}"
                 )
+            if case.fairness not in FAIRNESS_POLICIES:
+                raise ValueError(
+                    f"cases[{b}]: unknown fairness {case.fairness!r}; "
+                    f"have {FAIRNESS_POLICIES}"
+                )
             if case.jobs is not None:
-                raise _not_ported("jobs")
+                try:
+                    validate_case_jobs(case.jobs, case.workload)
+                except ValueError as e:
+                    raise ValueError(f"cases[{b}]: {e}") from None
         _sweep_topology(list(self.cases))
         if self.pon is not None and not isinstance(self.pon, PONConfig):
             raise TypeError("pon must be a repro_torch.net.PONConfig or "
@@ -130,12 +141,25 @@ class SweepSpec:
         return replace(self, schedule=schedule)
 
     def with_faults(self, faults, retry=None) -> "SweepSpec":
-        """Fault injection on the spec's schedule (not ported yet)."""
-        raise _not_ported("faults")
+        """Attach fault injection to the spec's schedule."""
+        if self.schedule is None:
+            raise ValueError(
+                "with_faults needs a schedule; call "
+                "with_schedule(TimelineSchedule(...)) first"
+            )
+        sched = replace(
+            self.schedule, faults=faults,
+            retry=retry if retry is not None else self.schedule.retry,
+        )
+        return replace(self, schedule=sched)
 
     def with_jobs(self, jobs, fairness: str = "maxmin") -> "SweepSpec":
-        """Multi-tenant cases (not ported yet)."""
-        raise _not_ported("jobs")
+        """Make every case multi-tenant with the same job tuple."""
+        jobs = tuple(jobs)
+        return replace(self, cases=tuple(
+            replace(case, jobs=jobs, fairness=fairness)
+            for case in self.cases
+        ))
 
 
 def simulate(spec: SweepSpec, cfg: Optional[PONConfig] = None,

@@ -32,16 +32,27 @@ background ring walk loses exactness there is re-run on the per-cycle
 loop on the same device, and :data:`phase_fallbacks` counts the
 re-runs.
 
+Multi-tenant cases (``SweepCase.jobs``) add a job axis: every column
+binds to its owning job, and each cycle's FL capacity is split across
+the jobs by the case's fairness policy (``net.jobs.job_fair_split``)
+before each job's grants: under FCFS one oldest-first waterfill (K2)
+over every job's masked per-ONU backlog, under BS each job's slots
+spending prefix room within its share. A sweep where every case has one
+job runs the single-tenant path bit for bit. The phase kernel carries
+no job axis, so a multi-job sweep with ``backend="jit"`` runs the
+per-cycle loop on the same device, as the JAX package does; its K1 and
+K2 launches are counted like any other.
+
 Public API: ``SweepCase`` + ``simulate_round_sweep``; prefer building a
 ``repro_torch.net.SweepSpec`` and calling ``simulate(spec)``. Multi-round
-timelines run over this engine (``repro_torch.net.timeline``).
-Multi-tenant jobs, fault injection and ``collector`` instrumentation are
-not ported yet and raise.
+timelines, fault injection included, run over this engine
+(``repro_torch.net.timeline``). ``collector`` instrumentation is not
+ported yet and raises.
 """
 from __future__ import annotations
 
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -50,6 +61,7 @@ import torch
 from repro_torch._device import (
     DEFAULT_DEVICE,
     FLOAT,
+    np_sum,
     resolve_device,
     seq_cumsum,
 )
@@ -60,6 +72,12 @@ from repro_torch.kernels.ponsim.ref import hard_rows
 from repro_torch.kernels.traffic.ops import (
     make_stream_key,
     sample_arrival_bits,
+)
+from repro_torch.net.jobs import (
+    FAIRNESS_POLICIES,
+    compute_job_stats,
+    job_fair_split,
+    validate_case_jobs,
 )
 from repro_torch.net.multi_pon import (
     MultiPonTopology,
@@ -74,11 +92,8 @@ EPS_BITS = 1.0       # a client is done below 1 remaining bit
 _IKEY_INF = np.iinfo(np.int64).max // 4
 
 _NOT_PORTED = {
-    "jobs": "multi-tenant jobs (net/jobs.py) are ROADMAP Queue 1 item 8",
     "collector": "collector instrumentation (obs/) is ROADMAP Queue 1 "
                  "item 8",
-    "faults": "fault injection and retries (faults/) are ROADMAP Queue 1 "
-              "item 8",
 }
 _BACKENDS = (None, "numpy", "jit")
 
@@ -100,7 +115,14 @@ class SweepCase:
     from the counter-based stream keyed ``(seed, phase, stream_round,
     pon)``. ``no_dl_ids`` skip the model download (``dl_done`` 0.0).
     Every case of a sweep shares one ``topology`` (``None`` = a single
-    PON). A case with tenant ``jobs`` raises ``NotImplementedError``.
+    PON).
+
+    ``jobs`` (a tuple of ``net.jobs.JobSpec``) makes the case
+    multi-tenant: the jobs partition ``workload.clients``, each job's
+    download broadcasts its own ``model_bits``, and each cycle's FL
+    capacity is split across jobs by ``fairness`` (``"maxmin"``,
+    ``"weighted"`` or ``"deadline"``). A sweep where every case has one
+    job runs the single-tenant path bit for bit and adds per-job stats.
     """
 
     workload: "FLRoundWorkload"  # noqa: F821
@@ -112,7 +134,8 @@ class SweepCase:
     stream_round: int = 0
     no_dl_ids: frozenset = frozenset()
     topology: Optional[MultiPonTopology] = None
-    jobs: Optional[tuple] = None
+    jobs: Optional[tuple] = None          # Tuple[JobSpec, ...]
+    fairness: str = "maxmin"
 
 
 # ---------------------------------------------------------------------------
@@ -459,35 +482,45 @@ class _FLQueues:
                          device=self.device)
         return torch.cat([x, col], dim=1)[:, self.seg_idx]
 
-    def backlog_per_onu(self) -> torch.Tensor:
+    def backlog_per_onu(self, mask=None) -> torch.Tensor:
+        """Per-ONU FL backlog; ``mask`` (tenant jobs) restricts the sum
+        to one job's columns. ``mask=None`` keeps the single-tenant
+        tensors, the aliased identity view included."""
         if self.lay.identity:
-            return self.qb      # aliased view: callers only read it
+            if mask is None:
+                return self.qb  # aliased view: callers only read it
+            return torch.where(mask, self.qb, 0.0)
+        qb = self.qb if mask is None else torch.where(mask, self.qb, 0.0)
         out = torch.zeros((self.B, self.N), dtype=FLOAT,
                           device=self.device)
         if self.single:
-            out[:, self.seg_onus] = self.qb
+            out[:, self.seg_onus] = qb
         else:
             # np.add.reduceat order: members added left to right
-            seg = self._segments(self.qb, 0.0)
+            seg = self._segments(qb, 0.0)
             acc = seg[:, :, 0]
             for j in range(1, seg.shape[2]):
                 acc = acc + seg[:, :, j]
             out[:, self.seg_onus] = acc
         return out
 
-    def _heads(self):
+    def _heads(self, mask=None):
         """``(has, pos)``: whether each ONU segment has a queued head and
-        the column of its oldest pushed client."""
+        the column of its oldest pushed client (of ``mask``'s columns)."""
         nU = self.lay.n_clients
         nonzero = self.qb > 0.0
+        if mask is not None:
+            nonzero = nonzero & mask
         pk = torch.where(nonzero, self.push_key, 0)
         combined = torch.where(nonzero, pk * nU + self.pos, _IKEY_INF)
         m = self._segments(combined, _IKEY_INF).amin(dim=2)
         has = m < _IKEY_INF
         return has, torch.where(has, m % nU, 0)
 
-    def hol_per_onu(self) -> torch.Tensor:
+    def hol_per_onu(self, mask=None) -> torch.Tensor:
         live = self.qb > 0.0
+        if mask is not None:
+            live = live & mask
         if self.lay.identity:
             return torch.where(live, self.push_time, torch.inf)
         out = torch.full((self.B, self.N), torch.inf, dtype=FLOAT,
@@ -496,29 +529,38 @@ class _FLQueues:
             out[:, self.seg_onus] = torch.where(live, self.push_time,
                                                 torch.inf)
             return out
-        has, pos = self._heads()
+        has, pos = self._heads(mask)
         out[:, self.seg_onus] = torch.where(
             has, torch.gather(self.push_time, 1, pos), torch.inf)
         return out
 
-    def serve(self, grants_onu: torch.Tensor, backlog_onu: torch.Tensor):
+    def serve(self, grants_onu: torch.Tensor, backlog_onu: torch.Tensor,
+              mask=None):
         """Drain FIFO heads per ONU, reproducing ``OnuQueue.serve``'s
-        1-bit segment compaction (which also charges the grant)."""
+        1-bit segment compaction (which also charges the grant). With
+        ``mask`` (tenant jobs) the grant is one job's share and only that
+        job's columns drain; ``backlog_onu`` is then the same-masked
+        per-ONU backlog."""
         lay = self.lay
         if self.single:
             budget = (grants_onu if lay.identity
                       else grants_onu[:, self.onu])
             act = (budget > CAP_EPS) & (self.qb > 0.0)
+            if mask is not None:
+                act = act & mask
             take = torch.where(act, torch.minimum(budget, self.qb), 0.0)
             drop = act & (self.qb - take <= SEG_EPS)
             self.qb = torch.where(drop, 0.0, self.qb - take)
             return
         nU = lay.n_clients
         full = (grants_onu > 0.0) & (grants_onu == backlog_onu)
-        self.qb = torch.where(full[:, self.onu], 0.0, self.qb)
+        zero = full[:, self.onu]
+        if mask is not None:
+            zero = zero & mask
+        self.qb = torch.where(zero, 0.0, self.qb)
         budget = torch.where(full, 0.0, grants_onu)[:, self.seg_onus]
         while True:
-            has, pos = self._heads()
+            has, pos = self._heads(mask)
             srv = has & (budget > CAP_EPS)
             if not bool(srv.any()):
                 break
@@ -614,6 +656,135 @@ def _slot_grants(slots: _Slots, backlog_onu, t: float, cyc: float,
     return out.scatter_add_(1, onu, grants)
 
 
+class _JobSlots:
+    """A tenant BS phase's stacked slot arrays (``_stack_slots_jobs``):
+    per-slot rates and owning jobs, and each job's slots of a row in slot
+    order (``run``, padded with the dummy column ``S``).
+
+    A client has one slot and BS takes client ids below ``n_onus *
+    n_pons``, so the slots of a row sit on distinct ONUs whatever jobs
+    own them: their grants never meet in a scatter, and the reference's
+    ``np.add.at`` order cannot matter.
+    """
+
+    def __init__(self, slot_arrays, cyc: float, n_jobs: int, device):
+        ts, te, onu, rate, valid, sjob = slot_arrays
+        B, S = ts.shape
+        self.ts, self.valid = ts, valid
+        self.te_g = te + cyc
+        self.S = S
+        runs = [[np.nonzero(valid[b] & (sjob[b] == j))[0]
+                 for j in range(n_jobs)] for b in range(B)]
+        L = max((len(c) for row in runs for c in row), default=0) or 1
+        run = np.full((B, n_jobs, L), S, np.int64)
+        for b, row in enumerate(runs):
+            for j, cols in enumerate(row):
+                run[b, j, :len(cols)] = cols
+        dev = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        self.d_ts, self.d_te_g, self.d_valid = dev(ts), dev(self.te_g), \
+            dev(valid)
+        self.d_onu, self.d_rate, self.d_sjob = dev(onu), dev(rate), \
+            dev(sjob)
+        self.d_run = dev(run.reshape(B, -1))
+        self.device = device
+
+    def live(self, t: float, cyc: float) -> bool:
+        """Whether any slot wants capacity this cycle: active ones, or
+        expired ones (their best-effort tail)."""
+        return bool((self.valid & ((self.ts < t + cyc)
+                                   | (self.te_g <= t))).any())
+
+
+def _job_demand(per_job: torch.Tensor) -> torch.Tensor:
+    """``(B, J)`` row totals of ``per_job`` ``(J, B, n)``, each in
+    ``np.sum``'s order."""
+    J, B, n = per_job.shape
+    return np_sum(per_job.reshape(J * B, n)).reshape(J, B).T
+
+
+def _job_grants_fcfs(fl: _FLQueues, ctx, cap_fl, t: float):
+    """Per-job FCFS grant plan: the FL residual capacity split across
+    jobs by the fairness policy on each job's total backlog, then each
+    job's share poured oldest-first over its own queues: one waterfill
+    (K2) over rows ``(job, row)``, which are independent as the
+    reference's one waterfill a job are.
+
+    Returns ``(mask, grants_onu, backlog_onu)`` triples, one a job.
+    """
+    masks = ctx["masks"]
+    bos = torch.stack([fl.backlog_per_onu(m) for m in masks])  # (J, B, N)
+    J, B, N = bos.shape
+    shares = job_fair_split(_job_demand(bos), cap_fl, ctx["fairness"],
+                            weights=ctx["weights"],
+                            slack=ctx["deadlines"] - t)
+    grants = _waterfill(
+        bos.reshape(J * B, N),
+        lambda: torch.stack([fl.hol_per_onu(m) for m in masks]
+                            ).reshape(J * B, N),
+        shares.T.reshape(J * B)).reshape(J, B, N)
+    return [(m, grants[j], bos[j]) for j, m in enumerate(masks)]
+
+
+def _job_grants_bs(slots: _JobSlots, fl: _FLQueues, ctx, t: float,
+                   cyc: float, cap, n_onus: int, cps_cap: Optional[float],
+                   n_pons: int):
+    """Per-job SlicedDBA grant plan.
+
+    Slot wants are ``_slot_grants``' (overlap * slice rate, capped by
+    the owning job's backlog at the slot's ONU), with a best-effort
+    tail: an expired slot keeps asking for its slice rate, so backlog
+    that inter-job fairness or the CPS re-cap left behind drains. The
+    wants add up to per-``(row, job)`` demand for the fairness split
+    (re-capped by the CPS waterfill over each case's flattened
+    ``(pon, job)`` shares when a CPS rate binds), and each job's slots
+    then spend prefix room within the job's share.
+    """
+    masks = ctx["masks"]
+    J = len(masks)
+    bos = torch.stack([fl.backlog_per_onu(m) for m in masks])  # (J, B, N)
+    B = bos.shape[1]
+    if not slots.live(t, cyc):
+        zero = torch.zeros((B, n_onus), dtype=FLOAT, device=slots.device)
+        return [(m, zero, bos[j]) for j, m in enumerate(masks)]
+    t_end = t + cyc
+    active = slots.d_valid & (slots.d_ts < t_end) & (slots.d_te_g > t)
+    tail = slots.d_valid & (slots.d_te_g <= t)
+    overlap = (torch.clamp(slots.d_te_g, max=t_end)
+               - torch.clamp(slots.d_ts, min=t))
+    want = torch.where(
+        active, slots.d_rate * torch.clamp(overlap, min=0.0),
+        torch.where(tail, slots.d_rate * cyc, 0.0))
+    bidx = torch.arange(B, device=slots.device)[:, None]
+    want = torch.minimum(want, bos[slots.d_sjob, bidx, slots.d_onu])
+    want = torch.where(want > 0.0, want, 0.0)
+    jobs = torch.arange(J, device=slots.device)[:, None, None]
+    shares = job_fair_split(
+        _job_demand(torch.where(slots.d_sjob[None] == jobs, want[None],
+                                0.0)),
+        cap, ctx["fairness"], weights=ctx["weights"],
+        slack=ctx["deadlines"] - t)
+    if cps_cap is not None:
+        # the (case, pon, job) waterfill: a case's rows are its n_pons
+        # consecutive rows, so its P*J shares form one waterfill row
+        shares = cps_waterfill(shares.reshape(-1, n_pons * J),
+                               cps_cap).reshape(B, J)
+    # each job's prefix over its own slots, in slot order (the other
+    # jobs' slots add zeros to it in the reference)
+    padded = torch.cat([want, torch.zeros((B, 1), dtype=FLOAT,
+                                          device=slots.device)], 1)
+    run = torch.gather(padded, 1, slots.d_run)
+    prefix = torch.zeros_like(padded).scatter_(
+        1, slots.d_run, seq_cumsum(run.reshape(B * J, -1)).reshape(B, -1)
+    )[:, :slots.S]
+    room = torch.gather(shares, 1, slots.d_sjob) - (prefix - want)
+    grants = torch.minimum(want, torch.clamp(room, min=0.0))
+    # padding slots (job 0, ONU 0) add exact zeros
+    out = torch.zeros((J * B * n_onus,), dtype=FLOAT, device=slots.device)
+    flat = ((slots.d_sjob * B + bidx) * n_onus + slots.d_onu).reshape(-1)
+    out = out.scatter_add_(0, flat, grants.reshape(-1)).reshape(J, B, n_onus)
+    return [(m, out[j], bos[j]) for j, m in enumerate(masks)]
+
+
 # ---------------------------------------------------------------------------
 # phase runner
 # ---------------------------------------------------------------------------
@@ -626,7 +797,8 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
                cap_row: Optional[np.ndarray] = None,
                cps_cap: Optional[float] = None, n_pons: int = 1,
                deadline_row: Optional[np.ndarray] = None,
-               outage_row: Optional[np.ndarray] = None, *, device):
+               outage_row: Optional[np.ndarray] = None, jobs_ctx=None, *,
+               device):
     """One transfer phase for a policy-homogeneous batch of rows.
 
     Host numpy in and out; the cycle loop runs on ``device``. Rows are
@@ -637,7 +809,10 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
     at ``max_t`` get ``t + propagation`` when ``fill_unfinished``.
     ``deadline_row`` ``(B,)`` gives each row its own cutoff (``inf`` =
     none); ``outage_row`` ``(B, 2)`` masks a row's capacity to zero for
-    cycles starting in ``[start, end)``.
+    cycles starting in ``[start, end)``. ``jobs_ctx`` (multi-tenant
+    sweeps: each job's column mask, the rows' job weights and deadlines,
+    the fairness policy) splits each cycle's FL capacity across jobs
+    before the grants, and each job drains only its own queues.
     """
     B = rem_init.shape[0]
     N = cfg.n_onus
@@ -667,8 +842,12 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
     # only gets the residual: the BS phase needs no background at all
     use_bg = mode == "fcfs"
     bg = _BgQueues(B, N, device) if use_bg else None
-    slots = (_Slots(slot_arrays, cyc, device) if slot_arrays is not None
-             else None)
+    if slot_arrays is None:
+        slots = None
+    elif jobs_ctx is None:
+        slots = _Slots(slot_arrays, cyc, device)
+    else:
+        slots = _JobSlots(slot_arrays, cyc, len(jobs_ctx["masks"]), device)
 
     n_left = int(np.count_nonzero(~done_h & lay.part))
     waiting = lay.part & ~done_h          # host: readiness needs no device
@@ -709,6 +888,7 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
         # the idle stretch before the first ready client skips FL work
         if n_left > n_wait:
             backlog_onu = fl.backlog_per_onu()
+            plan = None
             if mode == "fcfs":
                 if cps_cap is None:
                     eff = cap_cyc
@@ -720,8 +900,15 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
                                         cps_cap).reshape(-1)
                 bg_grants = _waterfill(bg.backlog, bg.hol_key, eff)
                 cap_fl = eff - bg_grants.sum(dim=1)
-                fl_grants = _waterfill(backlog_onu, fl.hol_per_onu, cap_fl)
+                if jobs_ctx is None:
+                    fl_grants = _waterfill(backlog_onu, fl.hol_per_onu,
+                                           cap_fl)
+                else:
+                    plan = _job_grants_fcfs(fl, jobs_ctx, cap_fl, t)
                 bg.serve(bg_grants, k)
+            elif jobs_ctx is not None:
+                plan = _job_grants_bs(slots, fl, jobs_ctx, t, cyc, cap_cyc,
+                                      N, cps_cap, n_pons)
             else:
                 fl_grants = _slot_grants(slots, backlog_onu, t, cyc,
                                          cap_cyc, N)
@@ -732,9 +919,17 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
                     if bool((eff < want).any()):
                         fl_grants = _slot_grants(slots, backlog_onu, t,
                                                  cyc, eff, N)
+            if plan is not None:
+                fl_grants = sum(g for _, g, _ in plan)
             if bool((fl_grants > 0.0).any()):
                 prev_qb = fl.qb.clone()
-                fl.serve(fl_grants, backlog_onu)
+                if plan is None:
+                    fl.serve(fl_grants, backlog_onu)
+                else:
+                    # the jobs' columns are disjoint: a job with no grant
+                    # drains nothing
+                    for mask_j, g_j, bo_j in plan:
+                        fl.serve(g_j, bo_j, mask_j)
                 rem, done, done_t = _credit(
                     rem, done, done_t, prev_qb - fl.qb, t + cyc + prop)
                 n_left = int((~done & part).count_nonzero())
@@ -798,6 +993,41 @@ def _stack_slots(per_row, n_onus: int):
     return ts, te, onu, rate, valid
 
 
+def _stack_slots_jobs(per_row, n_onus: int):
+    """Pad per-``(row, job)`` slot arrays to a common ``(B, S)`` shape.
+
+    ``per_row[b]`` lists ``(job_index, spec, arrays)`` in job order.
+    ``rate`` is per slot (each job carves its own slice) and ``sjob``
+    binds every slot to its job (padding binds to job 0 with ``valid``
+    False and wants nothing).
+    """
+    B = len(per_row)
+    S = max(
+        (sum(len(a["client_id"]) for _, _, a in row) for row in per_row),
+        default=0,
+    ) or 1
+    ts = np.full((B, S), np.inf)
+    te = np.full((B, S), -np.inf)
+    onu = np.zeros((B, S), np.int64)
+    rate = np.zeros((B, S))
+    valid = np.zeros((B, S), bool)
+    sjob = np.zeros((B, S), np.int64)
+    for b, row in enumerate(per_row):
+        s0 = 0
+        for j, spec, a in row:
+            s = len(a["client_id"])
+            if not s:
+                continue
+            ts[b, s0:s0 + s] = a["t_start"]
+            te[b, s0:s0 + s] = a["t_end"]
+            onu[b, s0:s0 + s] = a["client_id"] % n_onus
+            rate[b, s0:s0 + s] = spec.bandwidth_bps
+            valid[b, s0:s0 + s] = True
+            sjob[b, s0:s0 + s] = j
+            s0 += s
+    return ts, te, onu, rate, valid, sjob
+
+
 def _sweep_topology(cases: Sequence[SweepCase]) -> MultiPonTopology:
     """The one topology shared by every case (None ≡ trivial)."""
     topos = {case.topology for case in cases}
@@ -810,6 +1040,80 @@ def _sweep_topology(cases: Sequence[SweepCase]) -> MultiPonTopology:
     if any(case.topology is None for case in cases) and not topo.trivial:
         raise ValueError("sweep cases must share one MultiPonTopology")
     return topo
+
+
+def _check_jobs_cases(cases: Sequence[SweepCase]):
+    """Every case carries jobs partitioning its workload, or none do."""
+    for b, case in enumerate(cases):
+        if case.jobs is None:
+            raise ValueError(
+                f"cases[{b}] has no jobs but the sweep carries jobs; "
+                "give every case a jobs tuple (or none)"
+            )
+        try:
+            validate_case_jobs(case.jobs, case.workload)
+        except ValueError as e:
+            raise ValueError(f"cases[{b}]: {e}") from None
+
+
+def _multi_job_fairness(cases: Sequence[SweepCase], ul_deadline_s,
+                        ul_outage_s) -> str:
+    """Validate a multi-tenant sweep; returns its fairness policy."""
+    if ul_deadline_s is not None or ul_outage_s is not None:
+        raise ValueError(
+            "multi-job sweeps take per-job deadlines "
+            "(JobSpec.deadline_s under fairness='deadline'), not "
+            "round-level ul_deadline_s/ul_outage_s"
+        )
+    fair = {case.fairness for case in cases}
+    if len(fair) != 1:
+        raise ValueError(
+            f"sweep cases must share one fairness policy; "
+            f"got {sorted(fair)}"
+        )
+    fairness = fair.pop()
+    if fairness not in FAIRNESS_POLICIES:
+        raise ValueError(
+            f"unknown fairness policy {fairness!r}; "
+            f"have {FAIRNESS_POLICIES}"
+        )
+    for b, case in enumerate(cases):
+        if case.dl_arrivals is not None or case.ul_arrivals is not None:
+            raise ValueError(
+                f"cases[{b}]: injected arrivals are a single-tenant "
+                "parity hook; multi-job cases draw counter streams"
+            )
+        if case.no_dl_ids:
+            raise ValueError(
+                f"cases[{b}]: no_dl_ids (deadline carriers) do not "
+                "compose with multi-job cases"
+            )
+    return fairness
+
+
+def _single_job_sweep(cfg, cases: Sequence[SweepCase], **kw):
+    """A sweep whose every case has one job runs the single-tenant path
+    (bit for bit a sweep of the same workloads without jobs) and gets
+    its ``job_stats`` afterwards."""
+    from repro_torch.net.sim import FLRoundWorkload
+
+    norm = []
+    for case in cases:
+        job = case.jobs[0]
+        wl = case.workload
+        if float(job.model_bits) != float(wl.model_bits):
+            wl = FLRoundWorkload(
+                clients=wl.clients, model_bits=float(job.model_bits),
+                t_aggregate=wl.t_aggregate,
+            )
+        norm.append(replace(case, jobs=None, workload=wl))
+    results = _round_sweep(cfg, norm, **kw)
+    topo = _sweep_topology(list(cases))
+    for case, res in zip(cases, results):
+        res.job_stats = compute_job_stats(
+            case.jobs, res.ul_done, cfg.n_onus, topo.n_pons
+        )
+    return results
 
 
 def _round_sweep(cfg, cases: Sequence[SweepCase],
@@ -830,6 +1134,10 @@ def _round_sweep(cfg, cases: Sequence[SweepCase],
     ``[start, end)`` windows) darkens a row's capacity. ``backend``
     ``None``/``"numpy"`` runs the per-cycle loop, ``"jit"`` each phase
     in one call (injected arrival matrices are not taken there).
+    Multi-tenant cases (``SweepCase.jobs``) split each cycle's FL
+    capacity across jobs by their shared fairness policy; the phase
+    kernel has no job axis, so with more than one job a case runs the
+    per-cycle loop whatever ``backend`` says, as the JAX package does.
     """
     from repro_torch.net.sim import RoundResult
 
@@ -837,13 +1145,24 @@ def _round_sweep(cfg, cases: Sequence[SweepCase],
     cases = list(cases)
     if backend not in _BACKENDS:
         raise ValueError(f"unknown engine backend {backend!r}")
-    if any(case.jobs is not None for case in cases):
-        raise _not_ported("jobs")
     use_jit = backend == "jit"
     if use_jit and any(case.dl_arrivals is not None
                        or case.ul_arrivals is not None for case in cases):
         raise ValueError("backend='jit' does not support injected arrival "
                          "matrices; use the numpy backend")
+    jobs_any = any(case.jobs is not None for case in cases)
+    fairness = None
+    if jobs_any:
+        _check_jobs_cases(cases)
+        if not any(len(case.jobs) > 1 for case in cases):
+            return _single_job_sweep(
+                cfg, cases, t_round_hint=t_round_hint, max_t=max_t,
+                ul_deadline_s=ul_deadline_s, ul_outage_s=ul_outage_s,
+                backend=backend, device=device,
+            )
+        fairness = _multi_job_fairness(cases, ul_deadline_s, ul_outage_s)
+        # the phase kernel carries no job axis: the per-cycle loop runs
+        use_jit = False
     topo = _sweep_topology(cases)
     P = topo.n_pons
     n_local = cfg.n_onus
@@ -880,7 +1199,12 @@ def _round_sweep(cfg, cases: Sequence[SweepCase],
     cps_cap = topo.cps_capacity_bits(cfg)
     per_onu_rate = np.stack([
         pon_bg_rates(c.workload.clients, c.workload.model_bits, c.load,
-                     cfg, topo, t_round_hint)
+                     cfg, topo, t_round_hint,
+                     model_bits_by_client=(
+                         None if c.jobs is None else
+                         {cid: float(job.model_bits)
+                          for job in c.jobs for cid in job.clients}
+                     ))
         for c in cases
     ])                                                  # (B, n_pons)
     per_case_dl = isinstance(ul_deadline_s, (list, tuple, np.ndarray))
@@ -929,6 +1253,48 @@ def _round_sweep(cfg, cases: Sequence[SweepCase],
             for p in range(P):
                 no_dl[b * P + p] = np.isin(lay.cid_of[p], skip)
     no_dl &= lay.part
+
+    # multi-tenant jobs: every live column binds to its job (jcol) and
+    # carries its job's model bits (mb); every row knows its jobs'
+    # weights and soft deadlines. Cases with fewer jobs pad to the max J
+    # with phantom jobs that want nothing and get nothing.
+    jobs_info = None
+    if jobs_any:
+        J = max(len(case.jobs) for case in cases)
+        jcol = np.full((R, lay.n_clients), -1, np.int64)
+        mb_col = np.zeros((R, lay.n_clients))
+        w_row = np.ones((R, J))
+        dl_jrow = np.full((R, J), np.inf)
+        for b, case in enumerate(cases):
+            jidx_of = {cid: j for j, job in enumerate(case.jobs)
+                       for cid in job.clients}
+            mb_of = {cid: float(job.model_bits) for job in case.jobs
+                     for cid in job.clients}
+            for p in range(P):
+                r = b * P + p
+                for col in np.nonzero(lay.part[r])[0]:
+                    cid = int(lay.cid_of[p, col])
+                    jcol[r, col] = jidx_of[cid]
+                    mb_col[r, col] = mb_of[cid]
+            for j, job in enumerate(case.jobs):
+                w_row[b * P:(b + 1) * P, j] = float(job.weight)
+                if job.deadline_s is not None:
+                    dl_jrow[b * P:(b + 1) * P, j] = float(job.deadline_s)
+        jobs_info = {"J": J, "jcol": jcol, "mb": mb_col, "w": w_row,
+                     "dl": dl_jrow, "fairness": fairness}
+
+    def jobs_ctx_for(sel):
+        """The rows' per-job phase context (None when single-tenant)."""
+        if jobs_info is None:
+            return None
+        jc = torch.as_tensor(jobs_info["jcol"][sel], device=device)
+        return {
+            "masks": [jc == j for j in range(jobs_info["J"])],
+            "weights": torch.as_tensor(jobs_info["w"][sel], device=device),
+            "deadlines": torch.as_tensor(jobs_info["dl"][sel],
+                                         device=device),
+            "fairness": jobs_info["fairness"],
+        }
 
     def providers(sel, phase):
         entries = []
@@ -999,18 +1365,22 @@ def _round_sweep(cfg, cases: Sequence[SweepCase],
     )
     if len(fcfs_rows):
         sub = lay.rows(fcfs_rows)
-        bits = np.array([cases[row_case[r]].workload.model_bits
-                         for r in fcfs_rows])[:, None]
+        if jobs_info is None:
+            bits = np.array([cases[row_case[r]].workload.model_bits
+                             for r in fcfs_rows])[:, None]
+        else:
+            bits = jobs_info["mb"][fcfs_rows]
         rem0 = np.where(sub.part & ~no_dl[fcfs_rows], bits, 0.0)
         ready0 = np.zeros_like(rem0)
         dl_done[fcfs_rows], _ = run_phase(
             sub, rem0, ready0, fcfs_rows, "dl", "fcfs",
             max_t=max_t, cap_row=cap_row[fcfs_rows], cps_cap=cps_cap,
-            n_pons=P,
+            n_pons=P, jobs_ctx=jobs_ctx_for(fcfs_rows),
         )
     for r in bs_rows:
         b, p = int(row_case[r]), int(row_pon[r])
-        mb = cases[b].workload.model_bits
+        mb = (cases[b].workload.model_bits if jobs_info is None
+              else jobs_info["mb"][r])
         t_bcast = mb / (rates_pon[p] * cfg.efficiency) + cfg.propagation_s
         dl_done[r] = np.where(lay.part[r], t_bcast, np.nan)
     dl_done = np.where(no_dl, 0.0, dl_done)
@@ -1032,6 +1402,7 @@ def _round_sweep(cfg, cases: Sequence[SweepCase],
             deadline_row=None if dl_row is None else dl_row[fcfs_rows],
             outage_row=(None if outage_row is None
                         else outage_row[fcfs_rows]),
+            jobs_ctx=jobs_ctx_for(fcfs_rows),
         )
     if len(bs_rows):
         per_row = []
@@ -1041,34 +1412,48 @@ def _round_sweep(cfg, cases: Sequence[SweepCase],
                 int(lay.cid_of[p, j]): float(dl_done[r, j])
                 for j in range(lay.n_clients) if lay.part[r, j]
             }
-            profiles = [
-                ClientProfile(
-                    client_id=c.client_id,
-                    t_ud=c.t_ud,
-                    t_dl=dl_map[c.client_id],
-                    m_ud_bits=c.m_ud_bits,
-                    distance_m=c.distance_m,
-                )
-                for c in cases[b].workload.clients
-                if c.client_id in dl_map
-            ]
-            spec, arrays = _bs_slice(
-                profiles, float(rates_pon[p] * cfg.efficiency)
-            )
-            if P == 1:
-                specs[b] = spec
-            per_row.append((spec, arrays))
+
+            def profiles(keep=None):
+                return [
+                    ClientProfile(
+                        client_id=c.client_id,
+                        t_ud=c.t_ud,
+                        t_dl=dl_map[c.client_id],
+                        m_ud_bits=c.m_ud_bits,
+                        distance_m=c.distance_m,
+                    )
+                    for c in cases[b].workload.clients
+                    if c.client_id in dl_map
+                    and (keep is None or c.client_id in keep)
+                ]
+
+            capacity = float(rates_pon[p] * cfg.efficiency)
+            if jobs_info is None:
+                spec, arrays = _bs_slice(profiles(), capacity)
+                if P == 1:
+                    specs[b] = spec
+                per_row.append((spec, arrays))
+            else:
+                # each job carves its own slice over its own clients;
+                # the slots stay grouped job-major
+                per_row.append([
+                    (j, *_bs_slice(profiles(set(job.clients)), capacity))
+                    for j, job in enumerate(cases[b].jobs)])
         sub = lay.rows(bs_rows)
         rem0 = np.where(sub.part, sub.m_ud, 0.0)
         ready = np.where(sub.part, ready_t[bs_rows], np.inf)
         ul_done[bs_rows], ul_rem[bs_rows] = run_phase(
             sub, rem0, ready, bs_rows, "ul", "bs",
-            slot_arrays=_stack_slots(per_row, n_local), max_t=ul_max_t,
+            slot_arrays=(_stack_slots(per_row, n_local)
+                         if jobs_info is None
+                         else _stack_slots_jobs(per_row, n_local)),
+            max_t=ul_max_t,
             fill_unfinished=ul_deadline_s is None,
             cap_row=cap_row[bs_rows], cps_cap=cps_cap, n_pons=P,
             deadline_row=None if dl_row is None else dl_row[bs_rows],
             outage_row=(None if outage_row is None
                         else outage_row[bs_rows]),
+            jobs_ctx=jobs_ctx_for(bs_rows),
         )
 
     # ---- assemble --------------------------------------------------------
@@ -1117,6 +1502,8 @@ def _round_sweep(cfg, cases: Sequence[SweepCase],
             load=case.load,
             slice_spec=specs.get(b),
             ul_remaining=remaining if has_dl else None,
+            job_stats=(None if case.jobs is None else
+                       compute_job_stats(case.jobs, ul, n_local, P)),
         ))
     return results
 

@@ -3,7 +3,8 @@
 ``n_pons`` wavelength/OLT segments, each a full TDM-PON with its own
 cycle capacity and DBA, converge on a CPS link. Per polling cycle the
 CPS capacity is waterfilled across the PONs (max-min fair,
-:func:`cps_waterfill`, shared with ``kernels/ponsim``). Client
+:func:`cps_waterfill`, shared with ``kernels/ponsim``; its cap is a
+float, or one per row as the tenant jobs' fairness split passes it). Client
 ``i`` lives on global ONU ``i % (n_pons * cfg.n_onus)``: PON
 ``onu // cfg.n_onus``, local ONU ``onu % cfg.n_onus``. The per-PON
 cycle-level oracle of the JAX package is not ported.
@@ -75,10 +76,13 @@ class MultiPonTopology:
 
 def pon_bg_rates(clients: Sequence[ClientProfile], model_bits: float,
                  total_load: float, cfg, topo: MultiPonTopology,
-                 t_round_hint: float = 10.0) -> np.ndarray:
+                 t_round_hint: float = 10.0,
+                 model_bits_by_client=None) -> np.ndarray:
     """Per-ONU background rate ``(n_pons,)`` of each wavelength segment:
     what makes up ``total_load`` on that PON beside the training traffic
-    of the clients placed on it."""
+    of the clients placed on it. ``model_bits_by_client`` (tenant jobs)
+    prices each client's download at its own job's model size; ``None``
+    keeps the single-job arithmetic."""
     rates = topo.rates(cfg)
     total = topo.total_onus(cfg)
     out = np.zeros(topo.n_pons)
@@ -87,6 +91,11 @@ def pon_bg_rates(clients: Sequence[ClientProfile], model_bits: float,
               if (c.client_id % total) // cfg.n_onus == p]
         if not cl:
             training_rate = 0.0
+        elif model_bits_by_client is not None:
+            training_rate = sum(
+                model_bits_by_client[c.client_id] + c.m_ud_bits
+                for c in cl
+            ) / max(t_round_hint, 1e-9)
         else:
             training_rate = (
                 len(cl)

@@ -49,6 +49,9 @@ class RoundResult:
     # under an upload deadline: bits still queued per client at the
     # cutoff (their ul_done is NaN)
     ul_remaining: Optional[Dict[int, float]] = None
+    # multi-tenant cases: job_id -> its hierarchical aggregation times
+    # (net.jobs.JobRoundStats); None for single-tenant cases
+    job_stats: Optional[Dict[int, "JobRoundStats"]] = None  # noqa: F821
 
     @property
     def comm_overhead(self) -> float:

@@ -24,21 +24,34 @@ Deadline policies: ``"defer"`` (carry the unserved bits), ``"drop"``
 (discard them; the client re-enters fresh) and ``"partial"`` (discard,
 but report the served fraction as a usable partial update).
 
-Not ported yet, and raising ``NotImplementedError`` (ROADMAP Queue 1
-item 8): fault injection and retries (``TimelineSchedule.faults`` /
-``retry``), multi-tenant ``SweepCase.jobs`` and a ``collector``. The
-cycle-level oracle ``simulate_timeline_reference`` is item 9.
+Fault injection (``TimelineSchedule.faults``, ``repro_torch.faults``):
+dropout truncates a victim's upload before the round (the engine, and
+the phase kernel on jit, see an ordinary smaller update), outages reach
+the engine as per-row ``[start, end)`` windows that darken a PON's
+capacity, and payload loss is drawn for every pending client. Failed
+uploads re-send under ``retry`` with backoff, or give up; quorum counts
+only un-faulted arrivals. Dropout and loss couple rounds (the drivers
+go round by round); outage-only schedules still fold.
+
+Multi-tenant cases (``SweepCase.jobs``) always fold: each round keeps
+the jobs active under their cadence (``JobSpec.period``/``phase``) and
+reports each job's sync in ``TimelineRound.job_sync``.
+
+Not ported yet: a ``collector`` raises ``NotImplementedError`` (ROADMAP
+Queue 1 item 8); the cycle-level oracle ``simulate_timeline_reference``
+is item 9.
 """
 from __future__ import annotations
 
 import math
 import warnings
 from dataclasses import dataclass, field, replace
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 
 from repro_torch._device import DEFAULT_DEVICE
+from repro_torch.faults import FaultSchedule, RetryPolicy
 from repro_torch.net.engine import SweepCase, _not_ported, _round_sweep
 from repro_torch.net.sim import FLRoundWorkload, RoundResult
 
@@ -68,8 +81,16 @@ class TimelineSchedule:
     completed upload (no ``deadline_s``). ``quorum_frac``: a deadlined
     round commits only when ``ceil(quorum_frac * n_pending)`` uploads
     arrived, else its deadline doubles and it re-runs, up to
-    ``quorum_max_extends`` times. ``faults`` and ``retry`` mirror the
-    reference's fields; only ``None`` is ported.
+    ``quorum_max_extends`` times; only un-faulted arrivals count.
+    ``faults`` (a :class:`repro_torch.faults.FaultSchedule`): client
+    dropout, upstream outage windows and payload loss from
+    counter-based streams. A failed upload re-sends under ``retry``
+    (:class:`repro_torch.faults.RetryPolicy`, ``RetryPolicy()`` by
+    default): the client backs off ``delay_rounds(attempt)`` rounds,
+    during which the membership mask cannot re-admit it, then re-enters
+    like a carrier (no download, zero compute, its pending bits); past
+    ``max_retries`` it gives up and re-enters fresh. A ``trivial``
+    schedule is bitwise ``faults=None``.
 
     Array inputs are normalised and copied once, at construction.
     """
@@ -80,14 +101,12 @@ class TimelineSchedule:
     deadline_s: Optional[object] = None
     deadline_policy: str = "defer"
     buffer_k: Optional[int] = None
-    faults: Optional[object] = None
-    retry: Optional[object] = None
+    faults: Optional[FaultSchedule] = None
+    retry: Optional[RetryPolicy] = None
     quorum_frac: Optional[float] = None
     quorum_max_extends: int = 2
 
     def __post_init__(self):
-        if self.faults is not None or self.retry is not None:
-            raise _not_ported("faults")
         if self.n_rounds < 1:
             raise ValueError("n_rounds must be >= 1")
         if self.deadline_policy not in DEADLINE_POLICIES:
@@ -133,6 +152,15 @@ class TimelineSchedule:
                     "it cannot be combined with deadline_s"
                 )
             object.__setattr__(self, "buffer_k", int(self.buffer_k))
+        if self.faults is not None and not isinstance(
+            self.faults, FaultSchedule
+        ):
+            raise TypeError(
+                "faults must be a repro_torch.faults.FaultSchedule")
+        if self.retry is not None and not isinstance(
+            self.retry, RetryPolicy
+        ):
+            raise TypeError("retry must be a repro_torch.faults.RetryPolicy")
         if self.quorum_frac is not None:
             q = float(self.quorum_frac)
             if not 0.0 < q <= 1.0:
@@ -161,12 +189,26 @@ class TimelineSchedule:
         return self.buffer_k is not None
 
     @property
+    def active_faults(self) -> Optional[FaultSchedule]:
+        """The fault schedule, or None when absent or trivial: every
+        fault branch gates on this, which makes a trivial
+        ``FaultSchedule()`` bitwise ``faults=None``."""
+        f = self.faults
+        return None if f is None or f.trivial else f
+
+    @property
+    def retry_policy(self) -> RetryPolicy:
+        return self.retry if self.retry is not None else RetryPolicy()
+
+    @property
     def couples_rounds(self) -> bool:
         """True when state crosses round boundaries (no folding)."""
+        faults = self.active_faults
         return (
             self.asynchronous
             or (self.deadline_s is not None
                 and self.deadline_policy == "defer")
+            or (faults is not None and faults.couples_rounds)
             or self.quorum_frac is not None
         )
 
@@ -201,16 +243,20 @@ class TimelineRound:
     dropped: Dict[int, float] = field(default_factory=dict)
     # "partial": served fraction of each client cut at the deadline
     partial: Dict[int, float] = field(default_factory=dict)
-    # fault outcomes, kept for the reference's layout (always empty
-    # until fault injection is ported)
+    # fault outcomes: clients that died mid-upload (the bits they served
+    # first, wasted wire time) and completed uploads that arrived
+    # corrupted
     failed: Dict[int, float] = field(default_factory=dict)
     lost: List[int] = field(default_factory=list)
+    # failed clients' re-send round, and the clients that gave up
     retry_at: Dict[int, int] = field(default_factory=dict)
     gave_up: List[int] = field(default_factory=list)
     # quorum: whether the round met it (None: no quorum) and how often
     # its deadline doubled
     quorum_met: Optional[bool] = None
     deadline_extensions: int = 0
+    # multi-tenant cases: job_id -> the job's sync this round (empty for
+    # single-tenant rounds and for jobs idle under their cadence)
     job_sync: Dict[int, float] = field(default_factory=dict)
 
 
@@ -235,28 +281,91 @@ class TimelineResult:
 # ---------------------------------------------------------------------------
 
 
+class _RetryEntry(NamedTuple):
+    """An in-flight re-send: the round it is due, its bits, the attempt."""
+
+    due_round: int
+    bits: float
+    attempt: int
+
+
+class _FaultState:
+    """A case's fault bookkeeping, carried across rounds."""
+
+    __slots__ = ("retries", "attempts")
+
+    def __init__(self):
+        # in-flight re-sends: client -> _RetryEntry
+        self.retries: Dict[int, _RetryEntry] = {}
+        # consecutive failed attempts a client (cleared by a clean
+        # arrival or by giving up)
+        self.attempts: Dict[int, int] = {}
+
+
+_MIN_FAULT_BITS = 2.0   # dropout truncation floor (no 0-bit uploads)
+
+
 def _round_setup(case: SweepCase, schedule: TimelineSchedule, r: int,
-                 carry: Dict[int, float]):
-    """``(clients_r, no_dl_ids, rem_start)`` of round ``r``: fresh members
-    take the round's upload size; carriers (deferred bits) re-enter with
-    their remaining bits, zero compute time and no download, whatever
-    the membership mask says."""
+                 carry: Dict[int, float],
+                 retries: Optional[Dict[int, _RetryEntry]] = None):
+    """``(clients_r, no_dl_ids, rem_start, drops)`` of round ``r``.
+
+    Fresh members take the round's upload size; carriers (deferred bits)
+    re-enter with their remaining bits, zero compute time and no
+    download, whatever the membership mask says. A due retry
+    (``due_round <= r``) re-enters as a carrier does; one still backing
+    off keeps the client out, mask or not. ``drops`` maps the round's
+    dropout victims to their full pending bits: their upload here is cut
+    at the death point (``_MIN_FAULT_BITS`` at least), and the retry
+    re-sends the full payload.
+    """
     clients = case.workload.clients
     mask = (schedule.membership[r] if schedule.membership is not None
             else np.ones(len(clients), bool))
+    retries = retries or {}
     out = []
     rem_start: Dict[int, float] = {}
+    no_dl = set(carry)
     for j, c in enumerate(clients):
         cid = c.client_id
         if cid in carry:
+            if cid in retries:       # pragma: no cover - internal guard
+                raise RuntimeError(
+                    f"client {cid} is both a deferred carrier and an "
+                    "in-flight retry at round "
+                    f"{r}: fault bookkeeping desynced"
+                )
             bits = carry[cid]
             out.append(replace(c, t_ud=0.0, t_dl=0.0, m_ud_bits=bits))
             rem_start[cid] = bits
+        elif cid in retries:
+            ent = retries[cid]
+            if ent.due_round > r:
+                continue             # backing off: the mask never revives
+            retries.pop(cid)         # in flight again from this round
+            out.append(replace(c, t_ud=0.0, t_dl=0.0,
+                               m_ud_bits=ent.bits))
+            rem_start[cid] = ent.bits
+            no_dl.add(cid)
         elif mask[j]:
             bits = schedule.round_m_ud(r, j, c.m_ud_bits)
             out.append(replace(c, m_ud_bits=bits))
             rem_start[cid] = bits
-    return out, frozenset(carry), rem_start
+    drops: Dict[int, float] = {}
+    faults = schedule.active_faults
+    if faults is not None and faults.dropout_rate > 0.0 and rem_start:
+        frac = faults.dropouts(r, sorted(rem_start), case.seed)
+        if frac:
+            for i, c in enumerate(out):
+                f = frac.get(c.client_id)
+                if f is None:
+                    continue
+                full = c.m_ud_bits
+                cut = min(max(f * full, _MIN_FAULT_BITS), full)
+                out[i] = replace(c, m_ud_bits=cut)
+                rem_start[c.client_id] = cut
+                drops[c.client_id] = full
+    return out, frozenset(no_dl), rem_start, drops
 
 
 def _round_view(r: int, t_start: float, result: Optional[RoundResult],
@@ -310,15 +419,93 @@ def _round_view(r: int, t_start: float, result: Optional[RoundResult],
     return rnd, deferred
 
 
+def _round_faulted(schedule: TimelineSchedule, case, r: int,
+                   rem_start: Dict[int, float],
+                   drops: Dict[int, float]) -> frozenset:
+    """The round's faulted clients: dropout victims and the loss draw.
+    The loss draw covers every pending client, so the set is a function
+    of ``(round, pending)`` alone: the same for a quorum re-run and the
+    async probe pass."""
+    faults = schedule.active_faults
+    lost = (faults.losses(r, sorted(rem_start), case.seed)
+            if faults is not None and faults.loss_rate > 0.0 and rem_start
+            else frozenset())
+    return frozenset(drops) | lost
+
+
+def _effective_arrived(result: RoundResult, rem_start: Dict[int, float],
+                       faulted: frozenset) -> List[int]:
+    """Uploads that completed and were not cancelled by a fault: the
+    arrivals a quorum counts."""
+    remaining = result.ul_remaining or {}
+    return [cid for cid in rem_start
+            if cid not in remaining and cid not in faulted]
+
+
+def _apply_round_faults(schedule: TimelineSchedule, case, r: int,
+                        rnd: TimelineRound, rem_start: Dict[int, float],
+                        carry: Dict[int, float], drops: Dict[int, float],
+                        fstate: _FaultState) -> Dict[int, float]:
+    """Cancel the round's faulted arrivals, book retries with backoff and
+    return the updated carry.
+
+    A dropout victim fails whatever the deadline policy (its served bits
+    were wasted, ``rnd.failed``) and its retry re-sends the full
+    payload. A loss victim crossed the wire but its payload is discarded
+    (``rnd.lost``); its retry re-sends the round's pending bits. Either
+    way the client backs off ``retry.delay_rounds(attempt)`` rounds
+    (``rnd.retry_at``) or, past ``max_retries`` attempts, gives the
+    update up (``rnd.gave_up``) and re-enters fresh.
+    """
+    faults = schedule.active_faults
+    if faults is None:
+        return carry
+    retry = schedule.retry_policy
+
+    def book(cid: int, bits: float):
+        attempt = fstate.attempts.get(cid, 0) + 1
+        if attempt > retry.max_retries:
+            fstate.attempts.pop(cid, None)
+            rnd.gave_up.append(cid)
+            return
+        fstate.attempts[cid] = attempt
+        due = r + retry.delay_rounds(attempt)
+        fstate.retries[cid] = _RetryEntry(due, bits, attempt)
+        rnd.retry_at[cid] = due
+
+    for cid in sorted(drops):
+        rnd.failed[cid] = rnd.ul_bits.get(cid, 0.0)
+        if cid in rnd.arrived:
+            rnd.arrived.remove(cid)
+        rnd.staleness.pop(cid, None)
+        carry.pop(cid, None)
+        rnd.deferred.pop(cid, None)
+        rnd.dropped.pop(cid, None)
+        rnd.partial.pop(cid, None)
+        book(cid, drops[cid])
+    if faults.loss_rate > 0.0 and rnd.arrived:
+        lost_draw = faults.losses(r, sorted(rem_start), case.seed)
+        for cid in [c for c in rnd.arrived if c in lost_draw]:
+            rnd.arrived.remove(cid)
+            rnd.staleness.pop(cid, None)
+            rnd.lost.append(cid)
+            book(cid, rem_start[cid])
+    for cid in rnd.arrived:          # a clean arrival resets the backoff
+        fstate.attempts.pop(cid, None)
+    return carry
+
+
 def _kth_completion(result: RoundResult, rem_start: Dict[int, float],
-                    buffer_k: int) -> Optional[float]:
+                    buffer_k: int,
+                    exclude: frozenset = frozenset()) -> Optional[float]:
     """The async cutoff: the completion time of the ``buffer_k``-th
     pending upload (a zero-bit upload completes at the round start;
-    fewer than k pending clients: the last completion). ``None`` when
-    nothing is pending."""
+    fewer than k pending clients: the last completion). The round's
+    faulted clients (``exclude``) never count toward the buffer.
+    ``None`` when nothing valid is pending (the round runs free)."""
     times = sorted(
         0.0 if np.isnan(result.ul_done[cid]) else float(result.ul_done[cid])
-        for cid in rem_start
+        for cid in rem_start if cid not in exclude
     )
     if not times:
         return None
@@ -341,8 +528,6 @@ def _validate(cases: Sequence[SweepCase], schedule: TimelineSchedule):
             raise ValueError(
                 "membership mask width must match workload.clients"
             )
-    if any(case.jobs is not None for case in cases):
-        raise _not_ported("jobs")
     return cases
 
 
@@ -362,44 +547,71 @@ def _row_case(case: SweepCase, clients_r, r: int,
                      topology=case.topology)
 
 
-def _build_rows(cases, schedule, r, carries):
+def _case_n_pons(case) -> int:
+    return case.topology.n_pons if case.topology is not None else 1
+
+
+def _build_rows(cases, schedule, r, carries, fstates=None):
     """Round ``r``'s engine rows and, per case, ``(b, row index or None,
-    rem_start)``."""
+    rem_start, drops)``; ``fstates`` (each case's ``_FaultState``)
+    supplies the retries due this round."""
     row_cases = []
     row_meta = []
     for b, case in enumerate(cases):
-        clients_r, no_dl, rem_start = _round_setup(
-            case, schedule, r, carries[b])
+        clients_r, no_dl, rem_start, drops = _round_setup(
+            case, schedule, r, carries[b],
+            fstates[b].retries if fstates is not None else None)
         if not clients_r:
-            row_meta.append((b, None, rem_start))
+            row_meta.append((b, None, rem_start, drops))
             continue
-        row_meta.append((b, len(row_cases), rem_start))
+        row_meta.append((b, len(row_cases), rem_start, drops))
         row_cases.append(_row_case(case, clients_r, r, no_dl))
     return row_cases, row_meta
+
+
+def _round_outages(cases, schedule, r, row_meta):
+    """Round ``r``'s outage windows, one a row of ``row_meta``'s rows, or
+    None when no outage is drawn."""
+    faults = schedule.active_faults
+    if faults is None or faults.outage_rate <= 0.0:
+        return None
+    n_rows = sum(1 for _, ridx, _, _ in row_meta if ridx is not None)
+    outages: List[Optional[np.ndarray]] = [None] * n_rows
+    for b, ridx, _, _ in row_meta:
+        if ridx is not None:
+            outages[ridx] = faults.outage_windows(
+                r, _case_n_pons(cases[b]), cases[b].seed)
+    return outages
 
 
 def _advance_rounds(cfg, cases, schedule, t_round_hint, max_t, policy,
                     deadline_fn, backend, device):
     """Advance round by round: build the rows, take each round's
-    deadline(s) from ``deadline_fn(r, row_cases, row_meta)`` (a scalar or
-    a per-row list), advance the engine, re-run rows short of their
-    quorum with a doubled deadline, and carry deferred bits forward."""
+    deadline(s) from ``deadline_fn(r, row_cases, row_meta, outages)`` (a
+    scalar or a per-row list), advance the engine, re-run the rows short
+    of their quorum of un-faulted arrivals with a doubled deadline, then
+    apply the round's faults and carry deferred bits and retries
+    forward."""
     B = len(cases)
     carries: List[Dict[int, float]] = [{} for _ in range(B)]
     entries: List[Dict[int, int]] = [{} for _ in range(B)]
+    fstates = [_FaultState() for _ in range(B)]
     t_now = [0.0] * B
     out = [TimelineResult(policy=c.policy, load=c.load, seed=c.seed,
                           rounds=[]) for c in cases]
     quorum = schedule.quorum_frac
     for r in range(schedule.n_rounds):
-        row_cases, row_meta = _build_rows(cases, schedule, r, carries)
-        for b, _, rem_start in row_meta:
+        row_cases, row_meta = _build_rows(cases, schedule, r, carries,
+                                          fstates)
+        for b, _, rem_start, _ in row_meta:
             for cid in rem_start:
                 entries[b].setdefault(cid, r)
-        deadlines = deadline_fn(r, row_cases, row_meta)
+        outages = _round_outages(cases, schedule, r, row_meta)
+        deadlines = deadline_fn(r, row_cases, row_meta, outages)
         results = _round_sweep(
             cfg, row_cases, t_round_hint=t_round_hint, max_t=max_t,
-            ul_deadline_s=deadlines, backend=backend, device=device,
+            ul_deadline_s=deadlines, ul_outage_s=outages, backend=backend,
+            device=device,
         ) if row_cases else []
         ext_counts: Dict[int, int] = {}
         met: Dict[int, bool] = {}
@@ -410,12 +622,13 @@ def _advance_rounds(cfg, cases, schedule, t_round_hint, max_t, policy,
 
             def _unmet():
                 redo = []
-                for b, ridx, rem_start in row_meta:
+                for b, ridx, rem_start, drops in row_meta:
                     if ridx is None or dls[ridx] is None:
                         continue
-                    remaining = results[ridx].ul_remaining or {}
-                    got = sum(1 for cid in rem_start
-                              if cid not in remaining)
+                    faulted = _round_faulted(schedule, cases[b], r,
+                                             rem_start, drops)
+                    got = len(_effective_arrived(results[ridx], rem_start,
+                                                 faulted))
                     need = max(1, math.ceil(quorum * len(rem_start)))
                     met[ridx] = got >= need
                     if got < need:
@@ -433,13 +646,15 @@ def _advance_rounds(cfg, cases, schedule, t_round_hint, max_t, policy,
                     cfg, [row_cases[i] for i in redo],
                     t_round_hint=t_round_hint, max_t=max_t,
                     ul_deadline_s=[dls[i] for i in redo],
+                    ul_outage_s=(None if outages is None else
+                                 [outages[i] for i in redo]),
                     backend=backend, device=device,
                 )
                 for j, ridx in enumerate(redo):
                     results[ridx] = sub[j]
             else:
                 _unmet()        # the verdicts after the last extension
-        for b, ridx, rem_start in row_meta:
+        for b, ridx, rem_start, drops in row_meta:
             res = results[ridx] if ridx is not None else None
             rnd, carry = _round_view(
                 r, t_now[b], res, rem_start,
@@ -448,41 +663,46 @@ def _advance_rounds(cfg, cases, schedule, t_round_hint, max_t, policy,
             if ridx is not None and ridx in met:
                 rnd.quorum_met = met[ridx]
                 rnd.deadline_extensions = ext_counts.get(ridx, 0)
+            carry = _apply_round_faults(schedule, cases[b], r, rnd,
+                                        rem_start, carry, drops, fstates[b])
             out[b].rounds.append(rnd)
             carries[b] = carry
             entries[b] = {cid: ent for cid, ent in entries[b].items()
-                          if cid in carry}
+                          if cid in carry or cid in fstates[b].retries}
             t_now[b] += rnd.sync_time
     return out
 
 
 def _sequential(cfg, cases, schedule, t_round_hint, max_t, backend,
                 device):
-    """Round by round, carrying deferred bits (the only legal order
-    under defer deadlines)."""
+    """Round by round, carrying deferred bits and retries (the only legal
+    order under defer deadlines, dropout or loss)."""
     return _advance_rounds(
         cfg, cases, schedule, t_round_hint, max_t,
         schedule.deadline_policy,
-        lambda r, row_cases, row_meta: schedule.deadline(r),
+        lambda r, row_cases, row_meta, outages: schedule.deadline(r),
         backend, device,
     )
 
 
 def _async(cfg, cases, schedule, t_round_hint, max_t, backend, device):
     """FedBuff rounds: a free pass finds each row's ``buffer_k``-th
-    completion, then the round runs cut there; stragglers defer with
-    staleness."""
+    completion among its un-faulted uploads, then the round runs cut
+    there; stragglers defer with staleness."""
     k = schedule.buffer_k
 
-    def deadline_fn(r, row_cases, row_meta):
+    def deadline_fn(r, row_cases, row_meta, outages):
         free = _round_sweep(
             cfg, row_cases, t_round_hint=t_round_hint, max_t=max_t,
-            backend=backend, device=device,
+            ul_outage_s=outages, backend=backend, device=device,
         )
         deadlines: List[Optional[float]] = [None] * len(row_cases)
-        for _, ridx, rem_start in row_meta:
+        for b, ridx, rem_start, drops in row_meta:
             if ridx is not None:
-                deadlines[ridx] = _kth_completion(free[ridx], rem_start, k)
+                deadlines[ridx] = _kth_completion(
+                    free[ridx], rem_start, k,
+                    _round_faulted(schedule, cases[b], r, rem_start,
+                                   drops))
         return deadlines
 
     return _advance_rounds(
@@ -494,23 +714,31 @@ def _async(cfg, cases, schedule, t_round_hint, max_t, backend, device):
 def _folded(cfg, cases, schedule, t_round_hint, max_t, backend, device):
     """The whole timeline as one stacked simulation: the round axis
     folded into the engine's batch, each row under its own round's
-    deadline."""
+    deadline and, with outage faults, its own round's outage windows
+    (outages never couple rounds)."""
+    faults = schedule.active_faults
+    has_outage = faults is not None and faults.outage_rate > 0.0
     rows = []
     row_deadlines: List[Optional[float]] = []
+    row_outages: List[Optional[np.ndarray]] = []
     meta = []            # (b, r, rem_start, row index or None)
     for b, case in enumerate(cases):
         for r in range(schedule.n_rounds):
-            clients_r, _, rem_start = _round_setup(case, schedule, r, {})
+            clients_r, _, rem_start, _ = _round_setup(case, schedule, r, {})
             if not clients_r:
                 meta.append((b, r, rem_start, None))
                 continue
             meta.append((b, r, rem_start, len(rows)))
             rows.append(_row_case(case, clients_r, r))
             row_deadlines.append(schedule.deadline(r))
+            if has_outage:
+                row_outages.append(faults.outage_windows(
+                    r, _case_n_pons(case), case.seed))
     has_deadline = schedule.deadline_s is not None
     results = _round_sweep(
         cfg, rows, t_round_hint=t_round_hint, max_t=max_t,
         ul_deadline_s=row_deadlines if has_deadline else None,
+        ul_outage_s=row_outages if has_outage else None,
         backend=backend, device=device,
     ) if rows else []
     out = [TimelineResult(policy=c.policy, load=c.load, seed=c.seed,
@@ -522,6 +750,83 @@ def _folded(cfg, cases, schedule, t_round_hint, max_t, backend, device):
             r, t_now[b], res, rem_start,
             cases[b].workload.t_aggregate, schedule.deadline_policy,
         )
+        out[b].rounds.append(rnd)
+        t_now[b] += rnd.sync_time
+    return out
+
+
+def _jobs_schedule_check(schedule: TimelineSchedule) -> None:
+    """Multi-job timelines fold by construction: every schedule feature
+    that couples rounds or rewrites a round's workload is refused (per
+    job cadence goes through ``JobSpec.period``/``phase``)."""
+    if (schedule.membership is not None
+            or schedule.m_ud_bits is not None
+            or schedule.deadline_s is not None
+            or schedule.buffer_k is not None
+            or schedule.active_faults is not None
+            or schedule.quorum_frac is not None):
+        raise ValueError(
+            "multi-job timelines need a plain schedule (n_rounds "
+            "only): membership masks, per-round update sizes, "
+            "deadlines, async buffering, fault injection and quorum "
+            "extension are single-job features — encode per-job "
+            "cadence via JobSpec.period/phase instead"
+        )
+
+
+def _folded_jobs(cfg, cases, schedule, mode, t_round_hint, max_t, backend,
+                 device):
+    """The folded driver of multi-tenant cases: each round keeps the jobs
+    active under their cadence (``JobSpec.active_in``), the round axis
+    folds into the engine's batch as in :func:`_folded`, and each job's
+    sync lands in ``TimelineRound.job_sync``."""
+    if not all(case.jobs is not None for case in cases):
+        raise ValueError(
+            "a timeline sweep cannot mix multi-job and single-job "
+            "cases; split them into separate sweeps"
+        )
+    _jobs_schedule_check(schedule)
+    if mode not in ("auto", "folded"):
+        raise ValueError(
+            "multi-job timelines have independent rounds and always "
+            f"fold; mode {mode!r} is unavailable"
+        )
+    rows = []
+    meta = []            # (b, r, rem_start, row index or None)
+    for b, case in enumerate(cases):
+        for r in range(schedule.n_rounds):
+            active = tuple(j for j in case.jobs if j.active_in(r))
+            keep = {cid for j in active for cid in j.clients}
+            clients_r = [c for c in case.workload.clients
+                         if c.client_id in keep]
+            rem_start = {c.client_id: c.m_ud_bits for c in clients_r}
+            if not clients_r:
+                meta.append((b, r, rem_start, None))
+                continue
+            wl = FLRoundWorkload(
+                clients=clients_r,
+                model_bits=case.workload.model_bits,
+                t_aggregate=case.workload.t_aggregate,
+            )
+            meta.append((b, r, rem_start, len(rows)))
+            rows.append(replace(case, workload=wl, stream_round=r,
+                                jobs=active))
+    results = _round_sweep(
+        cfg, rows, t_round_hint=t_round_hint, max_t=max_t,
+        backend=backend, device=device,
+    ) if rows else []
+    out = [TimelineResult(policy=c.policy, load=c.load, seed=c.seed,
+                          rounds=[]) for c in cases]
+    t_now = [0.0] * len(cases)
+    for b, r, rem_start, ridx in meta:
+        res = results[ridx] if ridx is not None else None
+        rnd, _ = _round_view(
+            r, t_now[b], res, rem_start,
+            cases[b].workload.t_aggregate, "defer",
+        )
+        if res is not None and res.job_stats:
+            rnd.job_sync = {jid: js.sync_time
+                            for jid, js in res.job_stats.items()}
         out[b].rounds.append(rnd)
         t_now[b] += rnd.sync_time
     return out
@@ -541,11 +846,16 @@ def _timeline_sweep(cfg, cases: Sequence[SweepCase],
     couples consecutive rounds and runs round by round otherwise;
     ``schedule.buffer_k`` selects async rounds; ``"folded"`` and
     ``"sequential"`` force a path. ``backend`` reaches every engine call.
+    Multi-job cases always fold and report each job's sync in
+    ``TimelineRound.job_sync``.
     """
     if collector is not None:
         raise _not_ported("collector")
     cases = _validate(cases, schedule)
     run = (cfg, cases, schedule, t_round_hint, max_t, backend, device)
+    if any(case.jobs is not None for case in cases):
+        return _folded_jobs(cfg, cases, schedule, mode, t_round_hint,
+                            max_t, backend, device)
     if schedule.asynchronous:
         if mode == "folded":
             raise ValueError(
@@ -559,9 +869,10 @@ def _timeline_sweep(cfg, cases: Sequence[SweepCase],
         if schedule.couples_rounds:
             raise ValueError(
                 "schedule couples consecutive rounds (deadline "
-                "deferral or quorum extension); folded mode requires "
-                "independent rounds: no deadline, or drop/partial "
-                "policies"
+                "deferral, dropout/loss retries or quorum extension); "
+                "folded mode requires independent rounds — no "
+                "deadline or drop/partial policies, and at most "
+                "outage-only fault injection"
             )
         return _folded(*run)
     if mode == "sequential":
@@ -634,9 +945,14 @@ def simulate_timeline_per_round(cfg, cases: Sequence[SweepCase],
                                 ) -> List[TimelineResult]:
     """One engine call a round (the baseline the folded run is measured
     against); async schedules run their two passes a round. Results
-    equal :func:`simulate_timeline_sweep`'s."""
+    equal :func:`simulate_timeline_sweep`'s. Multi-job cases run the
+    folded jobs driver: their rounds are independent, so the two
+    coincide."""
     if collector is not None:
         raise _not_ported("collector")
     cases = _validate(cases, schedule)
+    if any(case.jobs is not None for case in cases):
+        return _folded_jobs(cfg, cases, schedule, "auto", t_round_hint,
+                            max_t, backend, device)
     run = (cfg, cases, schedule, t_round_hint, max_t, backend, device)
     return _async(*run) if schedule.asynchronous else _sequential(*run)

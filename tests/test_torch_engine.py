@@ -188,19 +188,23 @@ def test_not_ported_features_raise():
                            model_bits=1e6)
     case = T.SweepCase(workload=wl, load=0.3, policy="fcfs")
     cfg = T.PONConfig(n_onus=4, line_rate_bps=1e9)
-    with pytest.raises(NotImplementedError, match="jobs"):
-        T.simulate(T.SweepSpec(cases=(T.SweepCase(
-            workload=wl, load=0.3, policy="fcfs", jobs=((0, 1),)),),
-            pon=cfg), device="cpu")
-    with pytest.raises(NotImplementedError, match="collector"):
-        T.simulate(T.SweepSpec(cases=(case,), pon=cfg), collector=object(),
-                   device="cpu")
-    # timelines are ported: a schedule that is not a TimelineSchedule is
-    # refused as the reference refuses it; fault injection is not ported
+    # only the collector (obs/) is still to port, on both entry forms
+    for call in (
+        lambda: T.simulate(T.SweepSpec(cases=(case,), pon=cfg),
+                           collector=object(), device="cpu"),
+        lambda: T.simulate_round_sweep(cfg, [case], collector=object(),
+                                       device="cpu"),
+    ):
+        with pytest.raises(NotImplementedError, match="obs.*item 8"):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", DeprecationWarning)
+                call()
+    # timelines, faults and jobs are ported: inputs of the wrong type are
+    # refused as the reference refuses them
     with pytest.raises(TypeError, match="TimelineSchedule"):
         T.simulate(T.SweepSpec(cases=(case,), pon=cfg, schedule=object()),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="FaultSchedule"):
         T.TimelineSchedule(n_rounds=1, faults=object())
     # backend="jit" is ported; like the reference it takes no injected
     # arrival matrices

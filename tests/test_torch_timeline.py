@@ -360,23 +360,23 @@ def test_not_ported_parts_raise():
     pcfg = T.from_reference(CFG)
     spec = T.SweepSpec(cases=tuple(pc), pon=pcfg,
                        schedule=T.TimelineSchedule(n_rounds=1))
+    # faults and jobs are ported; only the collector (obs/) is not, on
+    # every timeline entry point, fault and tenant specs included
+    faulty = spec.with_faults(T.FaultSchedule(dropout_rate=0.5))
+    tenant = spec.with_jobs((T.JobSpec(
+        job_id=0, clients=[c.client_id for c in pc[0].workload.clients],
+        model_bits=1e6),))
     calls = [
-        lambda: T.TimelineSchedule(n_rounds=1, faults=object()),
-        lambda: T.TimelineSchedule(n_rounds=1, retry=object()),
-        lambda: spec.with_faults(object()),
-        lambda: spec.with_jobs(()),
         lambda: T.simulate(spec, collector=object(), device="cpu"),
         lambda: T.simulate_timeline_sweep(spec, collector=object(),
                                           device="cpu"),
         lambda: T.simulate_timeline_per_round(
             pcfg, pc, spec.schedule, collector=object(), device="cpu"),
-        lambda: T.simulate(T.SweepSpec(cases=(T.SweepCase(
-            workload=pc[0].workload, load=0.5, policy="fcfs",
-            jobs=((0,),)),), pon=pcfg, schedule=spec.schedule),
-            device="cpu"),
+        lambda: T.simulate(faulty, collector=object(), device="cpu"),
+        lambda: T.simulate(tenant, collector=object(), device="cpu"),
     ]
     for call in calls:
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match="obs.*item 8"):
             call()
 
 
@@ -392,7 +392,8 @@ def reference_pins() -> dict:
     8-round timeline and analytic BS time, the op point of
     ``benchmarks/async_timeline.py`` under defer/drop/partial at 4 s and
     async with a buffer of 6, and the co-simulation's network timing of
-    its ``accuracy_part`` (4 rounds)."""
+    its ``accuracy_part`` (4 rounds), the faulty modes' arrivals, failed
+    and lost clients a round included."""
     sys.path.insert(0, str(ROOT))
     from benchmarks.timeline import _clients as bench_clients
     from benchmarks.timeline import elastic_schedule, fig3_cases
@@ -454,12 +455,23 @@ def reference_pins() -> dict:
         if mode == "async":
             scheds[mode] = J.TimelineSchedule(n_rounds=R,
                                               buffer_k=kw["async_buffer"])
+        elif mode in cs.COSIM_FAULTY:
+            # the faulty modes: accuracy_part's fault schedule, and its
+            # quorum for faulty_quorum
+            scheds[mode] = J.TimelineSchedule(
+                n_rounds=R, faults=J.FaultSchedule(**cs.COSIM_FAULTS),
+                quorum_frac=cs.COSIM_FAULTY[mode], **kw)
         elif mode != "sync":
             scheds[mode] = J.TimelineSchedule(n_rounds=R, **kw)
-    pins["COSIM_SYNC"] = {
-        mode: tuple(float(s) for s in J.simulate(J.SweepSpec(
-            cases=(case,), pon=ccfg, schedule=s))[0].sync_times)
-        for mode, s in scheds.items()}
+    runs = {mode: J.simulate(J.SweepSpec(cases=(case,), pon=ccfg,
+                                         schedule=s))[0]
+            for mode, s in scheds.items()}
+    pins["COSIM_SYNC"] = {mode: tuple(float(s) for s in tl.sync_times)
+                          for mode, tl in runs.items()}
+    pins["COSIM_FAULT_COUNTS"] = {
+        mode: tuple((len(r.arrived), len(r.failed), len(r.lost))
+                    for r in runs[mode].rounds)
+        for mode in cs.COSIM_FAULTY}
     return pins
 
 
