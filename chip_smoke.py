@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-The port has ten paths, each driven through its user entry point with
+The port has eleven paths, each driven through its user entry point with
 the kernel counts set to 0 just before and read just after:
 
 * the Fig. 2b round engine (``repro_torch.net.simulate``), through K1
@@ -33,7 +33,9 @@ the kernel counts set to 0 just before and read just after:
   loop;
 * multi-tenant jobs (``SweepCase.jobs``), through K1 and K2 on the
   per-cycle loop, which a multi-job sweep runs with ``backend="jit"``
-  too.
+  too;
+* the collector (``repro_torch.obs``) on the per-cycle loop of the round
+  engine and the timeline, through K1 and K2.
 
 Phases, each printing its own line with its seconds; any failure exits
 nonzero:
@@ -190,13 +192,31 @@ nonzero:
    phase kernel's 128-cycle ring (a 0.5 s outage at load 0.8) re-runs on
    the per-cycle loop, as the JAX engine's does: each cell must re-run
    exactly ``FAULT_FALLBACKS`` such upload phases (none without
-   outages), and the line counts those ``phase_fallbacks``;
+   outages), and the line counts those ``phase_fallbacks``; the loop
+   cell runs under a collector, its fault events by kind and its round
+   records held to ``OBS_PINS["faults"]``;
 7f. ``jobs``: ``benchmarks/jobs.py``'s grid (one BS round at 2048 ONUs,
    load 0.8, jobs {1, 2, 4, 8} x fairness {maxmin, weighted}), an FCFS
    case of 4 jobs under deadline fairness, a 4-PON case under a binding
    CPS and a cadenced 4-round timeline, on the per-cycle loop and with
    ``backend="jit"``: every sync and job sync held to ``JOBS_PINS``, the
-   two runs equal, K2 launched by the FCFS case;
+   two runs equal, K2 launched by the FCFS case; the loop runs under a
+   collector, each job's upload-delay p95 (``benchmarks/jobs.py``'s) held
+   to ``OBS_PINS["jobs"]``;
+7g. ``obs``: the collector on the per-cycle loop. (a)
+   ``benchmarks/obs_overhead.py``'s measurement (the Fig. 3 grid, 6
+   elastic rounds folded into 24 rows, 128 ONUs): a warm-up, then the
+   collector off and on (with a span tracer) in turns, ``OBS_REPEATS``
+   times each: every run's syncs bit for bit the first's and within
+   ``SYNC_TOL`` of ``FIG3_SYNC``, K1 and K2 launched; the report held to
+   ``OBS_PINS["overhead"]`` (each phase's rows, cycles and utilisation
+   n exactly, bit totals and ``grant_utilization`` within
+   ``OBS_SUM_RTOL``, p50/p95/p99 within ``OBS_PCT_TOL``, spans by name);
+   the trace saved, loaded and validated; the overhead (the better on
+   run over the better off run, less 1) printed, not gated. (b) The
+   Fig. 2b sweep under ``Collector(keep_phases=False)``: syncs held,
+   upload-delay percentiles held to ``OBS_PINS["fig2b"]``. (f) A
+   collector on ``backend="jit"`` raises ``ValueError``;
 7d. ``fl_fig2a``: ``benchmarks/fig2a_accuracy.py``'s settings (16
    clients x 64 samples, lr 0.04, batch 16, 2 local epochs, data seed 0,
    server seed 1, 10 rounds, fractions {0.25, 0.5, 1.0}, 512 test images)
@@ -216,7 +236,9 @@ nonzero:
 8. ``serve``: olmo-1b at full width and depth (16 layers, float32
    parameters, bfloat16 compute, random weights from a seed), batch 4,
    2048-token prompts (OLMo-1B's context length), 32 greedy new tokens,
-   through ``serve()``; K4 must run 16 times (one a layer) in the
+   through ``serve()``, which writes its ``--log-jsonl`` to a temporary
+   file (one ``serve`` event with ``prefill_ms``, ``decode_ms`` and
+   ``tps``, read back); K4 must run 16 times (one a layer) in the
    prefill, all on the tensor-core kernel, and never in decode. The
    same weights and prompts then run through the step functions with
    the plain attention (``attn_impl="reference"``) and with the plain
@@ -2589,6 +2611,127 @@ JOBS_DEADLINES = (6.0, 3.0, 4.5, None)
 JOBS_CPS_PONS, JOBS_CPS_RATE = 4, 3e9
 JOBS_CADENCE = ((1, 0), (2, 0), (2, 1), (4, 3))
 JOBS_TL_ROUNDS = 4
+# the collector (repro_torch.obs): benchmarks/obs_overhead.py's run (the
+# Fig. 3 grid, OBS_ROUNDS elastic rounds, folded, 128 ONUs), collector off
+# and on OBS_REPEATS times each; OBS_PINS are the JAX package's values on
+# the CPU for it, the Fig. 2b sweep, the jobs grid's per-job p95 and the
+# faults loop cell (obs_pin; tests/test_torch_obs_pins.py recomputes them)
+OBS_ROUNDS, OBS_REPEATS = 6, 2
+OBS_SUM_RTOL = 1e-12   # bit totals and grant_utilization
+OBS_PCT_TOL = 1e-9     # upload-delay percentiles (s)
+OBS_BITS_RTOL = 1e-6   # a round's uploaded bits (the engines' contract)
+OBS_PINS = {'overhead': {'phases': (('dl:fcfs', 12, 1856, 22272.0,
+                                     204902400000.0, 109616364000.0,
+                                     34182304000.0, 61103732000.0,
+                                     0.7017910380747127),
+                                    ('ul:fcfs', 12, 6378, 76536.0,
+                                     704131200000.0, 377465060000.0,
+                                     34182304000.0, 292483836000.0,
+                                     0.5846174178903023),
+                                    ('ul:bs', 12, 4909, 58908.0,
+                                     541953600000.0, 0.0, 34182303999.99999,
+                                     507771296000.0, 0.0630723811042126)),
+                         'delay': {'bs@load0.3': (647.0, 2.8865853658536587,
+                                                  4.733, 4.897956521739131),
+                                   'bs@load0.8': (647.0, 2.8865853658536587,
+                                                  4.733, 4.897956521739131),
+                                   'fcfs@load0.3': (647.0, 3.154761904761905,
+                                                    4.9226, 5.1906),
+                                   'fcfs@load0.8': (647.0, 3.8676470588235294,
+                                                    5.444166666666667,
+                                                    6.136142857142857)},
+                         'rounds': 24,
+                         'spans': {'phase:dl:fcfs': 1,
+                                   'phase:ul:bs': 1,
+                                   'phase:ul:fcfs': 1,
+                                   'timeline:folded': 1}},
+            'fig2b': {'bs@load0.3': (280.0, 2.8944444444444444, 4.75,
+                                     4.909099999999974),
+                      'bs@load0.8': (280.0, 2.8944444444444444, 4.75,
+                                     4.909099999999974),
+                      'fcfs@load0.3': (280.0, 3.1833333333333336, 4.9,
+                                       5.079999999999999),
+                      'fcfs@load0.8': (280.0, 3.8499999999999996, 5.4,
+                                       6.119999999999998)},
+            'jobs': {'maxmin_j1': {'bs/job0@load0.8': (8.0,
+                                                       4.909099999999974)},
+                     'maxmin_j2': {'bs/job0@load0.8': (8.0, 4.909099999999974),
+                                   'bs/job1@load0.8': (8.0,
+                                                       4.711099999999908)},
+                     'maxmin_j4': {'bs/job0@load0.8': (8.0, 4.909099999999974),
+                                   'bs/job1@load0.8': (8.0, 4.711099999999908),
+                                   'bs/job2@load0.8': (8.0, 4.86),
+                                   'bs/job3@load0.8': (8.0, 4.86)},
+                     'maxmin_j8': {'bs/job0@load0.8': (8.0, 4.909099999999974),
+                                   'bs/job1@load0.8': (8.0, 4.711099999999908),
+                                   'bs/job2@load0.8': (8.0, 4.86),
+                                   'bs/job3@load0.8': (8.0, 4.86),
+                                   'bs/job4@load0.8': (8.0, 3.66),
+                                   'bs/job5@load0.8': (8.0, 4.334099999999782),
+                                   'bs/job6@load0.8': (8.0, 4.152099999999721),
+                                   'bs/job7@load0.8': (8.0, 4.06)},
+                     'weighted_j1': {'bs/job0@load0.8': (8.0,
+                                                         4.909099999999974)},
+                     'weighted_j2': {'bs/job0@load0.8': (8.0,
+                                                         4.909099999999974),
+                                     'bs/job1@load0.8': (8.0,
+                                                         4.711099999999908)},
+                     'weighted_j4': {'bs/job0@load0.8': (8.0,
+                                                         4.909099999999974),
+                                     'bs/job1@load0.8': (8.0,
+                                                         4.711099999999908),
+                                     'bs/job2@load0.8': (8.0, 4.86),
+                                     'bs/job3@load0.8': (8.0, 4.86)},
+                     'weighted_j8': {'bs/job0@load0.8': (8.0,
+                                                         4.909099999999974),
+                                     'bs/job1@load0.8': (8.0,
+                                                         4.711099999999908),
+                                     'bs/job2@load0.8': (8.0, 4.86),
+                                     'bs/job3@load0.8': (8.0, 4.86),
+                                     'bs/job4@load0.8': (8.0, 3.66),
+                                     'bs/job5@load0.8': (8.0,
+                                                         4.334099999999782),
+                                     'bs/job6@load0.8': (8.0,
+                                                         4.152099999999721),
+                                     'bs/job7@load0.8': (8.0, 4.06)},
+                     'fcfs_deadline_j4': {'fcfs/job0@load0.8': (8.0, 5.16),
+                                          'fcfs/job1@load0.8': (8.0, 4.76),
+                                          'fcfs/job2@load0.8': (8.0,
+                                                                5.009100000000007),
+                                          'fcfs/job3@load0.8': (8.0, 5.26)},
+                     'cps4_weighted_j4': {'bs/job0@load0.8': (8.0,
+                                                              4.9140999999999755),
+                                          'bs/job1@load0.8': (8.0,
+                                                              4.714099999999909),
+                                          'bs/job2@load0.8': (8.0, 4.86),
+                                          'bs/job3@load0.8': (8.0, 4.86)},
+                     'timeline_maxmin_j4': {'bs/job0@load0.8': (32.0,
+                                                                4.909099999999974),
+                                            'bs/job1@load0.8': (16.0,
+                                                                4.711099999999908),
+                                            'bs/job2@load0.8': (16.0, 4.86),
+                                            'bs/job3@load0.8': (8.0, 4.86)}},
+            'faults': {'events': {'fault.dropout': 7},
+                       'rounds': ((('load', 0.8), ('n_arrived', 0),
+                                   ('n_deferred', 9), ('n_dropped', 0),
+                                   ('n_partial', 0), ('policy', 'fcfs'),
+                                   ('round', 0), ('seed', 1),
+                                   ('sync_time', 4.0), ('t_end', 4.0),
+                                   ('t_start', 0.0), ('ul_bits', 0.0)),
+                                  (('load', 0.8), ('n_arrived', 11),
+                                   ('n_deferred', 0), ('n_dropped', 0),
+                                   ('n_partial', 0), ('policy', 'fcfs'),
+                                   ('round', 1), ('seed', 1),
+                                   ('sync_time', 0.26510000000000017),
+                                   ('t_end', 4.2651), ('t_start', 4.0),
+                                   ('ul_bits', 315007894.32673717)),
+                                  (('load', 0.8), ('n_arrived', 4),
+                                   ('n_deferred', 5), ('n_dropped', 0),
+                                   ('n_partial', 0), ('policy', 'fcfs'),
+                                   ('round', 2), ('seed', 1),
+                                   ('sync_time', 4.0), ('t_end', 8.2651),
+                                   ('t_start', 4.2651),
+                                   ('ul_bits', 125783642.46963337)))}}
 
 
 def _elastic(rounds: int, n_clients: int):
@@ -2776,7 +2919,105 @@ def jobs_specs(backend=None, types=None) -> dict:
     return out
 
 
-def _timeline_run(spec, record=None):
+def obs_spec(types=None):
+    """``benchmarks/obs_overhead.py``'s run: ``fig3_cases()``,
+    ``elastic_schedule(OBS_ROUNDS)``, folded, 128 ONUs at 10 Gb/s."""
+    net, profile = types or _port_types()
+    t_uds = np.random.default_rng(42).uniform(1.0, 5.0, N_ONUS)
+    wl = net.FLRoundWorkload(clients=[profile(
+        client_id=i, t_ud=float(t_uds[i]), t_dl=0.0, m_ud_bits=M_BITS)
+        for i in range(N_ONUS)], model_bits=M_BITS)
+    cases = tuple(net.SweepCase(workload=wl, load=load, policy=policy,
+                                seed=0) for policy, load in FIG3_GRID)
+    sched = net.TimelineSchedule(n_rounds=OBS_ROUNDS,
+                                 membership=_elastic(OBS_ROUNDS, N_ONUS))
+    return net.SweepSpec(cases=cases, pon=net.PONConfig(n_onus=N_ONUS),
+                         schedule=sched, mode="folded")
+
+
+def _delays(report, jobs: bool = False) -> dict:
+    """``(n, p50, p95, p99)`` of each upload-delay histogram (the jobs'
+    ``<policy>/job<id>`` keys alone with ``jobs``, ``(n, p95)`` there)."""
+    if jobs:
+        return {k: (v["n"], v["p95"]) for k, v in
+                report.delay_percentiles.items() if "/job" in k}
+    return {k: (v["n"], v["p50"], v["p95"], v["p99"])
+            for k, v in report.delay_percentiles.items()}
+
+
+def obs_pin(cell: str, collector) -> dict:
+    """What ``OBS_PINS[cell]`` holds of a run's collector (either
+    package's): ``overhead``: each phase's label, rows, cycles,
+    utilisation-histogram n, bit totals and ``grant_utilization``, the
+    delay percentiles, the rounds recorded and the spans by name;
+    ``fig2b``: the delay percentiles; ``jobs``: each job's (n, p95);
+    ``faults``: the events by kind and every ``record_round``'s fields."""
+    import collections
+
+    rep = collector.report()
+    if cell == "overhead":
+        return {"phases": tuple(
+            (p["label"], p["rows"], p["cycles"], p["util_hist"]["n"],
+             p["cap_bits"], p["bg_grant_bits"], p["fl_grant_bits"],
+             p["residual_bits"], p["grant_utilization"])
+            for p in rep.phases),
+            "delay": _delays(rep), "rounds": len(rep.rounds),
+            "spans": dict(sorted(collections.Counter(
+                e["name"] for e in collector.tracer.events).items()))}
+    if cell == "fig2b":
+        return _delays(rep)
+    if cell == "jobs":
+        return _delays(rep, jobs=True)
+    return {"events": dict(sorted(collections.Counter(
+        e["kind"] for e in collector.events).items())),
+        "rounds": tuple(tuple(sorted(r.items())) for r in rep.rounds)}
+
+
+def _near(a, b, rtol: float = 0.0, atol: float = 0.0) -> bool:
+    return abs(a - b) <= atol + rtol * abs(b)
+
+
+def _hold_obs(cell: str, got: dict, want: dict, what: str) -> None:
+    """``got`` (``obs_pin(cell, ...)`` of a card run) against its pin
+    ``want``: labels, rows, cycles, counts, spans and events exactly, bit
+    totals and ``grant_utilization`` within ``OBS_SUM_RTOL``, percentiles
+    within ``OBS_PCT_TOL``, a round's times within ``SYNC_TOL`` and its
+    bits within ``OBS_BITS_RTOL``."""
+
+    def delays(g, w):
+        return g.keys() == w.keys() and all(
+            g[k][0] == w[k][0] and all(_near(a, b, atol=OBS_PCT_TOL)
+                                       for a, b in zip(g[k][1:], w[k][1:]))
+            for k in w)
+
+    if cell == "overhead":
+        ok = (len(got["phases"]) == len(want["phases"]) and all(
+            g[:4] == w[:4] and all(_near(a, b, OBS_SUM_RTOL)
+                                   for a, b in zip(g[4:], w[4:]))
+            for g, w in zip(got["phases"], want["phases"]))
+            and delays(got["delay"], want["delay"])
+            and got["rounds"] == want["rounds"]
+            and got["spans"] == want["spans"])
+    elif cell in ("fig2b", "jobs"):
+        ok = delays(got, want)
+    else:
+        def field(k, a, b):
+            if k in ("sync_time", "t_start", "t_end"):
+                return _near(a, b, atol=SYNC_TOL)
+            if k == "ul_bits":
+                return _near(a, b, OBS_BITS_RTOL)
+            return a == b
+
+        ok = got["events"] == want["events"] and len(got["rounds"]) == len(
+            want["rounds"]) and all(
+            [k for k, _ in g] == [k for k, _ in w] and all(
+                field(k, a, b) for (k, a), (_, b) in zip(g, w))
+            for g, w in zip(got["rounds"], want["rounds"]))
+    if not ok:
+        raise SystemExit(f"{what}: collector report {got} != {want}")
+
+
+def _timeline_run(spec, record=None, collector=None):
     """``spec`` through ``simulate`` on the card: ``(results, stats)``,
     stats the wall, the round engine's counts, and for each launch of the
     phase kernel its device ms (CUDA events around the launch), cycles
@@ -2785,7 +3026,7 @@ def _timeline_run(spec, record=None):
     over the wall. ``record`` (a list) gets each ``run_phase_device``
     call, as :func:`_record_phases` returns them. For each phase that
     fell back to the per-cycle loop the stats hold its longest outage
-    window in cycles (0 without one)."""
+    window in cycles (0 without one). ``collector`` goes to ``simulate``."""
     from repro_torch.kernels.ponsim import kernel, ops
     from repro_torch.net import engine, simulate
 
@@ -2826,7 +3067,7 @@ def _timeline_run(spec, record=None):
     try:
         torch.cuda.synchronize()
         t_run = time.time()
-        results = simulate(spec, device="cuda")
+        results = simulate(spec, collector=collector, device="cuda")
         torch.cuda.synchronize()
         wall = time.time() - t_run
     finally:
@@ -3291,8 +3532,11 @@ def phase_faults():
     schedule bit for bit ``faults=None``'s result in each mode; and
     ``FAULT_LOOP_CELL`` over ``FAULT_LOOP_ROUNDS`` rounds on the
     per-cycle loop, held to its pins and to the jit run client by
-    client."""
+    client, with a collector (``repro_torch.obs``) whose fault events and
+    round records are held to ``OBS_PINS["faults"]``."""
     import dataclasses
+
+    from repro_torch.obs import Collector
 
     t0 = time.time()
     grid = dict.fromkeys(("phase", "k1", "k2", "fallbacks"), 0)
@@ -3317,8 +3561,12 @@ def phase_faults():
                       jit_res[f"{mode}_d0.0_o0.0"])
     mode, d, o = FAULT_LOOP_CELL
     name = f"{mode}_d{d}_o{o}"
+    col = Collector(device="cuda")
     loop_res, loop = _timeline_run(faults_spec(mode, d, o,
-                                               rounds=FAULT_LOOP_ROUNDS))
+                                               rounds=FAULT_LOOP_ROUNDS),
+                                   collector=col)
+    _hold_obs("faults", obs_pin("faults", col), OBS_PINS["faults"],
+              f"faults {name} per-cycle")
     _hold_timeline_counts(loop, f"faults {name} per-cycle", False)
     _hold_faults(f"faults {name} per-cycle", loop_res[0],
                  FAULT_PINS[name][:FAULT_LOOP_ROUNDS])
@@ -3346,7 +3594,9 @@ def phase_faults():
           loop_rounds=FAULT_LOOP_ROUNDS, phases_held=n_held,
           rem_max_abs_err=f"{err:.3g}", hold_s=f"{hold_s:.1f}",
           trivial_bitwise="yes", phase_launches=grid["phase"],
-          phase_fallbacks=grid["fallbacks"], fallbacks_held="yes")
+          phase_fallbacks=grid["fallbacks"], fallbacks_held="yes",
+          loop_obs_held="yes",
+          loop_fault_events=sum(OBS_PINS["faults"]["events"].values()))
     return ({"jit": out, "per_cycle": loop, "phases_held": n_held,
              "max_abs_err": err},
             {"fault-grid-jit": grid, "fault-grid-per-cycle": loop["counts"]})
@@ -3382,11 +3632,14 @@ def phase_jobs():
     and every job's sync held to ``JOBS_PINS``, the two runs equal bit
     for bit with no phase launch, K1 and K2 launched by the FCFS case. A
     one-job cell is the single-tenant path, so its jit run launches the
-    phase kernel and is held to the loop by ``_hold_round``. Prints each
-    job's sync and the loop's µs a cycle."""
+    phase kernel and is held to the loop by ``_hold_round``. The loop run
+    takes a collector (``repro_torch.obs``), whose per-job upload-delay
+    p95 (``benchmarks/jobs.py``'s) is held to ``OBS_PINS["jobs"]``.
+    Prints each job's sync and the loop's µs a cycle."""
     import dataclasses
 
     from repro_torch.net import simulate
+    from repro_torch.obs import Collector
 
     t0 = time.time()
     by_path = {}
@@ -3395,13 +3648,18 @@ def phase_jobs():
     for name, spec in specs.items():
         runs = {}
         for backend in (None, "jit"):
+            # the jit run takes no collector: the phase kernel refuses it
+            col = Collector(device="cuda") if backend is None else None
             _reset_round_counts()
             torch.cuda.synchronize()
             t_run = time.time()
             res = simulate(dataclasses.replace(spec, backend=backend),
-                           device="cuda")
+                           collector=col, device="cuda")
             torch.cuda.synchronize()
             runs[backend] = (res[0], time.time() - t_run, _round_counts())
+            if col is not None:
+                _hold_obs("jobs", obs_pin("jobs", col),
+                          OBS_PINS["jobs"][name], f"jobs {name}")
         (res, wall, counts), (jres, jwall, jcounts) = runs[None], runs["jit"]
         got = job_outcomes(res)
         want = JOBS_PINS[name]
@@ -3443,10 +3701,115 @@ def phase_jobs():
               f"cycles {n_cyc}, us a cycle {wall * 1e6 / max(n_cyc, 1):.1f}",
               flush=True)
     _line("jobs", time.time() - t0, cases=len(specs),
-          syncs_held="yes", jit_equals_loop="yes",
+          syncs_held="yes", jit_equals_loop="yes", job_p95_held="yes",
           k2_launches=by_path["jobs-2048"]["k2"],
           phase_launches=sum(c["phase"] for c in by_path.values()))
     return by_path
+
+
+def phase_obs():
+    """The collector (``repro_torch.obs``) on the card, on the per-cycle
+    loop (K1 and K2 every cycle): (a) ``benchmarks/obs_overhead.py``'s
+    measurement (``obs_spec``: the Fig. 3 grid, ``OBS_ROUNDS`` elastic
+    rounds, folded, 128 ONUs), after a warm-up, collector off and on
+    (with a ``SpanTracer``) in turn ``OBS_REPEATS`` times each: every
+    run's syncs bit for bit the first's and within ``SYNC_TOL`` of
+    ``FIG3_SYNC``'s first rounds, the on-run's report held to
+    ``OBS_PINS["overhead"]`` (``_hold_obs``), its trace saved, loaded and
+    validated, and the overhead (the better on-run over the better
+    off-run, less 1; the reference's target is 10%) printed, not gated;
+    (b) the Fig. 2b sweep under ``Collector(keep_phases=False)``, as
+    ``benchmarks/fig2b_sync_time.py`` runs it: syncs held to
+    ``SYNC_TABLE``, the upload-delay percentiles to
+    ``OBS_PINS["fig2b"]``; (f) a collector on ``backend="jit"`` raises
+    ``ValueError``, as in the reference. The jobs, faults and serve
+    phases hold (c)-(e). Returns the engine counts of (a)'s and (b)'s
+    runs with a collector."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.net import PONConfig, SweepSpec, simulate
+    from repro_torch.obs import (
+        Collector,
+        SpanTracer,
+        load_trace,
+        validate_trace,
+    )
+
+    t0 = time.time()
+    spec = obs_spec()
+    warm = dataclasses.replace(
+        spec, cases=spec.cases[:1], mode="auto",
+        schedule=dataclasses.replace(spec.schedule, n_rounds=1,
+                                     membership=_elastic(1, N_ONUS)))
+    simulate(warm, collector=Collector(device="cuda"), device="cuda")
+    names = [f"{p}_load{l}" for p, l in FIG3_GRID]
+    pins = {k: v[:OBS_ROUNDS] for k, v in FIG3_SYNC.items()}
+    walls = {False: [], True: []}
+    syncs, col, counts = [], None, None
+    for _ in range(OBS_REPEATS):
+        for on in (False, True):
+            c = Collector(tracer=SpanTracer(), device="cuda") if on else None
+            _reset_round_counts()
+            torch.cuda.synchronize()
+            t_run = time.time()
+            res = simulate(spec, collector=c, device="cuda")
+            torch.cuda.synchronize()
+            walls[on].append(time.time() - t_run)
+            _hold_timeline(f"obs {'on' if on else 'off'}", res, names, pins)
+            syncs.append(np.stack([tl.sync_times for tl in res]))
+            if on:
+                col, counts = c, _round_counts()
+    if not all(np.array_equal(x, syncs[0]) for x in syncs):
+        raise SystemExit("obs: the collector changed the sync times")
+    if counts["phase"] or not (counts["k1"] and counts["k2"]):
+        raise SystemExit(f"obs: engine counts {counts}")
+    t_rep = time.time()
+    _hold_obs("overhead", obs_pin("overhead", col), OBS_PINS["overhead"],
+              "obs overhead")
+    report_s = time.time() - t_rep
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        col.tracer.save(path)
+        n_spans = len(validate_trace(load_trace(path)))
+        col.report().save_json(os.path.join(tmp, "summary.json"))
+        col.report().save_csv(os.path.join(tmp, "summary.csv"))
+    off_s, on_s = min(walls[False]), min(walls[True])
+
+    names, cases = fig2b_cases()
+    f2b = SweepSpec(cases=tuple(cases), pon=PONConfig(n_onus=N_ONUS))
+    col2 = Collector(keep_phases=False, device="cuda")
+    _reset_round_counts()
+    t_run = time.time()
+    res = simulate(f2b, collector=col2, device="cuda")
+    f2b_s = time.time() - t_run
+    f2b_counts = _round_counts()
+    _check_syncs(names, res)
+    if col2.phases or not (f2b_counts["k1"] and f2b_counts["k2"]):
+        raise SystemExit(f"obs fig2b: {len(col2.phases)} phases kept, "
+                         f"engine counts {f2b_counts}")
+    _hold_obs("fig2b", obs_pin("fig2b", col2), OBS_PINS["fig2b"],
+              "obs fig2b")
+    for key, (n, p50, p95, p99) in sorted(_delays(col2.report()).items()):
+        print(f"  fig2b upload delay {key}: n {n:.0f}, p50 {p50:.4f}s, "
+              f"p95 {p95:.4f}s, p99 {p99:.4f}s", flush=True)
+
+    try:
+        simulate(dataclasses.replace(f2b, backend="jit"),
+                 collector=Collector(device="cuda"), device="cuda")
+    except ValueError as e:
+        if "does not support collector" not in str(e):
+            raise
+    else:
+        raise SystemExit("obs: backend='jit' took a collector")
+    _line("obs", time.time() - t0, rounds=OBS_ROUNDS, rows=len(spec.cases)
+          * OBS_ROUNDS, off_s=",".join(f"{w:.3f}" for w in walls[False]),
+          on_s=",".join(f"{w:.3f}" for w in walls[True]),
+          overhead=f"{on_s / off_s - 1.0:.4f}", syncs_bitwise="yes",
+          report_held="yes", report_s=f"{report_s:.3f}", spans=n_spans,
+          k1_launches=counts["k1"], k2_launches=counts["k2"],
+          fig2b_wall_s=f"{f2b_s:.3f}", fig2b_held="yes", jit_refused="yes")
+    return {"obs-fig3-6": counts, "obs-fig2b": f2b_counts}
 
 
 def _serve_run(cfg, params, prompts, kernels, feed=None):
@@ -3517,10 +3880,11 @@ def _hold_logits(steps, want, exact, tol: float, ratio: float) -> dict:
             "err_plain_f32": f"{err_plain_f32:.4g}"}
 
 
-def _serve_entry(arch: str, kernels: dict, want: dict):
+def _serve_entry(arch: str, kernels: dict, want: dict, log_jsonl=None):
     """``serve()`` at full width, the entry point a user runs, with the
     kernels' counts set to 0 just before and read just after; each must
-    equal ``want``. Returns (tokens, launches, peak GB)."""
+    equal ``want``. ``log_jsonl`` goes to ``serve()``. Returns (tokens,
+    launches, peak GB)."""
     from repro_torch.launch.serve import serve
 
     torch.cuda.reset_peak_memory_stats()
@@ -3528,7 +3892,7 @@ def _serve_entry(arch: str, kernels: dict, want: dict):
         kernel.launches = 0
     out = serve(arch=arch, smoke=False, batch=SERVE_BATCH,
                 prompt_len=SERVE_PROMPT, max_new_tokens=SERVE_NEW,
-                device="cuda")
+                log_jsonl=log_jsonl, device="cuda")
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3584,14 +3948,34 @@ class _TensorCoreCount:
         self.module.launches_tc = value
 
 
+def _serve_event(path: str) -> dict:
+    """The one ``serve`` event of a ``--log-jsonl`` file, checked."""
+    with open(path) as f:
+        events = [json.loads(line) for line in f]
+    ok = (len(events) == 1 and events[0].get("event") == "serve"
+          and all(isinstance(events[0].get(k), float) and events[0][k] > 0
+                  for k in ("prefill_ms", "decode_ms", "tps")))
+    if not ok:
+        raise SystemExit(f"serve --log-jsonl wrote {events}")
+    return events[0]
+
+
 def phase_serve():
+    import tempfile
+
     from repro_torch.configs import get_config
     from repro_torch.kernels.attention import kernel as k4
 
     t0 = time.time()
     kernels = {"k4": k4, "k4_tc": _TensorCoreCount(k4)}
-    out, launches, peak_gb = _serve_entry("olmo-1b", kernels,
-                                          {"k4": 16, "k4_tc": 16})
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serve.jsonl")
+        out, launches, peak_gb = _serve_entry(
+            "olmo-1b", kernels, {"k4": 16, "k4_tc": 16}, log_jsonl=path)
+        ev = _serve_event(path)
+    print(f"  serve --log-jsonl: one serve event, prefill_ms "
+          f"{ev['prefill_ms']:.3f}, decode_ms {ev['decode_ms']:.3f}, tps "
+          f"{ev['tps']:.3f}", flush=True)
 
     # the same weights and prompts through the step functions: K4 per
     # layer in the prefill and never in decode, then the plain attention
@@ -3959,6 +4343,7 @@ def main() -> int:
                                      faults["max_abs_err"])
     phase_entry["fault_grid_phases_held"] = faults["phases_held"]
     by_path.update(phase_jobs())
+    by_path.update(phase_obs())
     # K3 and K3' run once a leaf of every arrived update of the int8 run
     launches["quantize_int8"] = launches["dequantize_int8"] = \
         phase_fl_fig2a()

@@ -24,8 +24,10 @@ timeline; outage-only faults also reach the decoupled one. Competing
 tenant jobs (``CoSimConfig.jobs``) contend for the PON and CPS with
 the FL task, which becomes job 0 and whose sync gates each round.
 
-Not ported yet: a ``collector`` raises ``NotImplementedError`` (ROADMAP
-Queue 1 item 8).
+A ``collector`` (``repro_torch.obs.Collector``, on ``CoSimConfig`` or
+``run(collector=...)``) reaches every network simulation the co-sim
+runs and gets an ``fl_round`` event a round (and an ``fl:train_round``
+span around each synchronous training round).
 """
 from __future__ import annotations
 
@@ -39,11 +41,12 @@ from repro_torch.core.slicing import ClientProfile
 from repro_torch.faults import FaultSchedule, RetryPolicy
 from repro_torch.fl.server import CPSServer, PendingUpdate
 from repro_torch.net.api import SweepSpec, simulate
-from repro_torch.net.engine import SweepCase, _not_ported
+from repro_torch.net.engine import SweepCase
 from repro_torch.net.jobs import JobSpec
 from repro_torch.net.multi_pon import MultiPonTopology
 from repro_torch.net.sim import FLRoundWorkload, PONConfig
 from repro_torch.net.timeline import TimelineSchedule
+from repro_torch.obs.trace import maybe_span
 
 
 @dataclass
@@ -57,8 +60,8 @@ class CoSimConfig:
     # several wavelength segments sharing a CPS uplink: ``pon`` then
     # describes one segment (None = a single PON)
     topology: Optional[MultiPonTopology] = None
-    # the reference's instrumentation hub: only None is ported (ROADMAP
-    # Queue 1 item 8)
+    # a repro_torch.obs.Collector: metrics of every network simulation
+    # and an fl_round event a round
     collector: Optional[object] = None
     # fault injection (repro_torch.faults): dropout/loss faults and
     # quorum aggregation need the coupled deadline/async path (who
@@ -74,10 +77,6 @@ class CoSimConfig:
     jobs: Optional[Tuple[JobSpec, ...]] = None
     job_clients: Optional[Tuple[ClientProfile, ...]] = None
     fairness: str = "maxmin"
-
-    def __post_init__(self):
-        if self.collector is not None:
-            raise _not_ported("collector")
 
     @classmethod
     def from_fed_model(cls, model_cfg, compress: str = "int8", **kw):
@@ -125,11 +124,12 @@ class FLNetworkCoSim:
         # the round engine's backend: None (the per-cycle loop) until a
         # run's ``spec`` names one
         self._backend: Optional[str] = None
+        self._collector = cfg.collector
 
     def _simulate(self, cases, schedule=None):
         return simulate(SweepSpec(cases=tuple(cases), pon=self.cfg.pon,
                                   schedule=schedule, backend=self._backend),
-                        device=self.device)
+                        collector=self._collector, device=self.device)
 
     def _cases(self, wl: FLRoundWorkload, seeds, jobs: Optional[tuple] = None,
                fairness: str = "maxmin") -> List[SweepCase]:
@@ -348,6 +348,18 @@ class FLNetworkCoSim:
             )
             log.sync_time_s = rnd.sync_time
             total_time += rnd.sync_time
+            if self._collector is not None:
+                self._collector.event(
+                    "fl_round", mode="coupled", round=log.round_index,
+                    sync_time_s=rnd.sync_time, n_arrived=log.n_arrived,
+                    n_deferred=len(rnd.deferred),
+                    n_dropped=len(rnd.dropped),
+                    n_partial=len(rnd.partial),
+                    n_failed=len(rnd.failed),
+                    n_lost=len(rnd.lost),
+                    quorum_met=rnd.quorum_met,
+                    payload_bits=float(sum(rnd.ul_bits.values())),
+                )
             rounds.append(
                 {
                     "round": log.round_index,
@@ -397,10 +409,11 @@ class FLNetworkCoSim:
         the clients) or a ``deadline_s`` under ``deadline_policy`` runs
         the coupled co-simulation (:meth:`_run_coupled`). Upload sizes
         measured from compression (``update_bits_from_compression``)
-        are a decoupled-path feature.
+        are a decoupled-path feature. ``collector`` overrides
+        ``cfg.collector`` from this run on.
         """
         if collector is not None:
-            raise _not_ported("collector")
+            self._collector = collector
         if spec is not None:
             spec.validate()
             if spec.schedule is not None:
@@ -472,7 +485,8 @@ class FLNetworkCoSim:
         sync = 0.0
         total_time = 0.0
         for _ in range(n_rounds):
-            log = self.server.run_round(eval_fn=eval_fn)
+            with maybe_span(self._collector, "fl:train_round"):
+                log = self.server.run_round(eval_fn=eval_fn)
             profiles, m_bits = self._round_profiles(log)
             per_round_profiles.append(profiles)
             per_round_bits.append(m_bits)
@@ -480,6 +494,12 @@ class FLNetworkCoSim:
                 sync = self._round_sync_time(profiles)
                 log.sync_time_s = sync
                 total_time += sync
+            if self._collector is not None:
+                self._collector.event(
+                    "fl_round", mode="sync", round=log.round_index,
+                    n_arrived=log.n_arrived,
+                    payload_bits=float(m_bits) * log.n_arrived,
+                )
             rounds.append(
                 {
                     "round": log.round_index,

@@ -3,6 +3,7 @@
     python -m repro_torch.launch.serve --arch olmo-1b            # smoke, card
     python -m repro_torch.launch.serve --device cpu              # plain path
     python -m repro_torch.launch.serve --full --prompt-len 2048  # full width
+    python -m repro_torch.launch.serve --log-jsonl events.jsonl  # + JSONL
 
 The counterpart of the reference package's ``launch/serve.py``: random
 parameters and prompts, a prefill that fills the KV caches, then one
@@ -24,6 +25,7 @@ from repro_torch._device import DEFAULT_DEVICE, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.dist import stepfns
 from repro_torch.models import lm
+from repro_torch.obs import EventLog
 
 
 def _sync(dev: torch.device) -> None:
@@ -47,12 +49,13 @@ def serve(
 
     Greedy (``argmax``) at ``temperature == 0``, else sampled from the
     tempered softmax with the parameter generator. The cache holds
-    ``prompt_len + max_new_tokens + 8`` positions.
+    ``prompt_len + max_new_tokens + 8`` positions. The echo line is the
+    console view of one ``serve`` event (``obs.EventLog``), which
+    ``log_jsonl`` also appends to that file as a JSON line. The times are
+    taken after the device has finished the work.
     """
-    if log_jsonl is not None:
-        raise NotImplementedError(
-            "--log-jsonl needs the port of repro.obs (ROADMAP Queue 1 item 8)")
     dev = resolve_device(device)
+    log = EventLog(jsonl_path=log_jsonl)
     cfg = get_config(arch, smoke=smoke)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.inference_mode():
@@ -89,9 +92,16 @@ def serve(
         _sync(dev)
         decode_s = time.perf_counter() - t1
     tps = batch * max_new_tokens / max(decode_s, 1e-9)
-    print(f"{arch}: prefill({batch}x{prompt_len})={prefill_s * 1e3:.1f}ms "
-          f"decode {max_new_tokens} steps={decode_s * 1e3:.1f}ms "
-          f"({tps:.1f} tok/s batched)", flush=True)
+    log.emit(
+        "serve",
+        echo="{arch}: prefill({batch}x{prompt_len})={prefill_ms:.1f}ms "
+             "decode {new_tokens} steps={decode_ms:.1f}ms "
+             "({tps:.1f} tok/s batched)",
+        arch=arch, batch=batch, prompt_len=prompt_len,
+        prefill_ms=prefill_s * 1e3, new_tokens=max_new_tokens,
+        decode_ms=decode_s * 1e3, tps=tps,
+    )
+    log.close()
     return out.cpu().numpy()
 
 
@@ -103,7 +113,7 @@ def main(argv=None):
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--log-jsonl", default=None,
-                    help="structured JSONL events (not ported yet: raises)")
+                    help="write structured JSONL events to this path")
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="cuda (default) or cpu")
     ap.add_argument("--full", action="store_true",

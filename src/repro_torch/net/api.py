@@ -5,8 +5,8 @@
 runs through :func:`simulate` on a device: the timeline when the
 spec has a schedule, else the round engine. ``backend="jit"`` runs each
 phase in one call (the fused phase kernel on a card; multi-job sweeps
-run the per-cycle loop). A ``collector`` raises ``NotImplementedError``
-naming the ROADMAP item that adds it::
+run the per-cycle loop). A ``collector`` (``repro_torch.obs.Collector``)
+instruments the per-cycle loop; ``backend="jit"`` refuses it::
 
     spec = SweepSpec.single_job(clients, model_bits=25e6,
                                 load=0.6, policy="bs")
@@ -24,7 +24,6 @@ from repro_torch._device import DEFAULT_DEVICE
 from repro_torch.net.engine import (
     _BACKENDS,
     SweepCase,
-    _not_ported,
     _round_sweep,
     _sweep_topology,
 )
@@ -167,13 +166,13 @@ def simulate(spec: SweepSpec, cfg: Optional[PONConfig] = None,
     """Run a validated :class:`SweepSpec` on ``device``: a
     ``List[TimelineResult]`` when the spec has a ``schedule``, else a
     ``List[RoundResult]``. ``cfg`` overrides ``spec.pon``; with neither,
-    the default :class:`PONConfig` runs."""
+    the default :class:`PONConfig` runs. ``collector`` (a
+    ``repro_torch.obs.Collector``, run-time state, so it rides outside
+    the frozen spec) turns metrics on."""
     if not isinstance(spec, SweepSpec):
         raise TypeError(
             f"simulate takes a SweepSpec; got {type(spec).__name__}"
         )
-    if collector is not None:
-        raise _not_ported("collector")
     spec.validate()
     pon = cfg if cfg is not None else (
         spec.pon if spec.pon is not None else PONConfig()
@@ -183,10 +182,10 @@ def simulate(spec: SweepSpec, cfg: Optional[PONConfig] = None,
         return _timeline_sweep(
             pon, cases, spec.schedule, mode=spec.mode,
             t_round_hint=spec.t_round_hint, max_t=spec.max_t,
-            backend=spec.backend, device=device,
+            collector=collector, backend=spec.backend, device=device,
         )
     return _round_sweep(
         pon, cases, t_round_hint=spec.t_round_hint, max_t=spec.max_t,
         ul_deadline_s=spec.ul_deadline_s, ul_outage_s=spec.ul_outage_s,
-        backend=spec.backend, device=device,
+        collector=collector, backend=spec.backend, device=device,
     )

@@ -46,8 +46,17 @@ K2 launches are counted like any other.
 Public API: ``SweepCase`` + ``simulate_round_sweep``; prefer building a
 ``repro_torch.net.SweepSpec`` and calling ``simulate(spec)``. Multi-round
 timelines, fault injection included, run over this engine
-(``repro_torch.net.timeline``). ``collector`` instrumentation is not
-ported yet and raises.
+(``repro_torch.net.timeline``).
+
+``collector`` (``repro_torch.obs.Collector``) instruments the per-cycle
+loop as the reference's does: each phase registers a ``PhaseStats`` and
+hands it, every cycle, a copy of the backlog and grant rows (whose row
+sums it takes in numpy's order when it folds, so utilisation bins match
+the reference's bit for bit) and the CPS want/eff; nothing of it reads
+the device before the report. The phase kernel carries no
+instrumentation, so a collector with ``backend="jit"`` raises
+``ValueError``, as in the reference. ``collector=None`` runs exactly the
+uninstrumented loop.
 """
 from __future__ import annotations
 
@@ -85,24 +94,16 @@ from repro_torch.net.multi_pon import (
     pon_bg_rates,
 )
 from repro_torch.net.traffic import PACKET_BITS, burst_lambda
+from repro_torch.obs.trace import maybe_span
 
 CAP_EPS = 1e-9       # the DBAs' "capacity exhausted" threshold
 SEG_EPS = 1.0        # segments under 1 bit are compacted
 EPS_BITS = 1.0       # a client is done below 1 remaining bit
 _IKEY_INF = np.iinfo(np.int64).max // 4
 
-_NOT_PORTED = {
-    "collector": "collector instrumentation (obs/) is ROADMAP Queue 1 "
-                 "item 8",
-}
 _BACKENDS = (None, "numpy", "jit")
 
 phase_fallbacks = 0   # jit phases re-run on the per-cycle loop (inexact)
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"the PyTorch port does not support this yet: {_NOT_PORTED[what]}")
 
 
 @dataclass(frozen=True)
@@ -789,6 +790,22 @@ def _job_grants_bs(slots: _JobSlots, fl: _FLQueues, ctx, t: float,
 # phase runner
 # ---------------------------------------------------------------------------
 
+_OBS_ROWS = ("bg_backlog", "fl_backlog", "bg_grants", "fl_grants")
+
+
+def _observe_cycle(obs, cap, ob: dict) -> None:
+    """Hand ``obs`` (a ``PhaseStats``) one cycle: the ``(B, N)`` backlogs
+    and grants in ``ob`` stacked into one fresh tensor (one copy; their
+    row sums are taken when ``obs`` folds) and the ``(B,)`` CPS want/eff,
+    fresh tensors. ``cap`` is never written, so nothing buffered is a
+    tensor the loop later changes."""
+    names = [name for name in _OBS_ROWS if name in ob]
+    if names:
+        rows = torch.cat([ob.pop(name) for name in names])
+        obs.cycle_rows(cap, rows, names, **ob)
+    else:
+        obs.cycle(cap, **ob)
+
 
 def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
                ready_t: np.ndarray, stream: Optional[_Stream], mode: str,
@@ -797,8 +814,8 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
                cap_row: Optional[np.ndarray] = None,
                cps_cap: Optional[float] = None, n_pons: int = 1,
                deadline_row: Optional[np.ndarray] = None,
-               outage_row: Optional[np.ndarray] = None, jobs_ctx=None, *,
-               device):
+               outage_row: Optional[np.ndarray] = None, jobs_ctx=None,
+               collector=None, phase_label: str = "", *, device):
     """One transfer phase for a policy-homogeneous batch of rows.
 
     Host numpy in and out; the cycle loop runs on ``device``. Rows are
@@ -813,6 +830,8 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
     sweeps: each job's column mask, the rows' job weights and deadlines,
     the fairness policy) splits each cycle's FL capacity across jobs
     before the grants, and each job drains only its own queues.
+    ``collector`` registers a ``PhaseStats`` under ``phase_label`` (by
+    default ``mode``) and feeds it every cycle (:func:`_observe_cycle`).
     """
     B = rem_init.shape[0]
     N = cfg.n_onus
@@ -849,6 +868,10 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
     else:
         slots = _JobSlots(slot_arrays, cyc, len(jobs_ctx["masks"]), device)
 
+    obs = None
+    if collector is not None:
+        obs = collector.phase(phase_label or mode, B, device=device)
+
     n_left = int(np.count_nonzero(~done_h & lay.part))
     waiting = lay.part & ~done_h          # host: readiness needs no device
     n_wait = int(np.count_nonzero(waiting))
@@ -876,6 +899,8 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
                 dark_prev = dark
         if use_bg:
             bg.push(k, stream.row(k))
+        if obs is not None:
+            ob = {}     # this cycle's observations, at the reference's points
         if n_wait:
             newly = waiting & (ready_t <= t + cyc)
             n_new = int(np.count_nonzero(newly))
@@ -888,6 +913,10 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
         # the idle stretch before the first ready client skips FL work
         if n_left > n_wait:
             backlog_onu = fl.backlog_per_onu()
+            if obs is not None:
+                ob["fl_backlog"] = backlog_onu
+                if use_bg:
+                    ob["bg_backlog"] = bg.backlog
             plan = None
             if mode == "fcfs":
                 if cps_cap is None:
@@ -898,7 +927,11 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
                         cap_cyc)
                     eff = cps_waterfill(want.reshape(-1, n_pons),
                                         cps_cap).reshape(-1)
+                    if obs is not None:
+                        ob["cps_want"], ob["cps_eff"] = want, eff
                 bg_grants = _waterfill(bg.backlog, bg.hol_key, eff)
+                if obs is not None:
+                    ob["bg_grants"] = bg_grants
                 cap_fl = eff - bg_grants.sum(dim=1)
                 if jobs_ctx is None:
                     fl_grants = _waterfill(backlog_onu, fl.hol_per_onu,
@@ -916,11 +949,15 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
                     want = fl_grants.sum(dim=1)
                     eff = cps_waterfill(want.reshape(-1, n_pons),
                                         cps_cap).reshape(-1)
+                    if obs is not None:
+                        ob["cps_want"], ob["cps_eff"] = want, eff
                     if bool((eff < want).any()):
                         fl_grants = _slot_grants(slots, backlog_onu, t,
                                                  cyc, eff, N)
             if plan is not None:
                 fl_grants = sum(g for _, g, _ in plan)
+            if obs is not None:
+                ob["fl_grants"] = fl_grants
             if bool((fl_grants > 0.0).any()):
                 prev_qb = fl.qb.clone()
                 if plan is None:
@@ -940,7 +977,15 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
                 want = torch.minimum(bg.backlog.sum(dim=1), cap_cyc)
                 eff = cps_waterfill(want.reshape(-1, n_pons),
                                     cps_cap).reshape(-1)
-            bg.serve(_waterfill(bg.backlog, bg.hol_key, eff), k)
+                if obs is not None:
+                    ob["cps_want"], ob["cps_eff"] = want, eff
+            bg_grants = _waterfill(bg.backlog, bg.hol_key, eff)
+            if obs is not None:
+                ob["bg_backlog"], ob["bg_grants"] = bg.backlog, bg_grants
+            bg.serve(bg_grants, k)
+        if obs is not None:
+            # every cycle, idle ones included, as the reference records
+            _observe_cycle(obs, cap_cyc, ob)
         t += cyc
         k += 1
 
@@ -1091,6 +1136,19 @@ def _multi_job_fairness(cases: Sequence[SweepCase], ul_deadline_s,
     return fairness
 
 
+def _record_job_uploads(collector, case: SweepCase, res):
+    """Each job's upload times under ``<policy>/job<id>`` keys."""
+    if collector is None or not res.job_stats:
+        return
+    ul = res.ul_done
+    for job in case.jobs:
+        times = [ul[cid] for cid in job.clients
+                 if cid in ul and np.isfinite(ul[cid])]
+        if times:
+            collector.record_upload_times(
+                f"{case.policy}/job{job.job_id}", case.load, times)
+
+
 def _single_job_sweep(cfg, cases: Sequence[SweepCase], **kw):
     """A sweep whose every case has one job runs the single-tenant path
     (bit for bit a sweep of the same workloads without jobs) and gets
@@ -1113,6 +1171,7 @@ def _single_job_sweep(cfg, cases: Sequence[SweepCase], **kw):
         res.job_stats = compute_job_stats(
             case.jobs, res.ul_done, cfg.n_onus, topo.n_pons
         )
+        _record_job_uploads(kw.get("collector"), case, res)
     return results
 
 
@@ -1121,6 +1180,7 @@ def _round_sweep(cfg, cases: Sequence[SweepCase],
                  max_t: float = 600.0,
                  ul_deadline_s=None,
                  ul_outage_s=None,
+                 collector=None,
                  backend: Optional[str] = None,
                  *, device=DEFAULT_DEVICE) -> List["RoundResult"]:  # noqa: F821
     """Simulate every sweep case as one stacked tensor simulation on
@@ -1138,6 +1198,9 @@ def _round_sweep(cfg, cases: Sequence[SweepCase],
     capacity across jobs by their shared fairness policy; the phase
     kernel has no job axis, so with more than one job a case runs the
     per-cycle loop whatever ``backend`` says, as the JAX package does.
+    ``collector`` records each phase's per-cycle metrics, the phases'
+    spans and each case's upload times under ``(policy, load)`` (and
+    each job's under ``<policy>/job<id>``); ``backend="jit"`` refuses it.
     """
     from repro_torch.net.sim import RoundResult
 
@@ -1146,6 +1209,9 @@ def _round_sweep(cfg, cases: Sequence[SweepCase],
     if backend not in _BACKENDS:
         raise ValueError(f"unknown engine backend {backend!r}")
     use_jit = backend == "jit"
+    if use_jit and collector is not None:
+        raise ValueError("backend='jit' does not support collector "
+                         "instrumentation; use the numpy backend")
     if use_jit and any(case.dl_arrivals is not None
                        or case.ul_arrivals is not None for case in cases):
         raise ValueError("backend='jit' does not support injected arrival "
@@ -1158,7 +1224,7 @@ def _round_sweep(cfg, cases: Sequence[SweepCase],
             return _single_job_sweep(
                 cfg, cases, t_round_hint=t_round_hint, max_t=max_t,
                 ul_deadline_s=ul_deadline_s, ul_outage_s=ul_outage_s,
-                backend=backend, device=device,
+                collector=collector, backend=backend, device=device,
             )
         fairness = _multi_job_fairness(cases, ul_deadline_s, ul_outage_s)
         # the phase kernel carries no job axis: the per-cycle loop runs
@@ -1350,8 +1416,11 @@ def _round_sweep(cfg, cases: Sequence[SweepCase],
             # the ring walk lost exactness: the per-cycle loop is exact
             phase_fallbacks += 1
         stream = providers(sel, phase) if mode == "fcfs" else None
-        return _run_phase(cfg, sub, rem0, ready, stream, mode,
-                          device=device, **kw)
+        label = f"{phase}:{mode}"
+        with maybe_span(collector, f"phase:{label}", rows=len(sel)):
+            return _run_phase(cfg, sub, rem0, ready, stream, mode,
+                              collector=collector, phase_label=label,
+                              device=device, **kw)
 
     # ---- downstream ------------------------------------------------------
     dl_done = np.full((R, lay.n_clients), np.nan)
@@ -1492,6 +1561,11 @@ def _round_sweep(cfg, cases: Sequence[SweepCase],
             sync = dlb + case.workload.t_aggregate
         else:
             sync = max(ul.values()) + case.workload.t_aggregate
+        if collector is not None:
+            ul_times = [v for v in ul.values() if np.isfinite(v)]
+            if ul_times:
+                collector.record_upload_times(case.policy, case.load,
+                                              ul_times)
         results.append(RoundResult(
             policy=case.policy,
             sync_time=sync,
@@ -1505,6 +1579,8 @@ def _round_sweep(cfg, cases: Sequence[SweepCase],
             job_stats=(None if case.jobs is None else
                        compute_job_stats(case.jobs, ul, n_local, P)),
         ))
+        if case.jobs is not None:
+            _record_job_uploads(collector, case, results[-1])
     return results
 
 
@@ -1550,10 +1626,8 @@ def simulate_round_sweep(cfg, cases=None,
         "build a repro_torch.net.SweepSpec and call simulate(spec)",
         DeprecationWarning, stacklevel=2,
     )
-    if collector is not None:
-        raise _not_ported("collector")
     return _round_sweep(
         cfg, cases, t_round_hint=t_round_hint, max_t=max_t,
         ul_deadline_s=ul_deadline_s, ul_outage_s=ul_outage_s,
-        backend=backend, device=device,
+        collector=collector, backend=backend, device=device,
     )

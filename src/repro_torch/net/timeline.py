@@ -37,9 +37,17 @@ Multi-tenant cases (``SweepCase.jobs``) always fold: each round keeps
 the jobs active under their cadence (``JobSpec.period``/``phase``) and
 reports each job's sync in ``TimelineRound.job_sync``.
 
-Not ported yet: a ``collector`` raises ``NotImplementedError`` (ROADMAP
-Queue 1 item 8); the cycle-level oracle ``simulate_timeline_reference``
-is item 9.
+A ``collector`` (``repro_torch.obs.Collector``) records, beside the
+engine's phase metrics, each round (``record_round``), the staleness of
+arrived updates, the deadline slack of clients that made the cut, the
+fault events (``fault.dropout``, ``fault.loss``, ``fault.gave_up``) and
+quorum extensions (``quorum.extend``), with a span a round
+(``timeline:round[r]``) or a fold (``timeline:folded``,
+``timeline:folded-jobs``); an async round's probe pass and quorum
+re-runs stay uninstrumented, as in the reference.
+
+Not ported yet: the cycle-level oracle ``simulate_timeline_reference``
+(ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -52,8 +60,9 @@ import numpy as np
 
 from repro_torch._device import DEFAULT_DEVICE
 from repro_torch.faults import FaultSchedule, RetryPolicy
-from repro_torch.net.engine import SweepCase, _not_ported, _round_sweep
+from repro_torch.net.engine import SweepCase, _round_sweep
 from repro_torch.net.sim import FLRoundWorkload, RoundResult
+from repro_torch.obs.trace import maybe_span
 
 __all__ = [
     "DEADLINE_POLICIES",
@@ -419,6 +428,30 @@ def _round_view(r: int, t_start: float, result: Optional[RoundResult],
     return rnd, deferred
 
 
+def _observe_round(collector, case, rnd: TimelineRound,
+                   deadline: Optional[float]) -> None:
+    """Fold one round into ``collector``: its wall time and outcome
+    counts (``record_round``), the staleness of arrived updates and the
+    deadline slack (deadline minus completion) of the clients that made
+    the cut. Reads only; ``None`` does nothing."""
+    if collector is None:
+        return
+    if rnd.staleness:
+        collector.record_staleness(list(rnd.staleness.values()))
+    if deadline is not None and rnd.result is not None and rnd.arrived:
+        slack = [deadline - rnd.result.ul_done.get(cid, np.nan)
+                 for cid in rnd.arrived]
+        collector.record_slack(case.policy, case.load, slack)
+    collector.record_round(
+        policy=case.policy, load=case.load, seed=case.seed,
+        round=rnd.round_index, sync_time=rnd.sync_time,
+        t_start=rnd.t_start, t_end=rnd.t_end,
+        ul_bits=float(sum(rnd.ul_bits.values())),
+        n_arrived=len(rnd.arrived), n_deferred=len(rnd.deferred),
+        n_dropped=len(rnd.dropped), n_partial=len(rnd.partial),
+    )
+
+
 def _round_faulted(schedule: TimelineSchedule, case, r: int,
                    rem_start: Dict[int, float],
                    drops: Dict[int, float]) -> frozenset:
@@ -445,7 +478,8 @@ def _effective_arrived(result: RoundResult, rem_start: Dict[int, float],
 def _apply_round_faults(schedule: TimelineSchedule, case, r: int,
                         rnd: TimelineRound, rem_start: Dict[int, float],
                         carry: Dict[int, float], drops: Dict[int, float],
-                        fstate: _FaultState) -> Dict[int, float]:
+                        fstate: _FaultState,
+                        collector=None) -> Dict[int, float]:
     """Cancel the round's faulted arrivals, book retries with backoff and
     return the updated carry.
 
@@ -455,7 +489,8 @@ def _apply_round_faults(schedule: TimelineSchedule, case, r: int,
     (``rnd.lost``); its retry re-sends the round's pending bits. Either
     way the client backs off ``retry.delay_rounds(attempt)`` rounds
     (``rnd.retry_at``) or, past ``max_retries`` attempts, gives the
-    update up (``rnd.gave_up``) and re-enters fresh.
+    update up (``rnd.gave_up``) and re-enters fresh. ``collector`` gets a
+    ``fault.dropout``, ``fault.loss`` or ``fault.gave_up`` event for each.
     """
     faults = schedule.active_faults
     if faults is None:
@@ -467,6 +502,9 @@ def _apply_round_faults(schedule: TimelineSchedule, case, r: int,
         if attempt > retry.max_retries:
             fstate.attempts.pop(cid, None)
             rnd.gave_up.append(cid)
+            if collector is not None:
+                collector.event("fault.gave_up", round=r, client=cid,
+                                attempts=attempt - 1, seed=case.seed)
             return
         fstate.attempts[cid] = attempt
         due = r + retry.delay_rounds(attempt)
@@ -483,6 +521,9 @@ def _apply_round_faults(schedule: TimelineSchedule, case, r: int,
         rnd.dropped.pop(cid, None)
         rnd.partial.pop(cid, None)
         book(cid, drops[cid])
+        if collector is not None:
+            collector.event("fault.dropout", round=r, client=cid,
+                            wasted_bits=rnd.failed[cid], seed=case.seed)
     if faults.loss_rate > 0.0 and rnd.arrived:
         lost_draw = faults.losses(r, sorted(rem_start), case.seed)
         for cid in [c for c in rnd.arrived if c in lost_draw]:
@@ -490,6 +531,9 @@ def _apply_round_faults(schedule: TimelineSchedule, case, r: int,
             rnd.staleness.pop(cid, None)
             rnd.lost.append(cid)
             book(cid, rem_start[cid])
+            if collector is not None:
+                collector.event("fault.loss", round=r, client=cid,
+                                bits=rem_start[cid], seed=case.seed)
     for cid in rnd.arrived:          # a clean arrival resets the backoff
         fstate.attempts.pop(cid, None)
     return carry
@@ -585,13 +629,14 @@ def _round_outages(cases, schedule, r, row_meta):
 
 
 def _advance_rounds(cfg, cases, schedule, t_round_hint, max_t, policy,
-                    deadline_fn, backend, device):
+                    deadline_fn, backend, device, collector=None):
     """Advance round by round: build the rows, take each round's
     deadline(s) from ``deadline_fn(r, row_cases, row_meta, outages)`` (a
     scalar or a per-row list), advance the engine, re-run the rows short
     of their quorum of un-faulted arrivals with a doubled deadline, then
     apply the round's faults and carry deferred bits and retries
-    forward."""
+    forward. Only the first pass of a round feeds ``collector``'s phase
+    metrics; each quorum extension is a ``quorum.extend`` event."""
     B = len(cases)
     carries: List[Dict[int, float]] = [{} for _ in range(B)]
     entries: List[Dict[int, int]] = [{} for _ in range(B)]
@@ -608,11 +653,13 @@ def _advance_rounds(cfg, cases, schedule, t_round_hint, max_t, policy,
                 entries[b].setdefault(cid, r)
         outages = _round_outages(cases, schedule, r, row_meta)
         deadlines = deadline_fn(r, row_cases, row_meta, outages)
-        results = _round_sweep(
-            cfg, row_cases, t_round_hint=t_round_hint, max_t=max_t,
-            ul_deadline_s=deadlines, ul_outage_s=outages, backend=backend,
-            device=device,
-        ) if row_cases else []
+        with maybe_span(collector, f"timeline:round[{r}]",
+                        rows=len(row_cases)):
+            results = _round_sweep(
+                cfg, row_cases, t_round_hint=t_round_hint, max_t=max_t,
+                ul_deadline_s=deadlines, ul_outage_s=outages,
+                collector=collector, backend=backend, device=device,
+            ) if row_cases else []
         ext_counts: Dict[int, int] = {}
         met: Dict[int, bool] = {}
         if quorum is not None and row_cases:
@@ -632,16 +679,22 @@ def _advance_rounds(cfg, cases, schedule, t_round_hint, max_t, policy,
                     need = max(1, math.ceil(quorum * len(rem_start)))
                     met[ridx] = got >= need
                     if got < need:
-                        redo.append(ridx)
+                        redo.append((b, ridx))
                 return redo
 
             for _ in range(schedule.quorum_max_extends):
                 redo = _unmet()
                 if not redo:
                     break
-                for ridx in redo:
+                for b, ridx in redo:
                     dls[ridx] = float(dls[ridx]) * 2.0
                     ext_counts[ridx] = ext_counts.get(ridx, 0) + 1
+                    if collector is not None:
+                        collector.event(
+                            "quorum.extend", round=r, seed=cases[b].seed,
+                            deadline_s=dls[ridx],
+                            extension=ext_counts[ridx])
+                redo = [ridx for _, ridx in redo]
                 sub = _round_sweep(
                     cfg, [row_cases[i] for i in redo],
                     t_round_hint=t_round_hint, max_t=max_t,
@@ -654,6 +707,8 @@ def _advance_rounds(cfg, cases, schedule, t_round_hint, max_t, policy,
                     results[ridx] = sub[j]
             else:
                 _unmet()        # the verdicts after the last extension
+            deadlines = dls
+        per_row_dl = isinstance(deadlines, (list, tuple, np.ndarray))
         for b, ridx, rem_start, drops in row_meta:
             res = results[ridx] if ridx is not None else None
             rnd, carry = _round_view(
@@ -664,34 +719,43 @@ def _advance_rounds(cfg, cases, schedule, t_round_hint, max_t, policy,
                 rnd.quorum_met = met[ridx]
                 rnd.deadline_extensions = ext_counts.get(ridx, 0)
             carry = _apply_round_faults(schedule, cases[b], r, rnd,
-                                        rem_start, carry, drops, fstates[b])
+                                        rem_start, carry, drops, fstates[b],
+                                        collector)
             out[b].rounds.append(rnd)
             carries[b] = carry
             entries[b] = {cid: ent for cid, ent in entries[b].items()
                           if cid in carry or cid in fstates[b].retries}
             t_now[b] += rnd.sync_time
+            if collector is not None:
+                dl = (deadlines[ridx]
+                      if per_row_dl and ridx is not None else
+                      None if per_row_dl else deadlines)
+                _observe_round(collector, cases[b], rnd, dl)
     return out
 
 
 def _sequential(cfg, cases, schedule, t_round_hint, max_t, backend,
-                device):
+                device, collector=None):
     """Round by round, carrying deferred bits and retries (the only legal
     order under defer deadlines, dropout or loss)."""
     return _advance_rounds(
         cfg, cases, schedule, t_round_hint, max_t,
         schedule.deadline_policy,
         lambda r, row_cases, row_meta, outages: schedule.deadline(r),
-        backend, device,
+        backend, device, collector,
     )
 
 
-def _async(cfg, cases, schedule, t_round_hint, max_t, backend, device):
+def _async(cfg, cases, schedule, t_round_hint, max_t, backend, device,
+           collector=None):
     """FedBuff rounds: a free pass finds each row's ``buffer_k``-th
     completion among its un-faulted uploads, then the round runs cut
     there; stragglers defer with staleness."""
     k = schedule.buffer_k
 
     def deadline_fn(r, row_cases, row_meta, outages):
+        # the free pass is a search, not a round: only the deadline pass
+        # feeds the collector, so nothing is counted twice
         free = _round_sweep(
             cfg, row_cases, t_round_hint=t_round_hint, max_t=max_t,
             ul_outage_s=outages, backend=backend, device=device,
@@ -707,11 +771,12 @@ def _async(cfg, cases, schedule, t_round_hint, max_t, backend, device):
 
     return _advance_rounds(
         cfg, cases, schedule, t_round_hint, max_t, "defer", deadline_fn,
-        backend, device,
+        backend, device, collector,
     )
 
 
-def _folded(cfg, cases, schedule, t_round_hint, max_t, backend, device):
+def _folded(cfg, cases, schedule, t_round_hint, max_t, backend, device,
+            collector=None):
     """The whole timeline as one stacked simulation: the round axis
     folded into the engine's batch, each row under its own round's
     deadline and, with outage faults, its own round's outage windows
@@ -735,12 +800,14 @@ def _folded(cfg, cases, schedule, t_round_hint, max_t, backend, device):
                 row_outages.append(faults.outage_windows(
                     r, _case_n_pons(case), case.seed))
     has_deadline = schedule.deadline_s is not None
-    results = _round_sweep(
-        cfg, rows, t_round_hint=t_round_hint, max_t=max_t,
-        ul_deadline_s=row_deadlines if has_deadline else None,
-        ul_outage_s=row_outages if has_outage else None,
-        backend=backend, device=device,
-    ) if rows else []
+    with maybe_span(collector, "timeline:folded", rows=len(rows),
+                    rounds=schedule.n_rounds):
+        results = _round_sweep(
+            cfg, rows, t_round_hint=t_round_hint, max_t=max_t,
+            ul_deadline_s=row_deadlines if has_deadline else None,
+            ul_outage_s=row_outages if has_outage else None,
+            collector=collector, backend=backend, device=device,
+        ) if rows else []
     out = [TimelineResult(policy=c.policy, load=c.load, seed=c.seed,
                           rounds=[]) for c in cases]
     t_now = [0.0] * len(cases)
@@ -752,6 +819,8 @@ def _folded(cfg, cases, schedule, t_round_hint, max_t, backend, device):
         )
         out[b].rounds.append(rnd)
         t_now[b] += rnd.sync_time
+        if collector is not None:
+            _observe_round(collector, cases[b], rnd, schedule.deadline(r))
     return out
 
 
@@ -775,7 +844,7 @@ def _jobs_schedule_check(schedule: TimelineSchedule) -> None:
 
 
 def _folded_jobs(cfg, cases, schedule, mode, t_round_hint, max_t, backend,
-                 device):
+                 device, collector=None):
     """The folded driver of multi-tenant cases: each round keeps the jobs
     active under their cadence (``JobSpec.active_in``), the round axis
     folds into the engine's batch as in :func:`_folded`, and each job's
@@ -811,10 +880,12 @@ def _folded_jobs(cfg, cases, schedule, mode, t_round_hint, max_t, backend,
             meta.append((b, r, rem_start, len(rows)))
             rows.append(replace(case, workload=wl, stream_round=r,
                                 jobs=active))
-    results = _round_sweep(
-        cfg, rows, t_round_hint=t_round_hint, max_t=max_t,
-        backend=backend, device=device,
-    ) if rows else []
+    with maybe_span(collector, "timeline:folded-jobs", rows=len(rows),
+                    rounds=schedule.n_rounds):
+        results = _round_sweep(
+            cfg, rows, t_round_hint=t_round_hint, max_t=max_t,
+            collector=collector, backend=backend, device=device,
+        ) if rows else []
     out = [TimelineResult(policy=c.policy, load=c.load, seed=c.seed,
                           rounds=[]) for c in cases]
     t_now = [0.0] * len(cases)
@@ -829,6 +900,8 @@ def _folded_jobs(cfg, cases, schedule, mode, t_round_hint, max_t, backend,
                             for jid, js in res.job_stats.items()}
         out[b].rounds.append(rnd)
         t_now[b] += rnd.sync_time
+        if collector is not None:
+            _observe_round(collector, cases[b], rnd, None)
     return out
 
 
@@ -847,15 +920,16 @@ def _timeline_sweep(cfg, cases: Sequence[SweepCase],
     ``schedule.buffer_k`` selects async rounds; ``"folded"`` and
     ``"sequential"`` force a path. ``backend`` reaches every engine call.
     Multi-job cases always fold and report each job's sync in
-    ``TimelineRound.job_sync``.
+    ``TimelineRound.job_sync``. ``collector`` records the engine's phase
+    metrics, each round, upload delays, deadline slack, staleness and
+    fault and quorum events; an async round's probe pass is not recorded.
     """
-    if collector is not None:
-        raise _not_ported("collector")
     cases = _validate(cases, schedule)
-    run = (cfg, cases, schedule, t_round_hint, max_t, backend, device)
+    run = (cfg, cases, schedule, t_round_hint, max_t, backend, device,
+           collector)
     if any(case.jobs is not None for case in cases):
         return _folded_jobs(cfg, cases, schedule, mode, t_round_hint,
-                            max_t, backend, device)
+                            max_t, backend, device, collector)
     if schedule.asynchronous:
         if mode == "folded":
             raise ValueError(
@@ -948,11 +1022,10 @@ def simulate_timeline_per_round(cfg, cases: Sequence[SweepCase],
     equal :func:`simulate_timeline_sweep`'s. Multi-job cases run the
     folded jobs driver: their rounds are independent, so the two
     coincide."""
-    if collector is not None:
-        raise _not_ported("collector")
     cases = _validate(cases, schedule)
     if any(case.jobs is not None for case in cases):
         return _folded_jobs(cfg, cases, schedule, "auto", t_round_hint,
-                            max_t, backend, device)
-    run = (cfg, cases, schedule, t_round_hint, max_t, backend, device)
+                            max_t, backend, device, collector)
+    run = (cfg, cases, schedule, t_round_hint, max_t, backend, device,
+           collector)
     return _async(*run) if schedule.asynchronous else _sequential(*run)

@@ -294,13 +294,28 @@ def test_quorum_needs_the_coupled_path(ref_params):
 
 
 def test_not_ported_parts_raise(ref_params):
-    # faults, retries, quorum and tenant jobs are ported: the config
-    # takes them; only the collector (obs/) still raises
+    # faults, retries, quorum, tenant jobs and the collector (obs/) are
+    # ported: the config takes them. What stays refused, as in the
+    # reference, is a collector on a spec's backend="jit"; the same run
+    # on the per-cycle loop takes it
+    from repro_torch.obs import Collector
+
     tfl.CoSimConfig(faults=tnet.FaultSchedule(dropout_rate=0.1),
                     retry=tnet.RetryPolicy(), jobs=(), job_clients=(),
-                    fairness="weighted")
-    with pytest.raises(NotImplementedError, match="obs.*item 8"):
-        tfl.CoSimConfig(collector=object())
+                    fairness="weighted", collector=Collector(device="cpu"))
     _, port, _, _ = _pair(ref_params)
-    with pytest.raises(NotImplementedError, match="obs.*item 8"):
-        port.run(1, collector=object())
+    case = tnet.SweepCase(workload=tnet.FLRoundWorkload(clients=[],
+                                                        model_bits=1.0),
+                          load=0.5, policy="bs")
+    for backend in ("jit", None):
+        col = Collector(device="cpu")
+        spec = tnet.SweepSpec(cases=(case,), pon=port.cfg.pon,
+                              backend=backend)
+        if backend == "jit":
+            with pytest.raises(ValueError,
+                               match="does not support collector"):
+                port.run(1, collector=col, spec=spec)
+        else:
+            port.run(1, collector=col, spec=spec)
+            assert [e["kind"] for e in col.events] == ["fl_round"]
+            assert col.phases

@@ -188,17 +188,32 @@ def test_not_ported_features_raise():
                            model_bits=1e6)
     case = T.SweepCase(workload=wl, load=0.3, policy="fcfs")
     cfg = T.PONConfig(n_onus=4, line_rate_bps=1e9)
-    # only the collector (obs/) is still to port, on both entry forms
-    for call in (
-        lambda: T.simulate(T.SweepSpec(cases=(case,), pon=cfg),
-                           collector=object(), device="cpu"),
-        lambda: T.simulate_round_sweep(cfg, [case], collector=object(),
-                                       device="cpu"),
-    ):
-        with pytest.raises(NotImplementedError, match="obs.*item 8"):
-            with warnings.catch_warnings():
-                warnings.simplefilter("ignore", DeprecationWarning)
+    # the collector (obs/) is ported: what stays refused, as in the
+    # reference, is a collector on backend="jit" (the phase kernel
+    # carries no instrumentation), on both entry forms; the same calls
+    # on the per-cycle loop take it
+    from repro_torch.obs import Collector
+
+    for backend, spec_form in ((b, f) for b in ("jit", None)
+                               for f in (True, False)):
+        col = Collector(device="cpu")
+        if spec_form:
+            call = lambda: T.simulate(  # noqa: E731
+                T.SweepSpec(cases=(case,), pon=cfg, backend=backend),
+                collector=col, device="cpu")
+        else:
+            call = lambda: T.simulate_round_sweep(  # noqa: E731
+                cfg, [case], collector=col, backend=backend, device="cpu")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            if backend == "jit":
+                with pytest.raises(ValueError,
+                                   match="does not support collector"):
+                    call()
+            else:
                 call()
+                assert [p.label for p in col.phases] == ["dl:fcfs",
+                                                         "ul:fcfs"]
     # timelines, faults and jobs are ported: inputs of the wrong type are
     # refused as the reference refuses them
     with pytest.raises(TypeError, match="TimelineSchedule"):

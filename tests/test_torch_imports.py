@@ -51,7 +51,8 @@ def test_scan_covers_the_port():
                      "fl/server.py", "fl/__init__.py",
                      "net/timeline.py", "fl/simulation.py",
                      "core/round_model.py", "core/membership.py",
-                     "dist/fedops.py"):
+                     "dist/fedops.py", "obs/__init__.py", "obs/trace.py",
+                     "obs/export.py", "obs/metrics.py"):
         assert expected in names
 
 

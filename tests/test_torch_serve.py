@@ -176,8 +176,15 @@ def test_recurrentgemma_serve_and_cli_on_cpu(capsys):
 
 
 def test_log_jsonl_is_not_ported_yet(tmp_path):
-    with pytest.raises(NotImplementedError, match="obs"):
-        serve_mod.serve(device="cpu", log_jsonl=str(tmp_path / "ev.jsonl"))
+    # ported now (obs/): the run appends one "serve" event to the file
+    import json
+
+    path = tmp_path / "ev.jsonl"
+    serve_mod.serve(device="cpu", log_jsonl=str(path), max_new_tokens=2,
+                    prompt_len=8)
+    events = [json.loads(s) for s in path.read_text().splitlines()]
+    assert [e["event"] for e in events] == ["serve"]
+    assert {"prefill_ms", "decode_ms", "tps"} <= set(events[0])
 
 
 def test_serve_defaults_to_cuda():

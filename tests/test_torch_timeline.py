@@ -360,24 +360,42 @@ def test_not_ported_parts_raise():
     pcfg = T.from_reference(CFG)
     spec = T.SweepSpec(cases=tuple(pc), pon=pcfg,
                        schedule=T.TimelineSchedule(n_rounds=1))
-    # faults and jobs are ported; only the collector (obs/) is not, on
-    # every timeline entry point, fault and tenant specs included
+    # faults, jobs and the collector (obs/) are ported: what stays
+    # refused, as in the reference, is a collector on backend="jit", on
+    # every timeline entry point, fault and tenant specs included; the
+    # same calls on the per-cycle loop take it and record each round
+    from dataclasses import replace
+
+    from repro_torch.obs import Collector
+
     faulty = spec.with_faults(T.FaultSchedule(dropout_rate=0.5))
     tenant = spec.with_jobs((T.JobSpec(
         job_id=0, clients=[c.client_id for c in pc[0].workload.clients],
         model_bits=1e6),))
-    calls = [
-        lambda: T.simulate(spec, collector=object(), device="cpu"),
-        lambda: T.simulate_timeline_sweep(spec, collector=object(),
-                                          device="cpu"),
-        lambda: T.simulate_timeline_per_round(
-            pcfg, pc, spec.schedule, collector=object(), device="cpu"),
-        lambda: T.simulate(faulty, collector=object(), device="cpu"),
-        lambda: T.simulate(tenant, collector=object(), device="cpu"),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="obs.*item 8"):
-            call()
+    for backend in ("jit", None):
+        def calls(col):
+            on = [replace(s, backend=backend)
+                  for s in (spec, faulty, tenant)]
+            return [
+                lambda: T.simulate(on[0], collector=col, device="cpu"),
+                lambda: T.simulate_timeline_sweep(on[0], collector=col,
+                                                  device="cpu"),
+                lambda: T.simulate_timeline_per_round(
+                    pcfg, pc, spec.schedule, collector=col,
+                    backend=backend, device="cpu"),
+                lambda: T.simulate(on[1], collector=col, device="cpu"),
+                lambda: T.simulate(on[2], collector=col, device="cpu"),
+            ]
+        for i in range(5):
+            col = Collector(device="cpu")
+            call = calls(col)[i]
+            if backend == "jit":
+                with pytest.raises(ValueError,
+                                   match="does not support collector"):
+                    call()
+            else:
+                call()
+                assert len(col.rounds) == 1 and col.phases
 
 
 # ---------------------------------------------------------------------------
