@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-The port has eleven paths, each driven through its user entry point with
+The port has twelve paths, each driven through its user entry point with
 the kernel counts set to 0 just before and read just after:
 
 * the Fig. 2b round engine (``repro_torch.net.simulate``), through K1
@@ -35,7 +35,10 @@ the kernel counts set to 0 just before and read just after:
   per-cycle loop, which a multi-job sweep runs with ``backend="jit"``
   too;
 * the collector (``repro_torch.obs``) on the per-cycle loop of the round
-  engine and the timeline, through K1 and K2.
+  engine and the timeline, through K1 and K2;
+* the single-round API (``repro_torch.net.simulate_round``) on both
+  engines, and the cycle-level oracles on the engine's counter streams,
+  through K1, K2 and the phase kernel.
 
 Phases, each printing its own line with its seconds; any failure exits
 nonzero:
@@ -120,6 +123,16 @@ nonzero:
    within 1e-9 s of the JAX engine's, at least 3 phase launches, no
    standalone K1 or K2 launch and no re-run on the per-cycle loop; one
    warm-up run, then the median wall time of 3 beside ``main``'s;
+6c. ``oracle``: (a) ``simulate_round`` at the Fig. 2b point (12
+   clients, load 0.8, fcfs, seed 1) on the per-cycle loop (K1 and K2
+   launched) and with ``backend="jit"`` (the phase kernel only), both at
+   the pinned sync; (b) ``ORACLE_CASES`` on the cycle-level simulator
+   fed the engine's counter streams (their chunks drawn by K1 on the
+   card, one host copy each) held to the card engine's rounds within
+   ``ORACLE_RTOL`` and to the pinned syncs; (c) the multi-PON oracle,
+   4 PONs x 128 ONUs under a CPS uplink that binds, held to the engine
+   the same way, then under a collector: the same round bit for bit,
+   its ``multi_pon.*`` CPS counters and gauge recorded;
 7. ``full_width``: one FCFS load-0.8 round at 2048 ONUs, then at 4096
    (line rate scaled 10 Gb/s * n / 128; one PON, so K2 rows of 2048 and
    4096 queues), each held against the JAX engine's sync time, on the
@@ -1867,6 +1880,167 @@ def phase_main_jit(main_walls=None):
     return counts["phase"], walls_out
 
 
+# the oracle phase: fig2b cases run on the cycle-level simulator, fed the
+# engine's counter streams, and held to the card's engine
+ORACLE_CASES = ("fcfs_load0.3_n12", "fcfs_load0.8_n12", "bs_load0.3_n12",
+                "bs_load0.8_n12", "fcfs_load0.8_n128")
+ORACLE_RTOL = 1e-6    # the oracle against the engine (the engines' contract)
+# 4 PONs x 128 ONUs, 16 clients 4 a PON, fcfs at load 0.8: the CPS uplink
+# (34 Gb/s) sits above the PONs' background (4 x ~8 Gb/s) and below their
+# payload capacity (4 x 9.2 Gb/s), so it binds whenever every PON's
+# queues are busy; at or under the background the downloads would starve
+ORACLE_PONS = 4
+ORACLE_CPS_BPS = 34e9
+
+
+def oracle_multi_pon_case():
+    """(workload, topology) of the oracle phase's multi-PON round."""
+    from repro_torch.core.slicing import ClientProfile
+    from repro_torch.net import FLRoundWorkload, MultiPonTopology
+
+    ids = range(0, ORACLE_PONS * N_ONUS, 32)
+    t_uds = np.random.default_rng(42).uniform(1.0, 5.0, len(ids))
+    wl = FLRoundWorkload(clients=[
+        ClientProfile(client_id=i, t_ud=float(t), t_dl=0.0, m_ud_bits=M_BITS)
+        for i, t in zip(ids, t_uds)], model_bits=M_BITS)
+    return wl, MultiPonTopology(n_pons=ORACLE_PONS,
+                                cps_rate_bps=ORACLE_CPS_BPS)
+
+
+def _engine_streams_of(cfg, case):
+    """The download and upload counter streams the engine draws for a
+    single-PON ``case``, on the card."""
+    from repro_torch.kernels.traffic.ops import make_stream_key
+    from repro_torch.net import CounterStream, MultiPonTopology, pon_bg_rates
+
+    wl = case.workload
+    rate = pon_bg_rates(wl.clients, wl.model_bits, case.load, cfg,
+                        MultiPonTopology())[0]
+    return [CounterStream(make_stream_key(case.seed, phase,
+                                          case.stream_round),
+                          rate, cfg.cycle_time_s, cfg.n_onus,
+                          burst_packets=cfg.bg_burst_packets, device="cuda")
+            for phase in (0, 1)]
+
+
+def _same_round(what: str, got, want) -> None:
+    """``got`` is ``want`` bit for bit: the sync, every client's times
+    and left-over bits, in the same order."""
+    if got.sync_time != want.sync_time:
+        raise SystemExit(f"{what}: sync {got.sync_time!r} != "
+                         f"{want.sync_time!r}")
+    for attr in ("dl_done", "ready", "ul_done", "ul_remaining"):
+        g, w = getattr(got, attr) or {}, getattr(want, attr) or {}
+        if list(g) != list(w) or not np.array_equal(
+                list(g.values()), list(w.values()), equal_nan=True):
+            raise SystemExit(f"{what}: {attr} differs")
+
+
+def phase_oracle():
+    """The single-round API and the cycle-level oracles beside the card's
+    engine: (a) ``simulate_round`` at the Fig. 2b point on the per-cycle
+    loop and through the phase kernel; (b) the cycle-level simulator on
+    the engine's counter streams (K1 draws their chunks on the card) held
+    to the engine at ``ORACLE_RTOL`` and to the pinned syncs; (c) the
+    multi-PON oracle on a binding CPS uplink, held to the engine, then
+    again under a collector: its CPS counters recorded, its round the
+    same bit for bit."""
+    from repro_torch import obs
+    from repro_torch.net import (
+        PONConfig,
+        SweepSpec,
+        simulate,
+        simulate_multi_pon_round,
+        simulate_round,
+    )
+
+    t0 = time.time()
+    cfg = PONConfig(n_onus=N_ONUS)
+    names, cases = fig2b_cases()
+    by_name = dict(zip(names, cases))
+    walls = {}
+    _reset_round_counts()
+
+    # (a) the single-round API
+    op_name = "fcfs_load0.8_n12"
+    op = by_name[op_name]
+    for backend in ("vectorized", "jit"):
+        before = _round_counts()
+        t = time.time()
+        res = simulate_round(cfg, op.workload, op.load, op.policy,
+                             seed=op.seed, backend=backend, device="cuda")
+        torch.cuda.synchronize()
+        walls[f"api_{backend}_s"] = time.time() - t
+        counts = {k: v - before[k] for k, v in _round_counts().items()}
+        _check_syncs([op_name], [res])
+        if backend == "jit":
+            _hold_jit_counts(counts, 2, "oracle simulate_round jit")
+        elif not (counts["k1"] and counts["k2"]) or counts["phase"]:
+            raise SystemExit(f"oracle simulate_round: counts {counts}")
+
+    # (b) the oracle on the engine's counter streams
+    held = [by_name[n] for n in ORACLE_CASES]
+    t = time.time()
+    engine = simulate(SweepSpec(cases=tuple(held), pon=cfg), device="cuda")
+    torch.cuda.synchronize()
+    walls["engine_s"] = time.time() - t
+    t = time.time()
+    refs, copies, chunks = [], 0, 0
+    for case in held:
+        streams = _engine_streams_of(cfg, case)
+        dl, ul = ([s.source(i) for i in range(cfg.n_onus)] for s in streams)
+        refs.append(simulate_round(
+            cfg, case.workload, case.load, case.policy, seed=case.seed,
+            backend="reference", _dl_sources=dl, _ul_sources=ul,
+            device="cuda"))
+        copies += sum(s.host_copies for s in streams)
+        chunks += sum(-(-src[0].cursor // s.chunk)
+                      for s, src in zip(streams, (dl, ul)))
+    walls["oracle_s"] = time.time() - t
+    _check_syncs(ORACLE_CASES, refs)
+    for name, got, want in zip(ORACLE_CASES, refs, engine):
+        _hold_round(f"oracle {name}", got, want, sync_rtol=ORACLE_RTOL)
+    if copies != chunks:
+        raise SystemExit(f"oracle: {copies} host copies for {chunks} "
+                         "chunks of 1,024 cycles")
+
+    # (c) the multi-PON oracle on a binding CPS uplink
+    wl, topo = oracle_multi_pon_case()
+    t = time.time()
+    mp_engine = simulate_round(cfg, wl, 0.8, "fcfs", seed=1, topology=topo,
+                               device="cuda")
+    torch.cuda.synchronize()
+    walls["mp_engine_s"] = time.time() - t
+    t = time.time()
+    mp = simulate_multi_pon_round(cfg, topo, wl, 0.8, "fcfs", seed=1,
+                                  device="cuda")
+    walls["mp_oracle_s"] = time.time() - t
+    _hold_round("oracle multi-PON", mp, mp_engine, sync_rtol=ORACLE_RTOL)
+    col = obs.Collector(device="cuda")
+    t = time.time()
+    mp_col = simulate_multi_pon_round(cfg, topo, wl, 0.8, "fcfs", seed=1,
+                                      collector=col, device="cuda")
+    walls["mp_collector_s"] = time.time() - t
+    _same_round("oracle multi-PON under a collector", mp_col, mp)
+    want_bits = col.counters["multi_pon.cps_want_bits"].value
+    eff_bits = col.counters["multi_pon.cps_eff_bits"].value
+    util = col.gauges["multi_pon.cps_util"].summary()
+    if not (want_bits.shape == eff_bits.shape == (ORACLE_PONS,)
+            and bool((eff_bits <= want_bits).all())
+            and util["count"] > 0 and util["max"] >= 1.0 - 1e-9
+            and ("fcfs", 0.8) in col.delay_hist):
+        raise SystemExit(f"oracle multi-PON collector: util {util}")
+    counts = _round_counts()
+    _line("oracle", time.time() - t0, cases=len(held), sync_match=(
+        f"{len(held)}/{len(held)}"), mp_clients=len(wl.clients),
+        mp_cycles=int(util["count"]), cps_util_max=f"{util['max']:.6f}",
+        host_copies=copies,
+        **{k: f"{v:.3f}" for k, v in walls.items()},
+        k1_launches=counts["k1"], k2_launches=counts["k2"],
+        phase_launches=counts["phase"])
+    return counts, walls
+
+
 def phase_full_width():
     """One FCFS load-0.8 round on one PON of 2048 ONUs, then of 4096 (K2
     at 4096 queues a row), each held to the numpy engine's sync, on the
@@ -1937,11 +2111,13 @@ def wide_pons_spec(backend=None):
     return SweepSpec(cases=(case,), pon=cfg, backend=backend)
 
 
-def _hold_round(what: str, got, want) -> None:
+def _hold_round(what: str, got, want, sync_rtol=None) -> None:
     """Every client's times and left-over bits of round ``got`` within
-    ``ROUND_RTOL`` of ``want``'s, and the sync within ``SYNC_TOL``."""
+    ``ROUND_RTOL`` of ``want``'s, and the sync within ``SYNC_TOL`` (or
+    within ``sync_rtol`` of it, where given)."""
+    tol = SYNC_TOL if sync_rtol is None else sync_rtol * abs(want.sync_time)
     if not (math.isfinite(got.sync_time)
-            and abs(got.sync_time - want.sync_time) <= SYNC_TOL):
+            and abs(got.sync_time - want.sync_time) <= tol):
         raise SystemExit(f"{what} sync {got.sync_time!r} != "
                          f"{want.sync_time!r}")
     for attr in ("dl_done", "ready", "ul_done", "ul_remaining"):
@@ -4314,10 +4490,12 @@ def main() -> int:
     launches, main_walls = phase_main()
     launches["ponsim_phase"], jit_walls = phase_main_jit(main_walls)
     phase_entry.update(jit_walls)
+    oracle, _ = phase_oracle()
     phase_full_width()
     wide, wide_hold = phase_wide_pons(hold_later=True)
     phase_entry.update(wide)
     timeline, by_path = phase_timeline()
+    by_path["oracle"] = oracle
     fig3 = timeline["fig3"]
     phase_entry.update({
         "fig3_jit_wall_s": fig3["jit"]["wall_s"],

@@ -1,8 +1,6 @@
 """Concurrent multi-tenant FL jobs sharing one PON and CPS substrate.
 
-The port of ``repro.net.jobs`` (its cycle-level oracle
-``simulate_jobs_round_reference`` is not ported). Several federated
-jobs, with their own models, update sizes, weights and round cadences,
+The port of ``repro.net.jobs``. Several federated jobs, with their own models, update sizes, weights and round cadences,
 contend for the same PON cycles and the same CPS uplink:
 
 * :class:`JobSpec`: one tenant job, its clients, model size (its
@@ -14,7 +12,11 @@ contend for the same PON cycles and the same CPS uplink:
   ``"deadline"`` (earliest slack first), as torch tensors on the
   engine's device; rows whose demand fits pass through untouched;
 * :class:`JobRoundStats`: a job's last upload per ONU, per PON (OLT)
-  and its sync time at the CPS.
+  and its sync time at the CPS;
+* :func:`simulate_jobs_round_reference`: the cycle-by-cycle oracle of
+  one multi-job round, which the engine's job axis is held to (rtol
+  1e-6); it calls the same ``job_fair_split`` and CPS waterfill, on
+  host copies, so it pins the cycle's sequencing.
 
 Every sum whose order can move a bit is taken in numpy's order:
 totals with ``np_sum`` (pairwise, as ``ndarray.sum``), prefixes with
@@ -28,9 +30,23 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch._device import FLOAT, np_sum, seq_cumsum
-from repro_torch.core.slicing import ClientProfile
-from repro_torch.net.multi_pon import cps_waterfill
+from repro_torch._device import (
+    DEFAULT_DEVICE,
+    FLOAT,
+    np_sum,
+    resolve_device,
+    seq_cumsum,
+)
+from repro_torch.core.scheduler import schedule_slots, slots_to_arrays
+from repro_torch.core.slicing import ClientProfile, compute_slice
+from repro_torch.net.dba import OnuQueue
+from repro_torch.net.multi_pon import (
+    MultiPonTopology,
+    cps_waterfill,
+    host_waterfill,
+    pon_bg_rates,
+)
+from repro_torch.net.traffic import counter_streams_for_pons
 
 __all__ = [
     "FAIRNESS_POLICIES",
@@ -40,6 +56,7 @@ __all__ = [
     "validate_case_jobs",
     "compute_job_stats",
     "make_competing_jobs",
+    "simulate_jobs_round_reference",
 ]
 
 FAIRNESS_POLICIES = ("maxmin", "weighted", "deadline")
@@ -273,3 +290,302 @@ def make_competing_jobs(primary_clients: Sequence[int],
             for cid in cids
         )
     return tuple(jobs), tuple(profiles)
+
+
+# ---------------------------------------------------------------------------
+# cycle-level oracle
+# ---------------------------------------------------------------------------
+
+
+def _seq_waterfill(entries, cap: float) -> Dict[int, float]:
+    """The engine's waterfill one queue at a time: oldest first (ties by
+    queue index), prefix-room grants; every queue in full, unsorted,
+    while the total demand sits a bit under ``cap``.
+
+    ``entries``: ``(hol_key, queue_index, backlog)`` triples.
+    """
+    total = sum(b for _, _, b in entries)
+    if total <= cap - 1.0:
+        return {i: b for _, i, b in entries}
+    grants: Dict[int, float] = {}
+    acc = 0.0
+    for _, i, b in sorted(entries, key=lambda e: (e[0], e[1])):
+        room = cap - acc
+        grants[i] = min(b, room) if room > CAP_EPS else 0.0
+        acc += b
+    return grants
+
+
+def simulate_jobs_round_reference(cfg, case, t_round_hint: float = 10.0,
+                                  max_t: float = 600.0, *,
+                                  device=DEFAULT_DEVICE):
+    """One multi-job round of ``case`` on the cycle-by-cycle simulator.
+
+    Each cycle follows the engine's sequence: arrivals (background
+    first, then newly ready FL clients), the CPS waterfill over each
+    PON's total demand (FCFS) or over the ``(pon, job)`` shares (BS),
+    the background's oldest-first waterfill, :func:`job_fair_split`
+    across jobs, then each job's oldest-first grants within its share.
+    Queues are owner-tagged ``OnuQueue`` FIFOs per ``(pon, job, local
+    onu)``, credited by ``net.sim._credit``; background comes from the
+    engine's counter streams, drawn on ``device``. ``no_dl_ids`` and
+    injected arrival matrices are refused.
+    """
+    from repro_torch.net.sim import RoundResult, _credit
+
+    device = resolve_device(device)
+    jobs: Tuple[JobSpec, ...] = tuple(case.jobs)
+    validate_case_jobs(jobs, case.workload)
+    if case.no_dl_ids:
+        raise ValueError("the jobs oracle does not model no_dl_ids")
+    if case.dl_arrivals is not None or case.ul_arrivals is not None:
+        raise ValueError(
+            "the jobs oracle draws arrivals from counter streams; "
+            "injected matrices are a single-tenant parity hook"
+        )
+    fairness = case.fairness
+    if fairness not in FAIRNESS_POLICIES:
+        raise ValueError(
+            f"unknown fairness policy {fairness!r}; "
+            f"have {FAIRNESS_POLICIES}"
+        )
+    topo = case.topology if case.topology is not None else MultiPonTopology()
+    P = topo.n_pons
+    n_local = cfg.n_onus
+    total = P * n_local
+    clients = list(case.workload.clients)
+    J = len(jobs)
+    jidx_of = {cid: j for j, job in enumerate(jobs) for cid in job.clients}
+    mb_of = {cid: float(job.model_bits) for job in jobs
+             for cid in job.clients}
+    if case.policy not in ("fcfs", "bs"):
+        raise ValueError(f"unknown policy {case.policy!r}")
+    if case.policy == "bs":
+        bad = [c.client_id for c in clients if c.client_id >= total]
+        if bad:
+            raise ValueError(
+                f"bs policy requires client_id < n_onus * n_pons; got {bad}"
+            )
+    pon_of = {c.client_id: topo.pon_of(c.client_id, cfg) for c in clients}
+    onu_of = {c.client_id: topo.local_onu(c.client_id, cfg)
+              for c in clients}
+    rates = topo.rates(cfg)
+    cap_p = topo.capacity_bits(cfg)
+    cps_cap = topo.cps_capacity_bits(cfg)
+    per_onu = pon_bg_rates(clients, case.workload.model_bits, case.load,
+                           cfg, topo, t_round_hint,
+                           model_bits_by_client=mb_of)
+    cyc = cfg.cycle_time_s
+    prop = cfg.propagation_s
+    weights = np.broadcast_to(
+        np.array([float(job.weight) for job in jobs]), (P, J)
+    ).copy()
+    dl_j = np.broadcast_to(
+        np.array([np.inf if job.deadline_s is None
+                  else float(job.deadline_s) for job in jobs]),
+        (P, J),
+    )
+
+    def fresh_queues():
+        return [
+            [[OnuQueue(i) for i in range(n_local)] for _ in range(J)]
+            for _ in range(P)
+        ]
+
+    def push_pending(flq, pending, remaining, t):
+        for cid, t_ready in list(pending.items()):
+            if t_ready <= t + cyc:
+                flq[pon_of[cid]][jidx_of[cid]][onu_of[cid]].push(
+                    ("fl", cid), remaining[cid], max(t_ready, t)
+                )
+                del pending[cid]
+
+    def fl_demand(flq) -> np.ndarray:
+        demand = np.zeros((P, J))
+        for p in range(P):
+            for j in range(J):
+                demand[p, j] = sum(q.backlog for q in flq[p][j])
+        return demand
+
+    def serve_jobs(flq, shares, remaining, done, t):
+        for p in range(P):
+            for j in range(J):
+                gj = _seq_waterfill(
+                    [(q.hol_time, i, q.backlog)
+                     for i, q in enumerate(flq[p][j]) if q.backlog > 0.0],
+                    float(shares[p, j]),
+                )
+                for i, g in gj.items():
+                    if g > 0.0:
+                        served = flq[p][j][i].serve(g)
+                        _credit(served, remaining, done, t, cfg)
+
+    def fcfs_phase(bits0, ready, phase_idx):
+        bgq = [[OnuQueue(i) for i in range(n_local)] for _ in range(P)]
+        flq = fresh_queues()
+        streams = counter_streams_for_pons(
+            case.seed, phase_idx, per_onu, cyc, n_local,
+            cfg.bg_burst_packets, round_index=case.stream_round,
+            device=device,
+        )
+        sources = [[streams[p].source(i) for i in range(n_local)]
+                   for p in range(P)]
+        remaining = dict(bits0)
+        pending = dict(ready)
+        done: Dict[int, float] = {}
+        t = 0.0
+        while remaining and t < max_t:
+            for p in range(P):
+                for q, src in zip(bgq[p], sources[p]):
+                    q.push("bg", src.arrivals(cyc), t)
+            push_pending(flq, pending, remaining, t)
+            demand = fl_demand(flq)
+            if cps_cap is None:
+                eff = np.asarray(cap_p, np.float64).copy()
+            else:
+                want = np.minimum(
+                    np.array([
+                        sum(q.backlog for q in bgq[p]) + demand[p].sum()
+                        for p in range(P)
+                    ]),
+                    cap_p,
+                )
+                eff = host_waterfill(want, cps_cap)
+            cap_fl = np.zeros(P)
+            bg_grants = []
+            for p in range(P):
+                g = _seq_waterfill(
+                    [(q.hol_time, i, q.backlog)
+                     for i, q in enumerate(bgq[p]) if q.backlog > 0.0],
+                    float(eff[p]),
+                )
+                bg_grants.append(g)
+                cap_fl[p] = eff[p] - sum(g.values())
+            shares = job_fair_split(demand, cap_fl, fairness,
+                                    weights=weights, slack=dl_j - t).numpy()
+            for p in range(P):
+                for i, g in bg_grants[p].items():
+                    if g > 0.0:
+                        bgq[p][i].serve(g)
+            serve_jobs(flq, shares, remaining, done, t)
+            t += cyc
+        for cid in list(remaining):
+            done[cid] = t + prop
+        return done
+
+    def bs_phase(bits0, ready, dl_done):
+        flq = fresh_queues()
+        slots_p: List[list] = []
+        for p in range(P):
+            slot_list = []
+            for j, job in enumerate(jobs):
+                jset = set(job.clients)
+                profs = [
+                    ClientProfile(
+                        client_id=c.client_id, t_ud=c.t_ud,
+                        t_dl=dl_done[c.client_id],
+                        m_ud_bits=c.m_ud_bits, distance_m=c.distance_m,
+                    )
+                    for c in clients
+                    if pon_of[c.client_id] == p and c.client_id in jset
+                ]
+                if not profs:
+                    continue
+                spec = compute_slice(
+                    profs, t_current=0.0, t_round=0.0,
+                    capacity_bps=float(rates[p] * cfg.efficiency), h=1,
+                )
+                arr = slots_to_arrays(
+                    schedule_slots(profs, spec, round_start=0.0)
+                )
+                for s in range(len(arr["client_id"])):
+                    slot_list.append((
+                        j, int(arr["client_id"][s]) % n_local,
+                        float(arr["t_start"][s]), float(arr["t_end"][s]),
+                        float(spec.bandwidth_bps),
+                    ))
+            slots_p.append(slot_list)
+        remaining = dict(bits0)
+        pending = dict(ready)
+        done: Dict[int, float] = {}
+        t = 0.0
+        while remaining and t < max_t:
+            push_pending(flq, pending, remaining, t)
+            want_slots = []
+            demand = np.zeros((P, J))
+            for p in range(P):
+                ws = []
+                for (j, onu, ts, te, rate) in slots_p[p]:
+                    te_g = te + cyc
+                    if ts < t + cyc and te_g > t:
+                        w = rate * max(
+                            min(te_g, t + cyc) - max(ts, t), 0.0
+                        )
+                    elif te_g <= t:
+                        # the engine's best-effort tail: an expired slot
+                        # keeps asking at the slice rate, so backlog
+                        # left by inter-job contention drains
+                        w = rate * cyc
+                    else:
+                        w = 0.0
+                    w = min(w, flq[p][j][onu].backlog)
+                    w = w if w > 0.0 else 0.0
+                    ws.append(w)
+                    demand[p, j] += w
+                want_slots.append(ws)
+            shares = job_fair_split(demand, cap_p, fairness,
+                                    weights=weights, slack=dl_j - t).numpy()
+            if cps_cap is not None:
+                # the (case, pon, job) CPS waterfill: each PON's shares
+                # re-capped by the shared uplink, job-minor
+                shares = host_waterfill(
+                    shares.reshape(-1), cps_cap
+                ).reshape(P, J)
+            for p in range(P):
+                acc = np.zeros(J)
+                grants_onu: Dict[Tuple[int, int], float] = {}
+                for (j, onu, ts, te, rate), w in zip(slots_p[p],
+                                                     want_slots[p]):
+                    g = min(w, max(float(shares[p, j]) - acc[j], 0.0))
+                    acc[j] += w
+                    if g > 0.0:
+                        grants_onu[(j, onu)] = (
+                            grants_onu.get((j, onu), 0.0) + g
+                        )
+                for (j, onu), g in grants_onu.items():
+                    served = flq[p][j][onu].serve(g)
+                    _credit(served, remaining, done, t, cfg)
+            t += cyc
+        for cid in list(remaining):
+            done[cid] = t + prop
+        return done
+
+    if case.policy == "bs":
+        dl_done = {
+            c.client_id: (mb_of[c.client_id]
+                          / (rates[pon_of[c.client_id]] * cfg.efficiency)
+                          + prop)
+            for c in clients
+        }
+    else:
+        dl_done = fcfs_phase(
+            {c.client_id: mb_of[c.client_id] for c in clients},
+            {c.client_id: 0.0 for c in clients}, 0,
+        )
+    ready = {c.client_id: dl_done[c.client_id] + c.t_ud for c in clients}
+    bits_ul = {c.client_id: c.m_ud_bits for c in clients}
+    if case.policy == "bs":
+        ul_done = bs_phase(bits_ul, dict(ready), dl_done)
+    else:
+        ul_done = fcfs_phase(bits_ul, dict(ready), 1)
+    sync = max(ul_done.values()) + case.workload.t_aggregate
+    return RoundResult(
+        policy=case.policy,
+        sync_time=sync,
+        dl_done=dl_done,
+        ready=ready,
+        ul_done=ul_done,
+        compute_bound=max(ready.values()),
+        load=case.load,
+        job_stats=compute_job_stats(jobs, ul_done, n_local, P),
+    )

@@ -46,8 +46,10 @@ quorum extensions (``quorum.extend``), with a span a round
 ``timeline:folded-jobs``); an async round's probe pass and quorum
 re-runs stay uninstrumented, as in the reference.
 
-Not ported yet: the cycle-level oracle ``simulate_timeline_reference``
-(ROADMAP Queue 1 item 9).
+:func:`simulate_timeline_reference` is the oracle the engine-backed
+modes are held to: the same rounds, one at a time, on the cycle-level
+simulator (``net.sim``, ``net.multi_pon``) fed the engine's counter
+streams.
 """
 from __future__ import annotations
 
@@ -58,7 +60,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 
-from repro_torch._device import DEFAULT_DEVICE
+from repro_torch._device import DEFAULT_DEVICE, resolve_device
 from repro_torch.faults import FaultSchedule, RetryPolicy
 from repro_torch.net.engine import SweepCase, _round_sweep
 from repro_torch.net.sim import FLRoundWorkload, RoundResult
@@ -71,6 +73,7 @@ __all__ = [
     "TimelineResult",
     "simulate_timeline_sweep",
     "simulate_timeline_per_round",
+    "simulate_timeline_reference",
 ]
 
 DEADLINE_POLICIES = ("defer", "drop", "partial")
@@ -1029,3 +1032,157 @@ def simulate_timeline_per_round(cfg, cases: Sequence[SweepCase],
     run = (cfg, cases, schedule, t_round_hint, max_t, backend, device,
            collector)
     return _async(*run) if schedule.asynchronous else _sequential(*run)
+
+
+# ---------------------------------------------------------------------------
+# cycle-level oracle
+# ---------------------------------------------------------------------------
+
+
+def simulate_timeline_reference(cfg, cases: Sequence[SweepCase],
+                                schedule: TimelineSchedule,
+                                t_round_hint: float = 10.0,
+                                max_t: float = 600.0, *,
+                                device=DEFAULT_DEVICE,
+                                ) -> List[TimelineResult]:
+    """The timeline, round by round, on the cycle-by-cycle simulator.
+
+    Every round builds the simulator afresh and feeds it the engine's
+    counter-based arrival streams (``CounterStream.source``, drawn on
+    ``device``), so the engine-backed modes must reproduce its syncs and
+    per-round bits (rtol 1e-6): elastic membership, the three deadline
+    policies, quorum extension, faults and async rounds (the same
+    two-pass k-th-completion rule, on fresh stream cursors each pass).
+    """
+    from repro_torch.kernels.traffic.ops import make_stream_key
+    from repro_torch.net.multi_pon import (
+        MultiPonTopology,
+        pon_bg_rates,
+        simulate_multi_pon_round,
+    )
+    from repro_torch.net.sim import simulate_round
+    from repro_torch.net.traffic import CounterStream
+
+    device = resolve_device(device)
+    cases = _validate(cases, schedule)
+    policy = schedule.deadline_policy
+    quorum = schedule.quorum_frac
+    out = []
+    for case in cases:
+        carry: Dict[int, float] = {}
+        entry: Dict[int, int] = {}
+        fstate = _FaultState()
+        t_now = 0.0
+        res = TimelineResult(policy=case.policy, load=case.load,
+                             seed=case.seed, rounds=[])
+        for r in range(schedule.n_rounds):
+            clients_r, no_dl, rem_start, drops = _round_setup(
+                case, schedule, r, carry, fstate.retries
+            )
+            for cid in rem_start:
+                entry.setdefault(cid, r)
+            if not clients_r:
+                rnd, carry = _round_view(
+                    r, t_now, None, rem_start,
+                    case.workload.t_aggregate, policy, entry,
+                )
+                res.rounds.append(rnd)
+                t_now += rnd.sync_time
+                continue
+            wl = FLRoundWorkload(
+                clients=clients_r,
+                model_bits=case.workload.model_bits,
+                t_aggregate=case.workload.t_aggregate,
+            )
+            faults = schedule.active_faults
+            outage = (faults.outage_windows(r, _case_n_pons(case),
+                                            case.seed)
+                      if faults is not None and faults.outage_rate > 0.0
+                      else None)
+
+            def run_ref(deadline):
+                """One reference round under ``deadline``, on fresh
+                stream cursors, so that the async two passes replay
+                the same arrivals."""
+                if case.topology is not None and not case.topology.trivial:
+                    # the multi-PON oracle keys its own
+                    # (seed, phase, round, pon) counter streams
+                    return simulate_multi_pon_round(
+                        cfg, case.topology, wl, case.load, case.policy,
+                        seed=case.seed, t_round_hint=t_round_hint,
+                        max_t=max_t, ul_deadline_s=deadline,
+                        no_dl_ids=no_dl, stream_round=r,
+                        ul_outage_s=outage, device=device,
+                    )
+                # the engine's single-PON background rate
+                per_onu = pon_bg_rates(
+                    wl.clients, wl.model_bits, case.load, cfg,
+                    MultiPonTopology(), t_round_hint)[0]
+                streams = [
+                    CounterStream(
+                        make_stream_key(case.seed, phase, r), per_onu,
+                        cfg.cycle_time_s, cfg.n_onus,
+                        burst_packets=cfg.bg_burst_packets, device=device,
+                    )
+                    for phase in (0, 1)
+                ]
+                return simulate_round(
+                    cfg, wl, case.load, case.policy, seed=case.seed,
+                    t_round_hint=t_round_hint, backend="reference",
+                    _dl_sources=[streams[0].source(i)
+                                 for i in range(cfg.n_onus)],
+                    _ul_sources=[streams[1].source(i)
+                                 for i in range(cfg.n_onus)],
+                    ul_deadline_s=deadline,
+                    no_dl_ids=no_dl,
+                    ul_outage_s=(None if outage is None else
+                                 (float(outage[0, 0]),
+                                  float(outage[0, 1]))),
+                    device=device,
+                )
+
+            quorum_met: Optional[bool] = None
+            extensions = 0
+            if schedule.asynchronous:
+                free = run_ref(None)
+                faulted = _round_faulted(schedule, case, r, rem_start,
+                                         drops)
+                result = run_ref(
+                    _kth_completion(free, rem_start, schedule.buffer_k,
+                                    faulted)
+                )
+            elif quorum is not None:
+                # the engine's extend-until-met loop: the same counter
+                # streams make each re-run a superset of the last pass
+                faulted = _round_faulted(schedule, case, r, rem_start,
+                                         drops)
+                need = max(1, math.ceil(quorum * len(rem_start)))
+                dl = schedule.deadline(r)
+                result = run_ref(dl)
+                while True:
+                    got = len(_effective_arrived(result, rem_start,
+                                                 faulted))
+                    quorum_met = got >= need
+                    if (quorum_met
+                            or extensions >= schedule.quorum_max_extends):
+                        break
+                    dl = float(dl) * 2.0
+                    extensions += 1
+                    result = run_ref(dl)
+            else:
+                result = run_ref(schedule.deadline(r))
+            rnd, carry = _round_view(
+                r, t_now, result, rem_start,
+                case.workload.t_aggregate, policy, entry,
+            )
+            rnd.quorum_met = quorum_met
+            rnd.deadline_extensions = extensions
+            carry = _apply_round_faults(
+                schedule, case, r, rnd, rem_start, carry, drops, fstate,
+            )
+            entry = {cid: ent for cid, ent in entry.items()
+                     if cid in carry or cid in fstate.retries}
+            res.rounds.append(rnd)
+            t_now += rnd.sync_time
+        out.append(res)
+    return out

@@ -52,7 +52,9 @@ def test_scan_covers_the_port():
                      "net/timeline.py", "fl/simulation.py",
                      "core/round_model.py", "core/membership.py",
                      "dist/fedops.py", "obs/__init__.py", "obs/trace.py",
-                     "obs/export.py", "obs/metrics.py"):
+                     "obs/export.py", "obs/metrics.py", "net/dba.py",
+                     "net/sim.py", "net/traffic.py", "net/multi_pon.py",
+                     "net/jobs.py"):
         assert expected in names
 
 

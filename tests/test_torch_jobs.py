@@ -14,7 +14,8 @@ the same loop, as the reference does):
   contention (updates of 5-60 Mbit at 1 Gb/s), on one PON and on 3 PONs
   under a binding CPS uplink: every client's times and every job's
   stats within 1e-9 s of the JAX engine, and within rtol 1e-6 of its
-  cycle-level oracle ``simulate_jobs_round_reference``;
+  cycle-level oracle ``simulate_jobs_round_reference`` and of the
+  port's;
 * the single-job op point exactly 5.058100000000024, a cadenced jobs
   timeline, the jobs validation errors, ``from_reference`` keeping
   ``fairness``, a co-simulation with competing jobs;
@@ -175,6 +176,9 @@ def test_jobs_round_matches_reference(policy, fairness, backend):
     _assert_round(want, got)
     _assert_round(J.simulate_jobs_round_reference(CFG, case), got,
                   ORACLE_RTOL)
+    _assert_round(T.simulate_jobs_round_reference(
+        T.from_reference(CFG), T.from_reference(case), device="cpu"), got,
+        ORACLE_RTOL)
     # the jobs contend: the policy moves the jobs' syncs
     other = "maxmin" if fairness != "maxmin" else "deadline"
     moved = J.simulate(J.SweepSpec(cases=(replace(
@@ -201,6 +205,9 @@ def test_jobs_multi_pon_cps(policy, fairness):
     _assert_round(want, got)
     _assert_round(J.simulate_jobs_round_reference(cfg, case), got,
                   ORACLE_RTOL)
+    _assert_round(T.simulate_jobs_round_reference(
+        T.from_reference(cfg), T.from_reference(case), device="cpu"), got,
+        ORACLE_RTOL)
     free = J.simulate(J.SweepSpec(cases=(replace(
         case, topology=J.MultiPonTopology(n_pons=3)),), pon=cfg))[0]
     assert free.sync_time != want.sync_time      # the CPS binds
