@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-The port has twelve paths, each driven through its user entry point with
+The port has thirteen paths, each driven through its user entry point with
 the kernel counts set to 0 just before and read just after:
 
 * the Fig. 2b round engine (``repro_torch.net.simulate``), through K1
@@ -38,7 +38,11 @@ the kernel counts set to 0 just before and read just after:
   engine and the timeline, through K1 and K2;
 * the single-round API (``repro_torch.net.simulate_round``) on both
   engines, and the cycle-level oracles on the engine's counter streams,
-  through K1, K2 and the phase kernel.
+  through K1, K2 and the phase kernel;
+* olmo-1b training on one pod (``repro_torch.launch.train``: AdamW
+  steps, the round's sync from the timeline, checkpoints), through K4
+  in every layer's forward and its recompute, K4 as an autograd
+  Function whose backward recomputes the plain version.
 
 Phases, each printing its own line with its seconds; any failure exits
 nonzero:
@@ -287,12 +291,37 @@ nonzero:
    ``kernels.rglru.ops.rglru_scan``, here only) and the plain attention
    (``attn_impl="reference"``) in bf16 and in float32 compute, held
    with ``RG_LOGIT_TOL``, ``RG_F32_RATIO`` and ``RG_F32_TOL`` as in
-   ``serve_mamba2``.
+   ``serve_mamba2``;
+11. ``train``: (a) ``train()`` at olmo-1b's full width (16 layers,
+   float32 parameters, bf16 compute, random weights from a seed), one
+   pod, batch 8 x 64 tokens, 2 rounds x 4 AdamW steps, its
+   ``--log-jsonl`` read back: every step's loss finite, each round's
+   sync within ``SYNC_TOL`` of ``TRAIN_SYNC_PINS``, K4
+   ``TRAIN_K4_A_STEP`` times a step (the forward and the ``remat``
+   recompute of each layer), all on the tensor-core kernel; prints the
+   step ms, peak memory, and the device ms of one more step under
+   ``torch.profiler`` (its kernels' time, the largest named) over the
+   wall of one unprofiled step (the busy share); then one step at
+   olmo-1b's published 2048-token context (batch ``TRAIN_LONG[0]``):
+   its loss finite, K4 ``TRAIN_K4_A_STEP`` times on the tensor cores,
+   its ms, peak memory and busy share. (b) One full-width state and batch through one AdamW
+   step with K4 in bf16, the plain attention in bf16 and in float32
+   compute: the kernel run's loss, gradient norm and parameter change
+   no farther from the float32 run than ``TRAIN_F32_RATIO`` times the
+   plain run's plus a floor. (c) K4's autograd Function's forward at
+   the train steps' shapes within ``K4_TOL`` of the plain version; K4's,
+   K5's and K6's Functions at the serving shapes with S cut to
+   ``TRAIN_BWD_S``: every input gradient bit for bit autograd of the
+   plain version on the same inputs; each backward's ms. (d) 2 layers, 3 rounds x 2 steps with a
+   checkpoint a round; only round 2's copied into a fresh directory and
+   resumed: the final state (params, moments, step) bit for bit the
+   uninterrupted run's.
 
 Before the last line it prints one JSON object with each kernel's
 launches on its path (K4's and K5's ``launches_tc`` of them on the
 tensor-core kernels; ``launches_by_path`` for the kernels several paths
-run), its error against the plain version, its time, the plain
+run; K4's, K5's and K6's ``backward_ms``, ``backward_plain_ms`` and
+``backward_bound_ms`` from ``train`` (c)), its error against the plain version, its time, the plain
 version's time, a library call's time where one computes the same
 function, and the least time the card could take (``bound_ms``). Every
 time is ``_device_ms``'s: launches queued back to back behind a sleep
@@ -492,6 +521,52 @@ RG_SCAN = (4, 2048, 2560)                     # B, S, R of the prefill
 RG_LOGIT_TOL = 0.3
 RG_F32_RATIO = 1.5
 RG_F32_TOL = 5e-4
+
+# train phase. train() at olmo-1b's full width (16 layers, d_model 2048,
+# vocab 50304, float32 parameters, bf16 compute), one pod, batch 8 x 64
+# tokens, AdamW under warmup_cosine(3e-3, 20, steps x rounds), the
+# reference's defaults otherwise (bs, load 0.8, int8 payload bits). Each
+# run: config_overrides, rounds, steps a round. (a) "full"; (d) "resume",
+# 2 layers so that a checkpoint (params, mu, nu) stays under 3 GB
+TRAIN_RUNS = {"full": (None, 2), "resume": ({"n_layers": 2}, 3)}
+TRAIN_STEPS = {"full": 4, "resume": 2}
+TRAIN_BATCH, TRAIN_SEQ = 8, 64
+# (a) one more step at olmo-1b's published context, 2048 tokens, of the
+# full run's state: (batch, seq), the batch cut from 8 to fit the plain
+# attention's recompute in the backward (B H S^2 float32 scores a layer)
+TRAIN_LONG = (4, 2048)
+# each round's sync (s) of those runs' timelines on the JAX package's
+# engine; tests/test_torch_train.py::test_chip_smoke_train_sync_pins
+# recomputes them
+TRAIN_SYNC_PINS = {"full": (8.665100000000637, 8.665100000000637),
+                   "resume": (4.580099999999864, 4.580099999999864,
+                              4.580099999999864)}
+# K4 launches a step under remat="full" (olmo-1b's default) at
+# grad_accum 1: each of the 16 layers' forward, then its recompute in the
+# backward; the backward itself recomputes the plain version
+TRAIN_K4_A_STEP = 32
+# (b) one AdamW step (lr 3e-3) of one full-width state on one batch, with
+# K4 in bf16, the plain attention in bf16 and in float32 compute: the
+# kernel run's distance from the float32 run (the loss; the gradient norm
+# relative; the parameter change in relative L2 over every parameter) at
+# most TRAIN_F32_RATIO times the plain run's plus a floor. Set from the
+# first reading on an NVIDIA H100 80GB HBM3 (700 W): loss 11.2789 with
+# the kernel 4.1e-5 and the plain path 1.55e-4 from float32; grad norm
+# 12.02, 1.57e-4 and 6.5e-5 relative; the change 0.1587 and 0.1591 (a
+# first Adam step is about lr times a gradient's sign, so a gradient
+# near 0 that flips sign in bf16 moves its parameter by ~2 lr). The
+# floors sit 1.3-5x above those readings
+TRAIN_F32_RATIO = 1.5
+TRAIN_LOSS_FLOOR = 2e-4
+TRAIN_GNORM_FLOOR = 2e-4
+TRAIN_DELTA_FLOOR = 1e-2
+# (c) the backwards at PERF.md's serving shapes, S cut to 512: the K4
+# Function at olmo-1b's (B, S, T, H, K, D) and recurrentgemma-2b's
+# (window 2048), K5's at mamba2-780m's (B, S, H, P, N, chunk), K6's at
+# recurrentgemma-2b's (B, S, R); each autograd Function's input
+# gradients must equal autograd of the plain version on the same inputs
+# bit for bit: the backward recomputes the same operations
+TRAIN_BWD_S = 512
 
 # K3/K3' grid (shape, block): tests/test_kernels.py's shapes x {64, 256,
 # 4096}, ragged tails, block >= n, blocks past one CTA's 4096-element tile;
@@ -4107,21 +4182,21 @@ def _serve_line(phase, t0, cfg, n_pre, n_dec, prefill_ms, decode_ms,
           tokens=generated[0, :8].tolist())
 
 
-class _TensorCoreCount:
-    """A kernel module's tensor-core counter (``launches_tc``, K4's and
-    K5's) as a kernel count of its own, set and read where the serve
-    phases set and read ``launches``."""
+class _CountOf:
+    """A kernel module's other counter (``launches_tc`` of K4 and K5,
+    ``phase_launches`` of the phase kernel) as a kernel count of its
+    own, set and read where the phases set and read ``launches``."""
 
-    def __init__(self, module):
-        self.module = module
+    def __init__(self, module, attr: str = "launches_tc"):
+        self.module, self.attr = module, attr
 
     @property
     def launches(self) -> int:
-        return self.module.launches_tc
+        return getattr(self.module, self.attr)
 
     @launches.setter
     def launches(self, value: int) -> None:
-        self.module.launches_tc = value
+        setattr(self.module, self.attr, value)
 
 
 def _serve_event(path: str) -> dict:
@@ -4143,7 +4218,7 @@ def phase_serve():
     from repro_torch.kernels.attention import kernel as k4
 
     t0 = time.time()
-    kernels = {"k4": k4, "k4_tc": _TensorCoreCount(k4)}
+    kernels = {"k4": k4, "k4_tc": _CountOf(k4)}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "serve.jsonl")
         out, launches, peak_gb = _serve_entry(
@@ -4329,7 +4404,7 @@ def phase_serve_mamba2():
 
     t0 = time.time()
     cfg = get_config("mamba2-780m")
-    kernels = {"k5": k5, "k5_tc": _TensorCoreCount(k5)}
+    kernels = {"k5": k5, "k5_tc": _CountOf(k5)}
     want_prefill = {"k5": cfg.n_layers, "k5_tc": cfg.n_layers}
     out, launches, peak_gb = _serve_entry(cfg.name, kernels, want_prefill)
 
@@ -4442,7 +4517,7 @@ def phase_serve_recurrentgemma():
     cfg = get_config("recurrentgemma-2b")
     n_rec = sum(s.kind == RGLRU for s in
                 cfg.pattern * cfg.n_units + cfg.remainder_pattern)
-    kernels = {"k6": k6, "k4": k4, "k4_tc": _TensorCoreCount(k4)}
+    kernels = {"k6": k6, "k4": k4, "k4_tc": _CountOf(k4)}
     want_pre = {"k6": n_rec, "k4": cfg.n_layers - n_rec,
                 "k4_tc": cfg.n_layers - n_rec}
     out, launches, peak_gb = _serve_entry(cfg.name, kernels, want_pre)
@@ -4476,6 +4551,432 @@ def phase_serve_recurrentgemma():
     _serve_line("serve_recurrentgemma", t0, cfg, n_pre, n_dec, prefill_ms,
                 decode_ms, peak_gb, held, generated, out)
     return launches
+
+
+def _train_kernels() -> dict:
+    """The kernel counts of the training path: K4 (and its tensor-core
+    launches) in the steps, K1, K2 and the phase kernel in the
+    timeline."""
+    from repro_torch.kernels.attention import kernel as k4
+    from repro_torch.kernels.ponsim import kernel as k2
+    from repro_torch.kernels.traffic import kernel as k1
+
+    return {"k4": k4, "k4_tc": _CountOf(k4), "k1": k1, "k2": k2,
+            "phase": _CountOf(k2, "phase_launches")}
+
+
+def _train_entry(name: str, log_jsonl=None, **kw):
+    """``train()`` at olmo-1b's full width, the entry point a user runs,
+    with the kernels' counts set to 0 just before and read just after.
+    Returns (state, history, launches, peak GB, wall s)."""
+    from repro_torch.launch.train import train
+
+    overrides, rounds = TRAIN_RUNS[name]
+    kernels = _train_kernels()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in kernels.values():
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    state, history = train(
+        arch="olmo-1b", smoke=False, steps_per_round=TRAIN_STEPS[name],
+        rounds=rounds, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        config_overrides=overrides, log_jsonl=log_jsonl, device="cuda",
+        **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: kernel.launches for k, kernel in kernels.items()}
+    syncs = tuple(h["sync_s"] for h in history)
+    want = TRAIN_SYNC_PINS[name][-len(syncs):] if syncs else ()
+    if len(syncs) != len(want) or any(
+            abs(a - b) > SYNC_TOL for a, b in zip(syncs, want)):
+        raise SystemExit(f"train {name}: round syncs {syncs}, pinned "
+                         f"{want}")
+    return (state, history, launches,
+            torch.cuda.max_memory_allocated() / 1e9, wall)
+
+
+def _profiled_device_ms(fn, top: int = 6):
+    """The device ms of one call of ``fn`` by torch.profiler: the summed
+    time of its device events alone (an operator's device time holds
+    its kernels', so it is not added again), or None if the profiler
+    saw no device time; and the ``top`` device events by time as
+    (ms, launches, name). (The profiler's own host cost stretches the
+    call's wall, so the busy share divides this by an unprofiled call's
+    wall.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                     for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA), reverse=True)
+    dev_ms = sum(ms for ms, _, _ in events)
+    return (dev_ms if dev_ms > 0 else None), events[:top]
+
+
+def _timed_step(step, state, batch):
+    """One warm-up call of ``step``, then the wall ms of one more, and
+    the device ms and largest device events of a third, profiled."""
+    step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms, top = _profiled_device_ms(lambda: step(state, batch))
+    return wall_ms, dev_ms, top
+
+
+def _print_top(what, dev_ms, wall_ms, top):
+    busy = "not measured" if dev_ms is None else f"{dev_ms / wall_ms:.3f}"
+    print(f"  {what}: {wall_ms:.3f} ms unprofiled, device "
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.3f}'} ms "
+          f"profiled (busy {busy}); largest: "
+          + "; ".join(f"{ms:.3f} ms x{n} {name[:60]}" for ms, n, name
+                      in top), flush=True)
+
+
+def _train_whole_step():
+    """(b): one olmo-1b full-width state and one batch through one AdamW
+    step (constant lr 3e-3) with K4 in bf16, with the plain attention in
+    bf16 and in float32 compute. Returns, for each, the loss, the global
+    gradient norm and the parameter change, and K4's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenBatcher, lm_tokens
+    from repro_torch.dist import stepfns
+    from repro_torch.kernels.attention import kernel as k4
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch._tree import tree_leaves
+
+    cfg = get_config("olmo-1b").replace(grad_accum=1)
+    opt_cfg = OptimizerConfig(name="adamw", lr=3e-3)
+    state = stepfns.init_train_state(
+        cfg, opt_cfg, torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    batch = next(iter(TokenBatcher(lm_tokens(400_000, cfg.vocab_size,
+                                             seed=0),
+                                   TRAIN_BATCH, TRAIN_SEQ)))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    before = tree_leaves(state.params)
+    runs = {}
+    plain = cfg.replace(attn_impl="reference")
+    for name, c in (("kernel", cfg), ("plain", plain),
+                    ("f32", plain.replace(dtype="float32"))):
+        k4.launches = k4.launches_tc = 0
+        new, m = stepfns.make_train_step(c, opt_cfg)(state, batch)
+        delta = torch.cat([(a - b).reshape(-1) for a, b in
+                           zip(tree_leaves(new.params), before)])
+        runs[name] = {"loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]), "delta": delta,
+                      "k4": k4.launches, "k4_tc": k4.launches_tc}
+        del new, m
+    return runs
+
+
+def _hold_whole_step(runs) -> dict:
+    """The kernel run's distance from the float32 run at most
+    ``TRAIN_F32_RATIO`` times the plain run's plus a floor, for the loss,
+    the gradient norm (relative) and the parameter change (relative L2
+    over every parameter)."""
+    f32 = runs["f32"]
+    out = {}
+    for what, floor in (("loss", TRAIN_LOSS_FLOOR),
+                        ("grad_norm", TRAIN_GNORM_FLOOR),
+                        ("delta", TRAIN_DELTA_FLOOR)):
+        if what == "delta":
+            ref = f32["delta"]
+            dist = {k: float((runs[k]["delta"] - ref).norm() / ref.norm())
+                    for k in ("kernel", "plain")}
+        elif what == "grad_norm":
+            dist = {k: abs(runs[k][what] - f32[what]) / f32[what]
+                    for k in ("kernel", "plain")}
+        else:
+            dist = {k: abs(runs[k][what] - f32[what])
+                    for k in ("kernel", "plain")}
+        out[f"{what}_kernel_f32"] = f"{dist['kernel']:.4g}"
+        out[f"{what}_plain_f32"] = f"{dist['plain']:.4g}"
+        if not dist["kernel"] <= TRAIN_F32_RATIO * dist["plain"] + floor:
+            raise SystemExit(
+                f"train (b): {what}: kernel run {dist['kernel']} from the "
+                f"float32 run, plain run {dist['plain']} (ratio "
+                f"{TRAIN_F32_RATIO}, floor {floor})")
+    print(f"  whole step: loss {runs['kernel']['loss']:.6f} / "
+          f"{runs['plain']['loss']:.6f} / {f32['loss']:.6f}, grad norm "
+          f"{runs['kernel']['grad_norm']:.6g} / "
+          f"{runs['plain']['grad_norm']:.6g} / {f32['grad_norm']:.6g}, "
+          f"largest change {float(runs['kernel']['delta'].abs().max()):.4g}"
+          f" / {float(runs['plain']['delta'].abs().max()):.4g} / "
+          f"{float(f32['delta'].abs().max()):.4g} (kernel / plain / f32)",
+          flush=True)
+    return out
+
+
+def _bwd_bytes_bound(ins, grads_out) -> float:
+    """ms to read the inputs and upstream gradients once and write the
+    input gradients once at HBM_BYTES_S."""
+    n = sum(2 * t.numel() * t.element_size() for t in ins)
+    n += sum(t.numel() * t.element_size() for t in grads_out)
+    return n / HBM_BYTES_S * 1e3
+
+
+def _bwd_check(what, function, plain, ins, grads_out, n_out=1):
+    """(c): ``function`` (an autograd Function's apply, kernel forward)
+    and ``plain`` (the plain version) on the same leaf inputs ``ins``
+    and upstream gradients: every input gradient equal bit for bit.
+    Returns (largest difference, backward ms of the Function, of the
+    plain version, bound ms: the bytes bound; K4's caller takes the
+    larger of it and the operations' bound)."""
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+        out = fn(*leaves)
+        outs = out[:n_out] if isinstance(out, tuple) else (out,)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = torch.autograd.grad(outs, leaves, grads_out,
+                                      retain_graph=True)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return got, statistics.median(times)
+
+    got, ms = grads(function)
+    want, plain_ms = grads(plain)
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"  backward {what}: max |diff| {err:.3g}, bit for bit {same}, "
+          f"{ms:.3f} ms (plain {plain_ms:.3f} ms)", flush=True)
+    if not same:
+        raise SystemExit(f"train (c): {what}: the Function's gradients "
+                         f"differ from the plain version's by {err}")
+    return err, ms, plain_ms, _bwd_bytes_bound(ins, grads_out)
+
+
+def _train_backwards() -> dict:
+    """(c) at the serving shapes with S cut to ``TRAIN_BWD_S``: returns
+    each kernel's Function launches and backward ms."""
+    from repro_torch.kernels.attention import kernel as k4
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention import ref as attn_ref
+    from repro_torch.kernels.rglru import kernel as k6
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    from repro_torch.kernels.rglru import ref as rglru_ref
+    from repro_torch.kernels.ssd import kernel as k5
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    S = TRAIN_BWD_S
+    k4.launches = k5.launches = k6.launches = 0
+    k4.launches_tc = k5.launches_tc = 0
+    out = {}
+    # the Function's forward, which the train steps use, at their shapes
+    H, K, D = OLMO_PREFILL[3:]
+    for B, T in ((TRAIN_BATCH, TRAIN_SEQ), TRAIN_LONG):
+        q, k, v = (t.requires_grad_(True) for t in
+                   _qkv(B, T, T, H, K, D, torch.bfloat16, seed=11))
+        before = k4.launches_tc
+        got = attn_ops.FlashAttention.apply(q, k, v, True, None)
+        want = attn_ref.attention_ref(q, k, v, True, None)
+        err = float((got.detach().float()
+                     - want.detach().float()).abs().max())
+        print(f"  K4 Function forward ({B}, {T}, {H}, {K}, {D}): max |diff| "
+              f"{err:.3g}", flush=True)
+        if k4.launches_tc != before + 1 or not _close(
+                got, want, K4_TOL["bfloat16"]):
+            raise SystemExit(f"train (c): the K4 Function's forward at "
+                             f"({B}, {T}, {H}, {K}, {D}) differs from the "
+                             f"plain version by {err} or missed the "
+                             f"tensor-core kernel")
+        out[f"k4_fwd_{B}x{T}"] = err
+        del q, k, v, got, want
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for name, (B, _, _, H, K, D), window in (
+            ("olmo-1b", OLMO_PREFILL, None),
+            ("recurrentgemma-2b", RG_PREFILL, RG_WINDOW)):
+        ins = _qkv(B, S, S, H, K, D, torch.bfloat16, seed=3)
+        gy = torch.randn((B, S, H, D), generator=g,
+                         device="cuda").to(torch.bfloat16)
+        err, ms, plain_ms, bytes_ms = _bwd_check(
+            f"K4 {name} ({B}, {S}, {H}, {K}, {D})",
+            lambda q, k, v: attn_ops.FlashAttention.apply(q, k, v, True,
+                                                          window),
+            lambda q, k, v: attn_ref.attention_ref(q, k, v, True, window),
+            ins, (gy,))
+        # the recomputed forward's products (4 B H D a live key) and the
+        # backward's dP, dS Q/K and P^T dO products (8 B H D)
+        ops_s = 12 * B * H * D * _live_keys(S, S, True, window) / BF16_S
+        out[f"k4_{name}"] = (err, ms, plain_ms, max(bytes_ms, ops_s * 1e3))
+    B, _, H, P, N, chunk = MAMBA_PREFILL
+    (xh, bm, cm, dt, a), _ = _ssd_inputs(B, S, H, P, N, torch.bfloat16,
+                                         seed=5)
+    h0 = torch.randn((B, H, P, N), generator=g, device="cuda")
+    gy = torch.randn((B, S, H, P), generator=g, device="cuda")
+    gh = torch.randn((B, H, P, N), generator=g, device="cuda")
+    ins = [t.contiguous() for t in (xh, bm, cm, dt, a)]
+    out["k5"] = _bwd_check(
+        f"K5 mamba2-780m ({B}, {S}, {H}, {P}), N {N}, chunk {chunk}",
+        lambda *t: ssd_ops.SSDScan.apply(*t, chunk, None),
+        lambda *t: ssd_ref.ssd_chunked_ref(*t, chunk, None), ins, (gy,))
+    out["k5_h0"] = _bwd_check(
+        "K5 with h0 in, h_last out",
+        lambda *t: ssd_ops.SSDScan.apply(*t[:5], chunk, t[5]),
+        lambda *t: ssd_ref.ssd_chunked_ref(*t[:5], chunk, t[5]),
+        ins + [h0], (gy, gh), n_out=2)
+    B, _, R = RG_SCAN
+    a, b, h = _k6_args(B, S, R, 0.5, 0.999, torch.float32, True, seed=9)
+    gy = torch.randn((B, S, R), generator=g, device="cuda")
+    out["k6"] = _bwd_check(
+        f"K6 recurrentgemma-2b ({B}, {S}, {R})", rglru_ops.RGLRUScan.apply,
+        rglru_ref.rglru_scan_ref, (a, b, h), (gy,))
+    out["launches"] = {"k4": k4.launches, "k4_tc": k4.launches_tc,
+                       "k5": k5.launches, "k5_tc": k5.launches_tc,
+                       "k6": k6.launches}
+    return out
+
+
+def phase_train():
+    """(a) train() at olmo-1b's full width; (b) the whole step with K4
+    against the plain attention in bf16 and float32; (c) the three
+    backwards at kernel level; (d) a resumed run bit for bit."""
+    import shutil
+    import tempfile
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.dist import stepfns
+
+    t0 = time.time()
+    # (a) the slice at full width, its step events read back
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.jsonl")
+        state, history, launches, peak_gb, wall = _train_entry(
+            "full", log_jsonl=path, log_every=1)
+        with open(path) as f:
+            events = [json.loads(line) for line in f]
+    losses = [e["loss"] for e in events if e["event"] == "step"]
+    n_steps = TRAIN_STEPS["full"] * TRAIN_RUNS["full"][1]
+    if len(losses) != n_steps or not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"train (a): step losses {losses}")
+    want_k4 = n_steps * TRAIN_K4_A_STEP
+    if (launches["k4"], launches["k4_tc"]) != (want_k4, want_k4):
+        raise SystemExit(f"train (a): K4 ran {launches['k4']} times "
+                         f"({launches['k4_tc']} on the tensor cores), not "
+                         f"{want_k4} ({TRAIN_K4_A_STEP} a step, all on the "
+                         f"tensor cores)")
+    step_ms = [h["wall_s"] * 1e3 / TRAIN_STEPS["full"] for h in history]
+    # one more step of the same state, profiled: the device's busy share
+    from repro_torch.configs import get_config
+    from repro_torch.optim import OptimizerConfig
+
+    cfg = get_config("olmo-1b").replace(grad_accum=1)
+    step = stepfns.make_train_step(cfg, OptimizerConfig("adamw", lr=3e-3))
+    tok = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                        device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(2))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    step_wall_ms, dev_ms, top = _timed_step(step, state, batch)
+    print(f"  (a) losses {[round(x, 4) for x in losses]}; K4 "
+          f"{launches['k4']} ({launches['k4_tc']} tensor cores), K1 "
+          f"{launches['k1']}, K2 {launches['k2']}, phase kernel "
+          f"{launches['phase']}", flush=True)
+    _print_top(f"a step at {TRAIN_BATCH} x {TRAIN_SEQ}", dev_ms,
+               step_wall_ms, top)
+    # one step at the published 2048-token context
+    from repro_torch.kernels.attention import kernel as k4
+
+    B, T = TRAIN_LONG
+    tok = torch.randint(0, cfg.vocab_size, (B, T + 1), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(3))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k4.launches = k4.launches_tc = 0
+    new, m = step(state, batch)
+    long_loss = float(m["loss"])
+    long_k4 = (k4.launches, k4.launches_tc)
+    del new, m
+    long_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not math.isfinite(long_loss) or long_k4 != (TRAIN_K4_A_STEP,
+                                                   TRAIN_K4_A_STEP):
+        raise SystemExit(f"train (a) at {B} x {T}: loss {long_loss}, K4 "
+                         f"{long_k4} (not {TRAIN_K4_A_STEP} a step, all on "
+                         f"the tensor cores)")
+    long_wall_ms, long_dev_ms, long_top = _timed_step(step, state, batch)
+    _print_top(f"a step at {B} x {T} (loss {long_loss:.6f}, peak "
+               f"{long_peak_gb:.3f} GB)", long_dev_ms, long_wall_ms,
+               long_top)
+    del state, batch, tok
+
+    # (b) the kernel against its plain version through a whole step
+    runs = _train_whole_step()
+    if (runs["kernel"]["k4"], runs["kernel"]["k4_tc"]) != (
+            TRAIN_K4_A_STEP, TRAIN_K4_A_STEP) or runs["plain"]["k4"] or \
+            runs["f32"]["k4"]:
+        raise SystemExit(f"train (b): K4 launches "
+                         f"{[runs[k]['k4'] for k in runs]}")
+    held = _hold_whole_step(runs)
+    del runs
+
+    # (c) the three backwards at kernel level
+    bwd = _train_backwards()
+
+    # (d) resume: only round 2's checkpoint into a fresh directory
+    with tempfile.TemporaryDirectory() as tmp:
+        full_dir, fresh = os.path.join(tmp, "full"), os.path.join(tmp, "re")
+        full, _, res_launches, _, full_wall = _train_entry(
+            "resume", ckpt_dir=full_dir, resume=False)
+        os.makedirs(fresh)
+        shutil.copy(os.path.join(full_dir, "step_2.ckpt"), fresh)
+        ckpt_gb = os.path.getsize(os.path.join(fresh, "step_2.ckpt")) / 1e9
+        resumed, hist, _, _, resume_wall = _train_entry(
+            "resume", ckpt_dir=fresh)
+    a = (tree_leaves(full.params) + tree_leaves(full.opt.mu)
+         + tree_leaves(full.opt.nu) + [full.opt.step])
+    b = (tree_leaves(resumed.params) + tree_leaves(resumed.opt.mu)
+         + tree_leaves(resumed.opt.nu) + [resumed.opt.step])
+    if [h["round"] for h in hist] != [2] or len(a) != len(b) or not all(
+            torch.equal(x, y) for x, y in zip(a, b)):
+        raise SystemExit("train (d): the resumed run's state differs from "
+                         "the uninterrupted run's")
+    del full, resumed, a, b
+
+    _line("train", time.time() - t0, arch="olmo-1b", layers=16,
+          batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=n_steps,
+          wall_s=f"{wall:.3f}",
+          step_ms=",".join(f"{x:.3f}" for x in step_ms),
+          step_wall_ms=f"{step_wall_ms:.3f}",
+          profiled_step_device_ms=("not measured" if dev_ms is None
+                                   else f"{dev_ms:.3f}"),
+          device_busy=("not measured" if dev_ms is None
+                       else f"{dev_ms / step_wall_ms:.3f}"),
+          peak_gb=f"{peak_gb:.3f}", k4=launches["k4"],
+          k4_tc=launches["k4_tc"], k1=launches["k1"], k2=launches["k2"],
+          phase_launches=launches["phase"], long_batch=B, long_seq=T,
+          long_loss=f"{long_loss:.6f}", long_k4=long_k4[0],
+          long_step_ms=f"{long_wall_ms:.3f}",
+          long_device_ms=("not measured" if long_dev_ms is None
+                          else f"{long_dev_ms:.3f}"),
+          long_device_busy=("not measured" if long_dev_ms is None
+                            else f"{long_dev_ms / long_wall_ms:.3f}"),
+          long_peak_gb=f"{long_peak_gb:.3f}",
+          k4_fwd_err={k: f"{v:.3g}" for k, v in bwd.items()
+                      if k.startswith("k4_fwd")},
+          syncs_held="yes", **held,
+          bwd_ms={k: f"{v[1]:.3f}" for k, v in bwd.items()
+                  if isinstance(v, tuple)},
+          bwd_plain_ms={k: f"{v[2]:.3f}" for k, v in bwd.items()
+                        if isinstance(v, tuple)},
+          bwd_bound_ms={k: f"{v[3]:.5f}" for k, v in bwd.items()
+                        if isinstance(v, tuple)},
+          resume_bitwise="yes", ckpt_gb=f"{ckpt_gb:.3f}",
+          resume_full_wall_s=f"{full_wall:.3f}",
+          resume_wall_s=f"{resume_wall:.3f}", resume_k4=res_launches["k4"])
+    return {"olmo-1b-train": launches, "bwd": bwd}
 
 
 def main() -> int:
@@ -4529,9 +5030,15 @@ def main() -> int:
     mamba = phase_serve_mamba2()
     launches["ssd_scan"] = mamba["k5"]
     rg = phase_serve_recurrentgemma()
-    # K4 runs on two serving paths: olmo-1b's and recurrentgemma-2b's,
-    # there on the tensor-core kernel alone
-    launches["flash_attention"] = olmo["k4"] + rg["k4"]
+    trained = phase_train()
+    train_counts, bwd = trained["olmo-1b-train"], trained["bwd"]
+    by_path["olmo-1b-train"] = {"k1": train_counts["k1"],
+                                "k2": train_counts["k2"],
+                                "phase": train_counts["phase"]}
+    # K4 runs on three paths: olmo-1b's and recurrentgemma-2b's prefill,
+    # there on the tensor-core kernel alone, and olmo-1b's train steps
+    launches["flash_attention"] = (olmo["k4"] + rg["k4"]
+                                   + train_counts["k4"])
     launches["rglru_scan"] = rg["k6"]
     phase_entry.update(wide_hold.finish())
     phase_entry["max_abs_err"] = max(phase_entry["max_abs_err"],
@@ -4552,11 +5059,41 @@ def main() -> int:
             entry["launches_by_path"] = {"fig2a-int8": launches[name],
                                          "cosim-accuracy": cosim[name]}
         if entry["name"] == "flash_attention":
-            entry["launches_tc"] = olmo["k4_tc"] + rg["k4_tc"]
-            entry["launches_by_path"] = {"olmo-1b": olmo["k4"],
-                                         "recurrentgemma-2b": rg["k4"]}
+            entry["launches_tc"] = (olmo["k4_tc"] + rg["k4_tc"]
+                                    + train_counts["k4_tc"])
+            entry["launches_by_path"] = {
+                "olmo-1b": olmo["k4"], "recurrentgemma-2b": rg["k4"],
+                "olmo-1b-train": train_counts["k4"],
+                "train-backward-check": bwd["launches"]["k4"]}
+            entry["backward_ms"] = {
+                "olmo-1b-s512": bwd["k4_olmo-1b"][1],
+                "recurrentgemma-2b-s512": bwd["k4_recurrentgemma-2b"][1]}
+            entry["backward_plain_ms"] = {
+                "olmo-1b-s512": bwd["k4_olmo-1b"][2],
+                "recurrentgemma-2b-s512": bwd["k4_recurrentgemma-2b"][2]}
+            entry["backward_bound_ms"] = {
+                "olmo-1b-s512": bwd["k4_olmo-1b"][3],
+                "recurrentgemma-2b-s512": bwd["k4_recurrentgemma-2b"][3]}
         if entry["name"] == "ssd_scan":
             entry["launches_tc"] = mamba["k5_tc"]
+            entry["launches_by_path"] = {
+                "mamba2-780m": mamba["k5"],
+                "train-backward-check": bwd["launches"]["k5"]}
+            entry["backward_ms"] = {"mamba2-780m-s512": bwd["k5"][1],
+                                    "with-h0": bwd["k5_h0"][1]}
+            entry["backward_plain_ms"] = {
+                "mamba2-780m-s512": bwd["k5"][2], "with-h0": bwd["k5_h0"][2]}
+            entry["backward_bound_ms"] = {
+                "mamba2-780m-s512": bwd["k5"][3], "with-h0": bwd["k5_h0"][3]}
+        if entry["name"] == "rglru_scan":
+            entry["launches_by_path"] = {
+                "recurrentgemma-2b": rg["k6"],
+                "train-backward-check": bwd["launches"]["k6"]}
+            entry["backward_ms"] = {"recurrentgemma-2b-s512": bwd["k6"][1]}
+            entry["backward_plain_ms"] = {
+                "recurrentgemma-2b-s512": bwd["k6"][2]}
+            entry["backward_bound_ms"] = {
+                "recurrentgemma-2b-s512": bwd["k6"][3]}
     _line("total", time.time() - t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """Flash-attention dispatch: the Hopper kernel K4 for CUDA tensors, the
 plain version for CPU tensors.
 
-Forward only. The reference package wraps its kernel in a
-``custom_vjp`` whose backward recomputes through the plain version; the
-port's ``torch.autograd.Function`` counterpart comes with the training
-path. Until then a CUDA input that needs a gradient raises rather than
-silently taking the plain version.
+On a card the forward is always the kernel. Where an input needs a
+gradient it runs inside :class:`FlashAttention`, the counterpart of the
+reference package's ``custom_vjp``: the kernel forward saves q, k and v,
+and the backward recomputes ``ref.attention_ref`` under autograd and
+returns its gradients, as the reference's ``_bwd`` takes ``jax.vjp`` of
+its oracle. On the CPU autograd differentiates the plain version
+directly.
 """
 from __future__ import annotations
 
@@ -15,19 +17,39 @@ from repro_torch.kernels.attention import kernel as _kernel
 from repro_torch.kernels.attention import ref as _ref
 
 
+class FlashAttention(torch.autograd.Function):
+    """K4 forward; backward through the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _kernel.flash_attention_cuda(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        want = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(w) for t, w in zip(saved, want)]
+            out = _ref.attention_ref(*ins, ctx.causal, ctx.window)
+            got = torch.autograd.grad(
+                out, [t for t, w in zip(ins, want) if w], g)
+        it = iter(got)
+        return (*(next(it) if w else None for w in want), None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window=None) -> torch.Tensor:
     """q: (B,S,H,D); k,v: (B,T,K,D), H % K == 0 -> (B,S,H,D) in q's dtype.
 
-    On a CUDA tensor this launches the kernel or raises; on a CPU tensor
+    On a CUDA tensor this launches the kernel or raises, through
+    :class:`FlashAttention` where a gradient is needed; on a CPU tensor
     it runs ``ref.attention_ref``.
     """
     if q.is_cuda:
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError(
-                "the flash-attention backward is not ported yet (ROADMAP "
-                "Queue 1 item 10: training); run under torch.no_grad() or "
-                "torch.inference_mode()")
+            return FlashAttention.apply(q, k, v, causal, window)
         return _kernel.flash_attention_cuda(q, k, v, causal, window)
     return _ref.attention_ref(q, k, v, causal, window)

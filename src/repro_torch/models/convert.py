@@ -5,6 +5,9 @@ nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``),
 with the leading ``n_units`` axis on the leaves of ``units``, and returns
 the port's parameter dict with the same keys, shapes and dtypes, so that
 both packages compute the same function in the tests.
+``from_reference_train_state`` carries a whole ``TrainState`` (params
+and the optimizer's step and moments) across, so that both packages
+run the same train step from the same state.
 ``cnn_params_from_reference`` does the same for the FL CNN's dict.
 """
 from __future__ import annotations
@@ -47,6 +50,43 @@ def from_reference_params(tree, cfg: ModelConfig,
     dev = resolve_device(device)
     want = lm._init(cfg, None, torch.device("meta"))
     return _convert(tree, want, "", dev)
+
+
+def from_reference_train_state(state, cfg: ModelConfig,
+                               device=DEFAULT_DEVICE):
+    """The port's ``dist.stepfns.TrainState`` on ``device`` from the
+    reference's ``TrainState`` as numpy (``jax.tree.map(np.asarray,
+    state)``): ``params`` through :func:`from_reference_params`, the
+    optimizer's ``step`` as a 0-d int32 tensor and its ``mu``/``nu``
+    trees leaf for leaf (their dtype is the optimizer's
+    ``state_dtype``; sgd's and momentum's ``(0,)`` placeholders
+    included); raises ``ValueError`` where a moment's keys or shape do
+    not match the parameters."""
+    from repro_torch.dist.stepfns import TrainState
+    from repro_torch.optim.optimizers import OptState
+
+    dev = resolve_device(device)
+    want = lm._init(cfg, None, torch.device("meta"))
+
+    def moments(tree, like, path):
+        if isinstance(like, dict):
+            if not isinstance(tree, dict) or set(tree) != set(like):
+                raise ValueError(f"{path}: keys do not match the "
+                                 "parameters'")
+            return {k: moments(tree[k], like[k], f"{path}/{k}")
+                    for k in like}
+        t = _tensor(tree)
+        if tuple(t.shape) not in (tuple(like.shape), (0,)):
+            raise ValueError(f"{path}: shape {tuple(t.shape)} != "
+                             f"{tuple(like.shape)}")
+        return t.to(dev)
+
+    step = torch.tensor(int(np.asarray(state.opt.step)), dtype=torch.int32,
+                        device=dev)
+    opt = OptState(step, moments(state.opt.mu, want, "mu"),
+                   moments(state.opt.nu, want, "nu"))
+    return TrainState(params=from_reference_params(state.params, cfg, dev),
+                      opt=opt)
 
 
 def cnn_params_from_reference(tree, device=DEFAULT_DEVICE) -> dict:

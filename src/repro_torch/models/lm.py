@@ -4,12 +4,14 @@ Parameters mirror the reference package's pytree: the config's repeating
 *pattern unit* is stored with a leading ``n_units`` axis on every leaf of
 ``params["units"]``, remainder layers (n_layers % unit_len) unstacked
 under ``params["rem"]``. Where the reference scans the units with
-``lax.scan``, the port loops over them in Python, indexing unit ``u`` of
-each stacked leaf (a view). Remat does not apply: the port runs forward
-only so far.
+``lax.scan``, the port loops over them in Python, over views of the
+stacked leaves (``torch.unbind``: autograd stacks their gradients back
+in one step). ``cfg.remat`` wraps one unit's call on the training path
+as the reference wraps its scan body (``_remat_wrap``).
 
 Entry points:
-  ``forward_train``  — full logits over a sequence (forward only)
+  ``forward_train``  — full logits over a sequence
+  ``loss_fn``        — the training loss (cross-entropy)
   ``prefill``        — forward over the prompt, filling the KV caches
   ``decode_step``    — one token against the caches
 
@@ -19,7 +21,10 @@ FFN) are ported; MoE blocks raise ``NotImplementedError`` (ROADMAP Queue
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch._device import DEFAULT_DEVICE, resolve_device
 from repro_torch.configs.base import ATTN, RGLRU, SSD, LayerSpec, ModelConfig
@@ -33,6 +38,7 @@ from repro_torch.models.layers import (
     mlp_init,
     norm_init,
     sinusoidal_embed,
+    softmax_cross_entropy,
     torch_dtype,
 )
 
@@ -60,6 +66,15 @@ def _tree_index(tree, u: int):
     if isinstance(tree, dict):
         return {k: _tree_index(v, u) for k, v in tree.items()}
     return tree[u]
+
+
+def _tree_unbind(tree, n: int) -> list:
+    """The ``n`` units of a stacked tree, each leaf a view
+    (``torch.unbind``)."""
+    if isinstance(tree, dict):
+        parts = {k: _tree_unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][u] for k in parts} for u in range(n)]
+    return list(torch.unbind(tree))
 
 
 def _tree_stack(trees):
@@ -180,14 +195,44 @@ def _logits(params, cfg, x):
     return logits
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the products without batch dimensions (``mm``, ``addmm``),
+    recompute the rest: the reference's
+    ``checkpoint_dots_with_no_batch_dims``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, cfg: ModelConfig):
+    """``fn`` under activation checkpointing by ``cfg.remat``: ``"full"``
+    keeps only its inputs and recomputes it in the backward, ``"dots"``
+    keeps the products too, ``"none"`` is ``fn``. Values never change."""
+    if cfg.remat == "full":
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            _ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                _ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    if cfg.remat != "none":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return fn
+
+
 def _run_stack(params, cfg, x, positions, mode, cache, pos):
-    """Loop over the stacked units, then the remainder unit."""
+    """Loop over the stacked units, then the remainder unit. On the
+    training path (no cache, autograd on) each unit runs under
+    ``_remat_wrap``."""
     unit_caches = cache["units"] if cache else None
-    for u in range(cfg.n_units):
-        x = _unit_apply(
-            _tree_index(params["units"], u), x, cfg, cfg.pattern, positions,
-            mode, None if unit_caches is None else _tree_index(unit_caches, u),
-            pos)
+    run = _unit_apply
+    if cache is None and torch.is_grad_enabled():
+        run = _remat_wrap(_unit_apply, cfg)
+    for u, unit_params in enumerate(_tree_unbind(params["units"],
+                                                 cfg.n_units)):
+        x = run(unit_params, x, cfg, cfg.pattern, positions, mode,
+                None if unit_caches is None
+                else _tree_index(unit_caches, u), pos)
     if cfg.n_remainder:
         x = _unit_apply(params["rem"], x, cfg, cfg.remainder_pattern,
                         positions, mode, cache["rem"] if cache else None, pos)
@@ -201,7 +246,7 @@ def _run_stack(params, cfg, x, positions, mode, cache, pos):
 
 
 def forward_train(params, cfg: ModelConfig, tokens, extra_embeds=None):
-    """Full logits ``(B, S, V)`` (forward only; no aux loss without MoE).
+    """Full logits ``(B, S, V)`` (no aux loss without MoE).
 
     tokens: (B, S_text) int; extra_embeds: (B, n_frontend, D) or None.
     """
@@ -213,6 +258,17 @@ def forward_train(params, cfg: ModelConfig, tokens, extra_embeds=None):
     x = _add_abs_pos(x, cfg, positions)
     x, _ = _run_stack(params, cfg, x, positions, "train", None, None)
     return _logits(params, cfg, x)
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Mean cross-entropy in float32. batch: ``tokens`` (B, S), ``labels``
+    (B, S), optional ``weights`` (B, S) and ``extra_embeds``. The
+    reference adds its MoE aux loss, which is 0 for every ported block."""
+    extra = batch.get("extra_embeds")
+    logits = forward_train(params, cfg, batch["tokens"], extra)
+    n_front = cfg.n_frontend_tokens if extra is not None else 0
+    return softmax_cross_entropy(logits[:, n_front:], batch["labels"],
+                                 batch.get("weights"))
 
 
 # ---------------------------------------------------------------------------

@@ -522,8 +522,26 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         k4.flash_attention_cuda(q, k.bfloat16(), v)
     with pytest.raises(ValueError, match="contiguous"):
         k4.flash_attention_cuda(q.transpose(1, 2), k, v)
-    with pytest.raises(NotImplementedError, match="backward"):
-        k4_ops.flash_attention(q.requires_grad_(), k, v)
+    # an input that needs a gradient trains through the kernel: the
+    # autograd Function's backward is autograd of the plain version
+    before = k4.launches
+    got = _grads(k4_ops.flash_attention, (q, k, v))
+    assert k4.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, _grads(k4_ref.attention_ref, (q, k, v))))
+
+
+def _grads(fn, ins, n_out=1):
+    """Input gradients of ``fn`` on leaf copies of ``ins`` against a
+    fixed upstream gradient (seed 0) of each of its first ``n_out``
+    outputs."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+    out = fn(*leaves)
+    outs = out[:n_out] if isinstance(out, tuple) else (out,)
+    g = torch.Generator(device=outs[0].device).manual_seed(0)
+    ups = [torch.randn(o.shape, generator=g, device=o.device).to(o.dtype)
+           for o in outs]
+    return torch.autograd.grad(outs, leaves, ups)
 
 
 def _to(tree, dev):
@@ -837,8 +855,13 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="state size"):
         big = torch.zeros((1, 16, 300), device=cuda)
         k5.ssd_scan_cuda(x, big, big, dt, a, 8)
-    with pytest.raises(NotImplementedError, match="backward"):
-        k5_ops.ssd_scan(x.requires_grad_(), bm, cm, dt, a, 8, h)
+    before = k5.launches
+    got = _grads(lambda *t: k5_ops.ssd_scan(*t[:5], 8, t[5]),
+                 (x, bm, cm, dt, a, h), n_out=2)
+    assert k5.launches == before + 1
+    want = _grads(lambda *t: k5_ref.ssd_chunked_ref(*t[:5], 8, t[5]),
+                  (x, bm, cm, dt, a, h), n_out=2)
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(got, want))
 
 
 # (B, S, R, a_lo, a_hi): ragged S and R, recurrentgemma's width, slow
@@ -895,8 +918,11 @@ def test_rglru_kernel_refuses_what_it_does_not_take(cuda):
         k6.rglru_scan_cuda(a, b, h[:1])
     with pytest.raises(ValueError, match="CUDA"):
         k6.rglru_scan_cuda(a, b.cpu(), h)
-    with pytest.raises(NotImplementedError, match="backward"):
-        k6_ops.rglru_scan(a, b.requires_grad_(), h)
+    before = k6.launches
+    got = _grads(k6_ops.rglru_scan, (a, b, h))
+    assert k6.launches == before + 1
+    assert all(torch.equal(a_, b_) for a_, b_ in
+               zip(got, _grads(k6_ref.rglru_scan_ref, (a, b, h))))
 
 
 # K3/K3' grid (shape, block): tests/test_kernels.py's shapes x {64, 256,
