@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-The port has thirteen paths, each driven through its user entry point with
-the kernel counts set to 0 just before and read just after:
+The port has fourteen paths, each driven through its user entry point with
+the kernel counts set to 0 just before and read just after (the
+fourteenth, the model zoo's serving, once a config):
 
 * the Fig. 2b round engine (``repro_torch.net.simulate``), through K1
   (traffic sampler) and K2 (waterfill grant);
@@ -42,7 +43,12 @@ the kernel counts set to 0 just before and read just after:
 * olmo-1b training on one pod (``repro_torch.launch.train``: AdamW
   steps, the round's sync from the timeline, checkpoints), through K4
   in every layer's forward and its recompute, K4 as an autograd
-  Function whose backward recomputes the plain version.
+  Function whose backward recomputes the plain version;
+* the seven other configs served (``serve()``'s step functions):
+  llama3-8b, qwen3-14b, gemma3-12b, mixtral-8x22b and arctic-480b
+  (Mixture-of-Experts; arctic with its int8 KV cache), pixtral-12b and
+  musicgen-large (stub frontends), through K4 in every attention layer
+  of the prefill.
 
 Phases, each printing its own line with its seconds; any failure exits
 nonzero:
@@ -292,6 +298,23 @@ nonzero:
    (``attn_impl="reference"``) in bf16 and in float32 compute, held
    with ``RG_LOGIT_TOL``, ``RG_F32_RATIO`` and ``RG_F32_TOL`` as in
    ``serve_mamba2``;
+10b. ``serve_zoo``: each of ``ZOO`` at its published width (mixtral-8x22b
+   and arctic-480b cut in depth to ``ZOO_LAYERS``, printed as
+   ``reduced`` lines), random weights from seed 0 and frontend
+   embeddings drawn as ``serve()`` draws them, batch 4, 2048-token
+   prompts, ``ZOO_NEW`` greedy tokens, through the step functions as
+   ``serve()`` drives them, its cache sized with the frontend tokens.
+   First K4 alone at the config's prefill shape, held to its plain
+   version and timed beside it and SDPA. Held: (a) K4 runs once an
+   attention layer in the prefill, all on the tensor-core kernel, never
+   in decode; (b) the prefill's last-position logits within
+   ``ZOO_LOGIT_RTOL`` (of the largest) of the same prefill with the
+   plain attention; (c) every logit finite, tokens ``(4, ZOO_NEW)``;
+   for arctic's int8 cache (d) its bytes half the bf16 cache's plus the
+   scales and (e) its decode logits against a bf16 cache's with the
+   same experts within ``ZOO_KV_FACTOR`` x layers x the cache's largest
+   half step. Prints prefill and decode ms, peak memory, K4's times, and
+   the MoE experts' loads and dropped share;
 11. ``train``: (a) ``train()`` at olmo-1b's full width (16 layers,
    float32 parameters, bf16 compute, random weights from a seed), one
    pod, batch 8 x 64 tokens, 2 rounds x 4 AdamW steps, its
@@ -521,6 +544,46 @@ RG_SCAN = (4, 2048, 2560)                     # B, S, R of the prefill
 RG_LOGIT_TOL = 0.3
 RG_F32_RATIO = 1.5
 RG_F32_TOL = 5e-4
+
+# serve_zoo phase: the seven other configs at their published widths,
+# batch 4 x 2048-token prompts (after the frontend's tokens for pixtral
+# and musicgen), ZOO_NEW greedy tokens, random weights from seed 0, as
+# serve() draws them. Run in this order; if the phase runs over its
+# time, configs come off the card from the end (llama3-8b, qwen3-14b,
+# then pixtral-12b), and stay held on the CPU (tests/test_torch_zoo.py).
+ZOO = ("musicgen-large", "gemma3-12b", "mixtral-8x22b", "arctic-480b",
+       "pixtral-12b", "qwen3-14b", "llama3-8b")
+ZOO_NEW = 16
+# depth cuts (layers kept): arctic's bf16 layer is ~27 GB (128 experts of
+# 3 x 7168 x 4864), mixtral's float32 layer ~10 GB (8 of 3 x 6144 x 16384)
+ZOO_LAYERS = {"arctic-480b": 2, "mixtral-8x22b": 4}
+# (b) the K4 prefill against the plain attention's, both in bf16 compute:
+# the largest logit difference over the largest plain logit. On olmo-1b
+# (16 layers) the two paths were 0.0703 apart on logits of spread ~1
+# (serve, NVIDIA H100 80GB HBM3, 700 W), about 0.016 of the largest
+# logit. The two paths round to bf16 at other places in every layer and
+# the differences add through the residual stream; if they grew linearly
+# with depth, 48 layers would give ~0.05. ZOO_LOGIT_RTOL is twice that.
+# A wrong attention layer moves the logits by their own size (~1).
+ZOO_LOGIT_RTOL = 0.1
+# (e) arctic's decode logits with the int8 cache against the same decode
+# with a bf16 cache: the same tokens fed and the same experts chosen (the
+# bf16 run replays the int8 run's top-k, ``_TopK``). A cached element of
+# a row with largest magnitude amax is off by at most amax/254 (half of
+# the step amax/127). Relative to the row's RMS that is q = max amax/(254
+# rms) over the cache's rows. Each of the L attention layers reads its k
+# and v once per step: v's error enters its output directly, k's
+# through the scores, each at most ~q of that layer's output; the
+# residual stream adds them, and the MoE's experts (held fixed), the
+# final norm and the head pass them on to first order. So the logits'
+# RMS error over their RMS stays below ZOO_KV_FACTOR = 2 per layer times
+# q (q ~ 0.014 for Gaussian rows of 1,024: amax ~ 3.5 rms), plus bf16's
+# own rounding of the compared cache (2^-9), which the bound absorbs.
+# The router's choice is discrete and has no such bound: where the int8
+# rounding moves a near tie, a token takes another expert and its logits
+# move by their own size. The same decode with the bf16 run's own
+# choices is printed, with the count of choices that moved, not held.
+ZOO_KV_FACTOR = 2
 
 # train phase. train() at olmo-1b's full width (16 layers, d_model 2048,
 # vocab 50304, float32 parameters, bf16 compute), one pod, batch 8 x 64
@@ -1765,13 +1828,12 @@ def _k4_timed(shape, window, seed):
     """K4 at ``shape`` (B, S, T, H, K, D) bf16, causal, with ``window``:
     held to its plain version through the tensor-core kernel, then timed
     beside it and beside ``scaled_dot_product_attention`` (k/v given to
-    every query head). Returns (max abs error, ms, plain ms, library ms,
-    bound ms, bound by, operations)."""
+    every query head; causal, or with a boolean mask where the window
+    cuts). Returns (max abs error, ms, plain ms, library ms, bound ms,
+    bound by, operations)."""
     from repro_torch.kernels.attention import kernel, ref
 
     B, S, T, H, K, D = shape
-    if window is not None and window < S:
-        raise ValueError("the SDPA yardstick is causal only")
     if kernel.route(torch.bfloat16, D) != "tensor_cores":
         raise SystemExit(f"K4 at {shape} bf16 does not route to the "
                          f"tensor cores")
@@ -1784,8 +1846,15 @@ def _k4_timed(shape, window, seed):
     if K != H:
         kt, vt = (x.repeat_interleave(H // K, dim=1) for x in (kt, vt))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = _device_ms(lambda a, b, c: sdpa(a, b, c, is_causal=True),
-                            [(qt, kt, vt)])
+    if window is not None and window < S:
+        qi = torch.arange(S, device="cuda")[:, None]
+        kj = torch.arange(T, device="cuda")[None, :]
+        mask = (kj <= qi) & (qi - kj < window)
+        library_ms = _device_ms(
+            lambda a, b, c: sdpa(a, b, c, attn_mask=mask), [(qt, kt, vt)])
+    else:
+        library_ms = _device_ms(
+            lambda a, b, c: sdpa(a, b, c, is_causal=True), [(qt, kt, vt)])
     n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     n_ops = 4 * B * H * D * _live_keys(S, T, True, window)
     bound = max(n_bytes / HBM_BYTES_S, n_ops / BF16_S) * 1e3
@@ -4063,42 +4132,72 @@ def phase_obs():
     return {"obs-fig3-6": counts, "obs-fig2b": f2b_counts}
 
 
-def _serve_run(cfg, params, prompts, kernels, feed=None):
-    """Prefill, then decode: greedy for ``SERVE_NEW - 1`` steps, or the
-    tokens of ``feed``. Returns (last-position logits of each step,
-    tokens, launches of each of ``kernels`` (name -> kernel module) in
-    the prefill and in decode, prefill ms, decode ms).
-    """
+def _serve_steps(cfg, params, prompts, kernels, feed=None, extra=None,
+                 n_new=SERVE_NEW, routes=None, top_k=None) -> dict:
+    """Prefill (``extra`` before the prompt), then decode: greedy for
+    ``n_new - 1`` steps, or the tokens of ``feed``; through the step
+    functions as ``serve()`` drives them, its cache sized as ``serve()``
+    sizes it. The kernels' counts are set to 0 just before the prefill
+    and just before decode and read just after each. With ``routes`` (a
+    list) every MoE layer's routing of the prefill, (experts, kept), is
+    appended to it; ``top_k`` (or None) stands in for the router's
+    ``moe._top_k`` over the whole run (``_TopK``). Returns the
+    last-position logits of each step, the tokens, the counts, prefill
+    and decode ms and the cache."""
     from repro_torch.dist import stepfns
+    from repro_torch.launch.serve import cache_len
     from repro_torch.models import lm
+    from repro_torch.models import moe as moe_mod
 
+    route = moe_mod._route
+
+    def spy(*args, **kwargs):
+        out = route(*args, **kwargs)
+        routes.append((out[1], out[4]))
+        return out
+
+    batch, prompt = prompts.shape
+    cache = lm.init_cache(cfg, batch, cache_len(cfg, prompt, n_new))
     prefill_step = stepfns.make_prefill_step(cfg)
     decode_step = stepfns.make_decode_step(cfg)
-    batch, prompt = prompts.shape
-    cache = lm.init_cache(cfg, batch, prompt + SERVE_NEW + 8)
-    with torch.inference_mode():
+    with torch.inference_mode(), (
+            mock.patch.object(moe_mod, "_top_k", top_k)
+            if top_k is not None else contextlib.nullcontext()):
         torch.cuda.synchronize()
         for kernel in kernels.values():
             kernel.launches = 0
         t0 = time.perf_counter()
-        logits, cache = prefill_step(params, prompts, cache)
+        with (mock.patch.object(moe_mod, "_route", spy)
+              if routes is not None else contextlib.nullcontext()):
+            logits, cache = prefill_step(params, prompts, cache, extra)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
-        n_prefill = {name: k.launches for name, k in kernels.items()}
+        n_pre = {name: k.launches for name, k in kernels.items()}
         steps = [logits[:, -1].float()]
         toks = [logits[:, -1:].argmax(-1)]
         for kernel in kernels.values():
             kernel.launches = 0
         t1 = time.perf_counter()
-        for i in range(SERVE_NEW - 1 if feed is None else len(feed)):
+        for i in range(n_new - 1 if feed is None else len(feed)):
             tok = toks[-1] if feed is None else feed[i]
             logits, cache = decode_step(params, tok, cache)
             steps.append(logits[:, -1].float())
             toks.append(logits[:, -1:].argmax(-1))
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t1) * 1e3
-    n_decode = {name: k.launches for name, k in kernels.items()}
-    return steps, toks, n_prefill, n_decode, prefill_ms, decode_ms
+    n_dec = {name: k.launches for name, k in kernels.items()}
+    return {"steps": steps, "toks": toks, "n_pre": n_pre, "n_dec": n_dec,
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "cache": cache}
+
+
+def _serve_run(cfg, params, prompts, kernels, feed=None):
+    """``_serve_steps`` at ``SERVE_NEW`` tokens as (last-position logits
+    of each step, tokens, launches of each of ``kernels`` in the prefill
+    and in decode, prefill ms, decode ms)."""
+    r = _serve_steps(cfg, params, prompts, kernels, feed)
+    return (r["steps"], r["toks"], r["n_pre"], r["n_dec"], r["prefill_ms"],
+            r["decode_ms"])
 
 
 def _hold_logits(steps, want, exact, tol: float, ratio: float) -> dict:
@@ -4551,6 +4650,238 @@ def phase_serve_recurrentgemma():
     _serve_line("serve_recurrentgemma", t0, cfg, n_pre, n_dec, prefill_ms,
                 decode_ms, peak_gb, held, generated, out)
     return launches
+
+
+def _zoo_cfg(name: str):
+    """The published config, its depth cut to ``ZOO_LAYERS`` (printed as
+    a ``reduced`` line); every width as published."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    if name in ZOO_LAYERS:
+        print(f"  reduced: {name} n_layers {cfg.n_layers} -> "
+              f"{ZOO_LAYERS[name]} (widths, experts, cache dtype as "
+              f"published)", flush=True)
+        cfg = cfg.replace(n_layers=ZOO_LAYERS[name])
+    return cfg
+
+
+class _TopK:
+    """The router's top-k, recorded or replayed: ``_TopK()`` runs
+    ``moe._top_k`` and keeps each call's experts; ``_TopK(recorded)``
+    returns those experts, call by call, with their gate values read
+    from the probabilities it is given. Replaying one run's experts in
+    another holds the expert choices equal, so the two runs differ only
+    where their inputs do."""
+
+    def __init__(self, recorded=None):
+        from repro_torch.models import moe as moe_mod
+
+        self.top_k = moe_mod._top_k
+        self.replay = recorded
+        self.experts = []
+
+    def __call__(self, probs, k):
+        if self.replay is None:
+            vals, idx = self.top_k(probs, k)
+            self.experts.append(idx)
+            return vals, idx
+        idx = self.replay[len(self.experts)]
+        self.experts.append(idx)
+        return probs.gather(-1, idx), idx
+
+
+def _cache_bytes(cache) -> dict:
+    """Bytes of a model cache's tensors by leaf name (k, v, k_scale, ...)."""
+    out = {}
+    for part in ("units", "rem"):
+        for block in cache.get(part, {}).values():
+            for key, t in block.items():
+                out[key] = out.get(key, 0) + t.numel() * t.element_size()
+    return out
+
+
+def _kv_step(cache) -> float:
+    """The int8 cache's largest half step over its rows' RMS: max over
+    written (batch, slot) rows of ``scale / 2 / rms(row)``, the scale
+    ``amax / 127``; unwritten rows (all zero) are skipped."""
+    worst = 0.0
+    for part in ("units", "rem"):
+        for block in cache.get(part, {}).values():
+            for key in ("k", "v"):
+                q, scale = block[key].float(), block[f"{key}_scale"]
+                rms = (q * scale[..., None]).square().mean(-1).sqrt()
+                live = rms > 0
+                worst = max(worst, float((scale[live] / 2
+                                          / rms[live]).max()))
+    return worst
+
+
+def _moe_loads(routes, n_experts: int) -> dict:
+    """Per MoE layer of one prefill: tokens each expert took (kept
+    choices) and the share of choices dropped at capacity."""
+    loads, dropped = [], []
+    for idx, keep in routes:
+        loads.append(torch.bincount(idx[keep], minlength=n_experts).tolist())
+        dropped.append(float((~keep).float().mean()))
+    return {"loads": loads, "dropped": dropped}
+
+
+def phase_serve_zoo():
+    import gc
+
+    from repro_torch.configs import ATTN
+    from repro_torch.kernels.attention import kernel as k4
+    from repro_torch.launch.serve import frontend_embeds
+    from repro_torch.models import lm
+
+    t0 = time.time()
+    gc.collect()                  # the earlier phases' tensors, cached
+    torch.cuda.empty_cache()
+    kernels = {"k4": k4, "k4_tc": _CountOf(k4)}
+    results = {}
+    for i, name in enumerate(ZOO):
+        t1 = time.time()
+        cfg = _zoo_cfg(name)
+        n_attn = sum(s.kind == ATTN for s in
+                     cfg.pattern * cfg.n_units + cfg.remainder_pattern)
+        seq = cfg.n_frontend_tokens + SERVE_PROMPT
+        window = cfg.pattern[0].window
+        k4_shape = (SERVE_BATCH, seq, seq, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.d_head)
+        # K4 alone at this config's prefill shape (its first layer's
+        # window): held to its plain version, timed beside it and SDPA
+        err, ms, plain_ms, library_ms, bound, by, _ = _k4_timed(
+            k4_shape, window, 20 + i)
+
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = lm.init_params(cfg, gen)
+        extra = frontend_embeds(cfg, SERVE_BATCH, gen)
+        prompts = torch.randint(
+            0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(1))
+        # (b)'s yardstick first: the same prefill with the plain attention
+        want = _serve_steps(cfg.replace(attn_impl="reference"), params,
+                            prompts, kernels, feed=[], extra=extra,
+                            n_new=ZOO_NEW)["steps"][0]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        routes = [] if cfg.moe is not None else None
+        experts = _TopK() if cfg.kv_cache_dtype == "int8" else None
+        run = _serve_steps(cfg, params, prompts, kernels, extra=extra,
+                           n_new=ZOO_NEW, routes=routes, top_k=experts)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # (a) K4 in every attention layer of the prefill, on the tensor
+        # cores, never in decode
+        if (run["n_pre"], run["n_dec"]) != (
+                {"k4": n_attn, "k4_tc": n_attn}, {"k4": 0, "k4_tc": 0}):
+            raise SystemExit(f"{name}: K4 launches prefill {run['n_pre']}, "
+                             f"decode {run['n_dec']}; want {n_attn} on the "
+                             f"tensor cores and none")
+        # (b) the kernel path's prefill logits against the plain path's
+        rel = float((run["steps"][0] - want).abs().max()
+                    / want.abs().max())
+        if not rel <= ZOO_LOGIT_RTOL:
+            raise SystemExit(f"{name}: prefill logits {rel} (relative) from "
+                             f"the plain attention's (> {ZOO_LOGIT_RTOL})")
+        # (c) finite logits, (batch, ZOO_NEW) tokens
+        generated = torch.cat(run["toks"], dim=1)
+        if not all(bool(torch.isfinite(x).all()) for x in run["steps"]):
+            raise SystemExit(f"{name}: non-finite logits")
+        if tuple(generated.shape) != (SERVE_BATCH, ZOO_NEW):
+            raise SystemExit(f"{name}: tokens {tuple(generated.shape)}")
+        held = {}
+        if routes is not None:
+            stats = _moe_loads(routes, cfg.moe.n_experts)
+            for layer, (loads, drop) in enumerate(zip(stats["loads"],
+                                                      stats["dropped"])):
+                print(f"  {name} MoE layer {layer}: expert loads (tokens "
+                      f"kept) min {min(loads)} max {max(loads)} of "
+                      f"{sum(loads)}; dropped {drop:.6f} of the choices; "
+                      f"loads {loads}", flush=True)
+            held["moe_dropped"] = f"{max(stats['dropped']):.6f}"
+        if cfg.kv_cache_dtype == "int8":
+            held.update(_hold_int8_cache(cfg, params, prompts, extra,
+                                         kernels, run, n_attn, experts))
+        results[name] = {"k4": run["n_pre"]["k4"],
+                         "k4_tc": run["n_pre"]["k4_tc"], "k4_err": err,
+                         "k4_ms": ms, "k4_plain_ms": plain_ms,
+                         "k4_library_ms": library_ms, "k4_bound_ms": bound,
+                         "k4_bound_by": by}
+        n_dec = ZOO_NEW - 1
+        _line(f"serve_zoo:{name}", time.time() - t1, layers=cfg.n_layers,
+              batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+              frontend=cfg.n_frontend_tokens, new=ZOO_NEW,
+              k4_prefill=run["n_pre"]["k4"],
+              k4_tc_prefill=run["n_pre"]["k4_tc"],
+              k4_decode=run["n_dec"]["k4"],
+              prefill_ms=f"{run['prefill_ms']:.3f}",
+              decode_ms=f"{run['decode_ms']:.3f}",
+              decode_ms_step=f"{run['decode_ms'] / n_dec:.3f}",
+              peak_gb=f"{peak_gb:.3f}", k4_shape=list(k4_shape),
+              window=window, k4_ms=f"{ms:.5f}", k4_plain_ms=f"{plain_ms:.4f}",
+              k4_library_ms=f"{library_ms:.5f}", k4_bound_ms=f"{bound:.5f}",
+              k4_err=f"{err:.3g}", prefill_rel_err=f"{rel:.4g}", **held,
+              tokens=generated[0, :8].tolist())
+        del params, extra, prompts, want, run, routes
+        gc.collect()
+        torch.cuda.empty_cache()
+    _line("serve_zoo", time.time() - t0, configs=len(results))
+    return results
+
+
+def _hold_int8_cache(cfg, params, prompts, extra, kernels, run,
+                     n_attn: int, experts) -> dict:
+    """(d) the int8 cache's bytes: half the bf16 cache's, plus the
+    scales; (e) its decode logits against the same decode (the same
+    tokens fed) with a bf16 cache, within ``ZOO_KV_FACTOR`` times the
+    attention layers times the cache's largest half step (``_kv_step``),
+    in RMS over the logits' RMS. ``experts`` recorded the int8 run's
+    expert choices: the bf16 run replays them (``_TopK``), so the two
+    decodes differ by the cache alone; the same bf16 decode with its own
+    choices is printed beside it with the tokens whose experts moved."""
+    bf16_cfg = cfg.replace(kv_cache_dtype="bfloat16")
+    free = _TopK()
+    own = _serve_steps(bf16_cfg, params, prompts, kernels,
+                       feed=run["toks"][:-1], extra=extra, n_new=ZOO_NEW,
+                       top_k=free)
+    bf16 = _serve_steps(bf16_cfg, params, prompts, kernels,
+                        feed=run["toks"][:-1], extra=extra, n_new=ZOO_NEW,
+                        top_k=_TopK(experts.experts))
+    b8, b16 = _cache_bytes(run["cache"]), _cache_bytes(bf16["cache"])
+    scales = b8["k_scale"] + b8["v_scale"]
+    if not (b8["k"] + b8["v"] == (b16["k"] + b16["v"]) // 2
+            and sum(b8.values()) == sum(b16.values()) // 2 + scales):
+        raise SystemExit(f"int8 cache {b8} bytes against bf16 {b16}")
+    moved = sum(int((a.sort(-1)[0] != b.sort(-1)[0]).any(-1).sum())
+                for a, b in zip(experts.experts, free.experts))
+    step = _kv_step(run["cache"])
+    bound = ZOO_KV_FACTOR * n_attn * step
+
+    def rel_rms(steps):
+        return [float((a - b).square().mean().sqrt()
+                      / b.square().mean().sqrt())
+                for a, b in zip(run["steps"][1:], steps[1:])]
+
+    errs, errs_own = rel_rms(bf16["steps"]), rel_rms(own["steps"])
+    print(f"  int8 cache: {sum(b8.values())} bytes (scales {scales}) "
+          f"against bf16 {sum(b16.values())}; largest half step "
+          f"{step:.5f} of a row's RMS; decode logits vs the bf16 cache's "
+          f"(RMS over RMS), the same experts {[round(e, 6) for e in errs]}"
+          f", bound {bound:.5f}; with the bf16 run's own experts "
+          f"{[round(e, 6) for e in errs_own]}, {moved} token-layer "
+          f"choices moved", flush=True)
+    if not max(errs) <= bound:
+        raise SystemExit(f"int8 cache decode {max(errs)} from the bf16 "
+                         f"cache's (> {bound})")
+    return {"int8_cache_bytes": sum(b8.values()),
+            "bf16_cache_bytes": sum(b16.values()),
+            "int8_decode_rel_rms": f"{max(errs):.5g}",
+            "int8_bound": f"{bound:.5g}",
+            "int8_own_experts_rel_rms": f"{max(errs_own):.5g}",
+            "experts_moved": moved}
 
 
 def _train_kernels() -> dict:
@@ -5030,14 +5361,16 @@ def main() -> int:
     mamba = phase_serve_mamba2()
     launches["ssd_scan"] = mamba["k5"]
     rg = phase_serve_recurrentgemma()
+    zoo = phase_serve_zoo()
     trained = phase_train()
     train_counts, bwd = trained["olmo-1b-train"], trained["bwd"]
     by_path["olmo-1b-train"] = {"k1": train_counts["k1"],
                                 "k2": train_counts["k2"],
                                 "phase": train_counts["phase"]}
-    # K4 runs on three paths: olmo-1b's and recurrentgemma-2b's prefill,
-    # there on the tensor-core kernel alone, and olmo-1b's train steps
+    # K4 runs on the prefill of every served config but mamba2-780m, on
+    # the tensor-core kernel alone, and on olmo-1b's train steps
     launches["flash_attention"] = (olmo["k4"] + rg["k4"]
+                                   + sum(z["k4"] for z in zoo.values())
                                    + train_counts["k4"])
     launches["rglru_scan"] = rg["k6"]
     phase_entry.update(wide_hold.finish())
@@ -5060,11 +5393,20 @@ def main() -> int:
                                          "cosim-accuracy": cosim[name]}
         if entry["name"] == "flash_attention":
             entry["launches_tc"] = (olmo["k4_tc"] + rg["k4_tc"]
+                                    + sum(z["k4_tc"] for z in zoo.values())
                                     + train_counts["k4_tc"])
             entry["launches_by_path"] = {
                 "olmo-1b": olmo["k4"], "recurrentgemma-2b": rg["k4"],
+                **{name: z["k4"] for name, z in zoo.items()},
                 "olmo-1b-train": train_counts["k4"],
                 "train-backward-check": bwd["launches"]["k4"]}
+            # K4 alone at each zoo config's prefill shape
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by"):
+                entry[f"{key}_by_path"] = {name: z[f"k4_{key}"]
+                                           for name, z in zoo.items()}
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       *(z["k4_err"] for z in zoo.values()))
             entry["backward_ms"] = {
                 "olmo-1b-s512": bwd["k4_olmo-1b"][1],
                 "recurrentgemma-2b-s512": bwd["k4_recurrentgemma-2b"][1]}

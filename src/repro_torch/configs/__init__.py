@@ -2,8 +2,7 @@
 
 ``get_config(name)`` returns the full-size config; ``get_config(name,
 smoke=True)`` the reduced same-family config for CPU tests. Only the
-architectures whose blocks the port runs are registered (olmo-1b,
-mamba2-780m, recurrentgemma-2b).
+ten architectures of the reference package are registered.
 """
 from __future__ import annotations
 
@@ -34,8 +33,15 @@ def register(fn):
 def _load_all():
     # import side-effect registers each arch
     from repro_torch.configs import (  # noqa: F401
+        arctic_480b,
+        gemma3_12b,
+        llama3_8b,
         mamba2_780m,
+        mixtral_8x22b,
+        musicgen_large,
         olmo_1b,
+        pixtral_12b,
+        qwen3_14b,
         recurrentgemma_2b,
     )
 

@@ -4,6 +4,9 @@
     python -m repro_torch.launch.serve --device cpu              # plain path
     python -m repro_torch.launch.serve --full --prompt-len 2048  # full width
     python -m repro_torch.launch.serve --log-jsonl events.jsonl  # + JSONL
+    python -m repro_torch.launch.serve --arch mixtral-8x22b --device cpu
+
+``--arch`` takes every registered config (``configs.list_architectures``).
 
 The counterpart of the reference package's ``launch/serve.py``: random
 parameters and prompts, a prefill that fills the KV caches, then one
@@ -12,6 +15,15 @@ token at a time. Parameters come from a ``torch.Generator`` seeded with
 seeds its ``jax.random`` keys; the two frameworks draw different bits
 from the same seed, so the tokens differ from the reference's (the tests
 carry the reference's weights across instead, ``models/convert.py``).
+A config with a frontend (pixtral-12b's vision stub, musicgen-large's
+audio stub) gets random frontend embeddings, as the reference draws
+them, put before the prompt.
+
+The reference sizes the cache as ``prompt_len + max_new_tokens + 8``
+and leaves out the frontend tokens that the prefill puts before the
+prompt, so a frontend model's cache has fewer slots than the prefill
+has tokens (ROADMAP caveat C9); the port counts them
+(:func:`cache_len`).
 """
 from __future__ import annotations
 
@@ -22,15 +34,33 @@ import numpy as np
 import torch
 
 from repro_torch._device import DEFAULT_DEVICE, resolve_device
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_architectures
 from repro_torch.dist import stepfns
 from repro_torch.models import lm
+from repro_torch.models.layers import torch_dtype
 from repro_torch.obs import EventLog
 
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def cache_len(cfg, prompt_len: int, max_new_tokens: int) -> int:
+    """Positions of the serving cache: the frontend tokens, the prompt,
+    the new tokens and 8 spare."""
+    return cfg.n_frontend_tokens + prompt_len + max_new_tokens + 8
+
+
+def frontend_embeds(cfg, batch: int, generator: torch.Generator):
+    """The stub frontend's embeddings ``(batch, n_frontend_tokens,
+    d_model)`` in ``cfg.dtype``, standard normal from ``generator`` (on
+    its device); None for a config without a frontend."""
+    if not cfg.frontend:
+        return None
+    return torch.randn((batch, cfg.n_frontend_tokens, cfg.d_model),
+                       generator=generator, device=generator.device,
+                       dtype=torch_dtype(cfg.dtype))
 
 
 def serve(
@@ -48,8 +78,9 @@ def serve(
     ``(batch, max_new_tokens)`` int64 and prints one echo line.
 
     Greedy (``argmax``) at ``temperature == 0``, else sampled from the
-    tempered softmax with the parameter generator. The cache holds
-    ``prompt_len + max_new_tokens + 8`` positions. The echo line is the
+    tempered softmax with the parameter generator, which also draws a
+    frontend's embeddings after the parameters. The cache holds
+    :func:`cache_len` positions. The echo line is the
     console view of one ``serve`` event (``obs.EventLog``), which
     ``log_jsonl`` also appends to that file as a JSON line. The times are
     taken after the device has finished the work.
@@ -66,7 +97,9 @@ def serve(
             0, cfg.vocab_size, (batch, prompt_len),
             generator=torch.Generator(device=dev).manual_seed(seed + 1),
             device=dev)
-        cache = lm.init_cache(cfg, batch, prompt_len + max_new_tokens + 8,
+        extra = frontend_embeds(cfg, batch, gen)
+        cache = lm.init_cache(cfg, batch,
+                              cache_len(cfg, prompt_len, max_new_tokens),
                               device=dev)
 
         def pick(logits):
@@ -77,7 +110,7 @@ def serve(
 
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = prefill_step(params, prompts, cache)
+        logits, cache = prefill_step(params, prompts, cache, extra)
         tok = torch.argmax(logits[:, -1:], dim=-1)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
@@ -107,7 +140,9 @@ def serve(
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--arch", default="olmo-1b",
+                    help="a registered config: "
+                         + ", ".join(list_architectures()))
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new-tokens", type=int, default=16)

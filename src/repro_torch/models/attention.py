@@ -18,7 +18,10 @@ Full-sequence attention (training forward, prefill) dispatches on
 * ``"reference"`` goes to the plain ``_sdpa`` with an explicit mask.
 
 Decode (one query against the cache) always runs ``_sdpa``: a plain
-product, as in the reference. The caches are written in place: the
+product, as in the reference. With ``kv_cache_dtype="int8"`` the cache
+holds per-row int8 codes and float32 scales (``_quant_rows``): prefill
+attends over the unquantised k and v and writes the codes, decode
+quantises its new row and dequantises the whole cache before ``_sdpa``. The caches are written in place: the
 tensors of the ``cache`` passed in are updated and returned in a new
 dict, so a caller keeps using the returned cache and drops the old one.
 """
@@ -60,15 +63,41 @@ def attn_init(generator, cfg: ModelConfig, device=None) -> dict:
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, device=None) -> dict:
     """Cache of one attention layer, ``(B, cap, K*Dh)`` in ``cfg.dtype``;
-    a ring buffer of ``cap = min(window, max_len)`` slots if windowed."""
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP Queue 1 item 10)")
+    a ring buffer of ``cap = min(window, max_len)`` slots if windowed.
+
+    With ``kv_cache_dtype="int8"`` the payload is int8 and each
+    (batch, slot) row carries a float32 scale, ``k_scale``/``v_scale``
+    ``(B, cap)``, set to ones as the reference sets them.
+    """
     cap = max_len if spec.window is None else min(spec.window, max_len)
     shape = (batch, cap, cfg.n_kv_heads * cfg.d_head)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.ones((batch, cap), dtype=torch.float32,
+                                      device=device),
+                "v_scale": torch.ones((batch, cap), dtype=torch.float32,
+                                      device=device)}
     dt = torch_dtype(cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _quant_rows(x: torch.Tensor):
+    """x: (B, S, KD) -> (int8 codes, float32 scales (B, S)), symmetric
+    per row: ``scale = amax / 127`` (1 for a zero row), codes rounded
+    half to even and clipped to +-127. The scale is a division, as the
+    reference computes it eagerly."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, 1.0)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequant_rows(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 def _mask_full(seq_q: int, seq_k: int, window: Optional[int],
@@ -150,16 +179,19 @@ def attn_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
     KD = cache["k"].shape[2]
     kf = k.reshape(B, S, KD)
     vf = v.reshape(B, S, KD)
-    if S >= cap:
-        # keep the last `cap` tokens, rolled so slot = position % cap
-        shift = S % cap
-        cache["k"].copy_(torch.roll(kf[:, S - cap:], shifts=shift, dims=1))
-        cache["v"].copy_(torch.roll(vf[:, S - cap:], shifts=shift, dims=1))
-    else:
-        cache["k"][:, :S] = kf
-        cache["v"][:, :S] = vf
-    return out @ params["wo"].to(x.dtype), {"k": cache["k"],
-                                            "v": cache["v"]}
+    parts = [("k", kf), ("v", vf)]
+    if "k_scale" in cache:        # the cache holds int8; attention read kf, vf
+        kq, ks = _quant_rows(kf)
+        vq, vs = _quant_rows(vf)
+        parts = [("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)]
+    for name, t in parts:
+        if S >= cap:
+            # keep the last `cap` tokens, rolled so slot = position % cap
+            cache[name].copy_(torch.roll(t[:, S - cap:], shifts=S % cap,
+                                         dims=1))
+        else:
+            cache[name][:, :S] = t
+    return out @ params["wo"].to(x.dtype), {n: cache[n] for n, _ in parts}
 
 
 def attn_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -175,15 +207,26 @@ def attn_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     cap = cache["k"].shape[1]
     KD = cache["k"].shape[2]
     slot = pos % cap if spec.window is not None else pos
-    cache["k"][:, slot] = k.reshape(B, KD)
-    cache["v"][:, slot] = v.reshape(B, KD)
+    kf, vf = k.reshape(B, KD), v.reshape(B, KD)
+    quant = "k_scale" in cache
+    if quant:
+        kf, ks = _quant_rows(kf)
+        vf, vs = _quant_rows(vf)
+        cache["k_scale"][:, slot] = ks
+        cache["v_scale"][:, slot] = vs
+    cache["k"][:, slot] = kf
+    cache["v"][:, slot] = vf
     if spec.window is not None and pos + 1 >= cap:
         # ring: slots hold tokens (pos-cap, pos]; all valid after wrap-around
         valid = torch.ones(cap, dtype=torch.bool, device=x.device)
     else:
         valid = torch.arange(cap, device=x.device) <= pos
     K, Dh = cfg.n_kv_heads, cfg.d_head
-    out = _sdpa(q, cache["k"].reshape(B, cap, K, Dh),
-                cache["v"].reshape(B, cap, K, Dh), valid)
-    return out @ params["wo"].to(x.dtype), {"k": cache["k"],
-                                            "v": cache["v"]}
+    if quant:      # the whole cache to the compute dtype, as the reference
+        k_read = _dequant_rows(cache["k"], cache["k_scale"], x.dtype)
+        v_read = _dequant_rows(cache["v"], cache["v_scale"], x.dtype)
+    else:
+        k_read, v_read = cache["k"], cache["v"]
+    out = _sdpa(q, k_read.reshape(B, cap, K, Dh),
+                v_read.reshape(B, cap, K, Dh), valid)
+    return out @ params["wo"].to(x.dtype), dict(cache)

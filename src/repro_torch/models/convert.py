@@ -4,7 +4,10 @@
 nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``),
 with the leading ``n_units`` axis on the leaves of ``units``, and returns
 the port's parameter dict with the same keys, shapes and dtypes, so that
-both packages compute the same function in the tests.
+both packages compute the same function in the tests. Every block kind
+is carried: the MoE leaves (``router`` and the stacked ``w_gate``,
+``w_up``, ``w_down``, each under the ``n_units`` axis) too, and
+bfloat16 leaves (arctic-480b's ``param_dtype``) by their bits.
 ``from_reference_train_state`` carries a whole ``TrainState`` (params
 and the optimizer's step and moments) across, so that both packages
 run the same train step from the same state.

@@ -15,9 +15,13 @@ Entry points:
   ``prefill``        — forward over the prompt, filling the KV caches
   ``decode_step``    — one token against the caches
 
-Attention and RG-LRU blocks with a dense MLP and Mamba-2 SSD blocks (no
-FFN) are ported; MoE blocks raise ``NotImplementedError`` (ROADMAP Queue
-1 item 10).
+Every block kind of the reference is ported: attention and RG-LRU
+mixers with a dense MLP, Mamba-2 SSD blocks (no FFN), and attention
+blocks whose FFN is a Mixture-of-Experts (``models/moe.py``), with
+arctic's dense residual MLP beside it. The MoE load-balancing loss
+(``aux``) is summed through the units as the reference carries it
+through its scan: ``forward_train`` returns it beside the logits and
+``loss_fn`` adds it.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch._device import DEFAULT_DEVICE, resolve_device
 from repro_torch.configs.base import ATTN, RGLRU, SSD, LayerSpec, ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.layers import (
@@ -41,18 +46,6 @@ from repro_torch.models.layers import (
     softmax_cross_entropy,
     torch_dtype,
 )
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    kinds = {s.kind for s in cfg.pattern} - {ATTN, RGLRU, SSD}
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(kinds)} are not ported yet "
-            "(ROADMAP Queue 1 item 10)")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP Queue 1 "
-            "item 10)")
 
 
 def _add_abs_pos(x, cfg, positions):
@@ -77,19 +70,43 @@ def _tree_unbind(tree, n: int) -> list:
     return list(torch.unbind(tree))
 
 
-def _tree_stack(trees):
-    """Stack a list of like trees along a new leading axis."""
-    if isinstance(trees[0], dict):
-        return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stack_units(make, like, n: int, device):
+    """``n`` units made by ``make``, stacked along a new leading axis
+    without a second copy: the stacked leaves are allocated first
+    (shapes and dtypes from ``like``, a unit on the meta device), then
+    each unit is made and its leaves copied in. ``make(dest)`` gets the
+    unit's views of the stack and may draw a leaf straight into its view
+    (the MoE experts do, so a unit of them is never whole beside the
+    stack)."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                           device=device)
+
+    def put(dst, src):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k])
+        elif src is not dst:
+            dst.copy_(src)
+
+    out = alloc(like)
+    for u in range(n):
+        dest = _tree_index(out, u)
+        put(dest, make(dest))
+    return out
 
 
 # ---------------------------------------------------------------------------
-# block = mixer (attention, RG-LRU or SSD) + MLP, with pre-norms
+# block = mixer (attention, RG-LRU or SSD) + MLP or MoE, with pre-norms
 # ---------------------------------------------------------------------------
 
 
-def _block_init(generator, cfg: ModelConfig, spec: LayerSpec, device):
+def _block_init(generator, cfg: ModelConfig, spec: LayerSpec, device,
+                dest=None):
+    """A block's parameters; ``dest`` (a like tree of tensors, or None)
+    receives the MoE experts in place (``moe_init``'s ``out``)."""
     p = {"mix_norm": norm_init(cfg, device=device)}
     if spec.kind == SSD:
         p["mixer"] = ssd_mod.ssd_block_init(generator, cfg, device=device)
@@ -98,14 +115,24 @@ def _block_init(generator, cfg: ModelConfig, spec: LayerSpec, device):
                                                 device=device)
     else:
         p["mixer"] = attn_mod.attn_init(generator, cfg, device=device)
-    if spec.kind != SSD and cfg.d_ff > 0:  # mamba2 blocks carry no FFN
+    if spec.kind == SSD:                   # mamba2 blocks carry no FFN
+        return p
+    if cfg.moe is not None and spec.kind == ATTN:
+        p["ffn_norm"] = norm_init(cfg, device=device)
+        p["moe"] = moe_mod.moe_init(generator, cfg, device=device,
+                                    out=None if dest is None
+                                    else dest["moe"])
+        if cfg.moe.dense_residual:         # arctic's dense branch
+            p["mlp"] = mlp_init(generator, cfg, device=device)
+    elif cfg.d_ff > 0:
         p["ffn_norm"] = norm_init(cfg, device=device)
         p["mlp"] = mlp_init(generator, cfg, device=device)
     return p
 
 
 def _block_apply(params, x, cfg, spec, positions, mode, cache, pos):
-    """The block's output; a prefill or decode writes ``cache`` in place."""
+    """(the block's output, its MoE aux loss or None); a prefill or
+    decode writes ``cache`` in place."""
     h = apply_norm(params["mix_norm"], x, cfg)
     if spec.kind == SSD:
         full, fill, step = (ssd_mod.ssd_full, ssd_mod.ssd_prefill,
@@ -123,22 +150,34 @@ def _block_apply(params, x, cfg, spec, positions, mode, cache, pos):
     else:
         mix, _ = step(params["mixer"], h, cfg, spec, pos, cache)
     x = x + mix
-    if "mlp" in params:
+    aux = None
+    if "moe" in params:
+        h2 = apply_norm(params["ffn_norm"], x, cfg)
+        ffn_out, aux = moe_mod.moe_apply(params["moe"], h2, cfg)
+        if "mlp" in params:                # arctic's dense residual
+            ffn_out = ffn_out + mlp_apply(params["mlp"], h2, cfg)
+        x = x + ffn_out
+    elif "mlp" in params:
         h2 = apply_norm(params["ffn_norm"], x, cfg)
         x = x + mlp_apply(params["mlp"], h2, cfg)
-    return x
+    return x, aux
 
 
-def _unit_init(generator, cfg: ModelConfig, pattern, device):
-    return {f"b{i}": _block_init(generator, cfg, spec, device)
+def _unit_init(generator, cfg: ModelConfig, pattern, device, dest=None):
+    return {f"b{i}": _block_init(generator, cfg, spec, device,
+                                 None if dest is None else dest[f"b{i}"])
             for i, spec in enumerate(pattern)}
 
 
 def _unit_apply(params, x, cfg, pattern, positions, mode, cache, pos):
+    """(the unit's output, the sum of its blocks' aux losses or None)."""
+    aux = None
     for i, spec in enumerate(pattern):
-        x = _block_apply(params[f"b{i}"], x, cfg, spec, positions, mode,
-                         cache[f"b{i}"] if cache else None, pos)
-    return x
+        x, a = _block_apply(params[f"b{i}"], x, cfg, spec, positions, mode,
+                            cache[f"b{i}"] if cache else None, pos)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -147,12 +186,14 @@ def _unit_apply(params, x, cfg, pattern, positions, mode, cache, pos):
 
 
 def _init(cfg: ModelConfig, generator, device: torch.device) -> dict:
-    _require_ported(cfg)
     params = {
         "embed": embed_init(generator, cfg.vocab_size, cfg.d_model,
                             cfg.param_dtype, device=device),
-        "units": _tree_stack([_unit_init(generator, cfg, cfg.pattern, device)
-                              for _ in range(cfg.n_units)]),
+        "units": _stack_units(
+            lambda dest: _unit_init(generator, cfg, cfg.pattern, device,
+                                    dest),
+            _unit_init(None, cfg, cfg.pattern, torch.device("meta")),
+            cfg.n_units, device),
         "final_norm": norm_init(cfg, device=device),
     }
     if cfg.n_remainder:
@@ -223,52 +264,60 @@ def _remat_wrap(fn, cfg: ModelConfig):
 def _run_stack(params, cfg, x, positions, mode, cache, pos):
     """Loop over the stacked units, then the remainder unit. On the
     training path (no cache, autograd on) each unit runs under
-    ``_remat_wrap``."""
+    ``_remat_wrap``. Returns (x, cache, aux): aux the float32 sum of
+    the units' MoE aux losses, 0 without MoE."""
     unit_caches = cache["units"] if cache else None
     run = _unit_apply
     if cache is None and torch.is_grad_enabled():
         run = _remat_wrap(_unit_apply, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for u, unit_params in enumerate(_tree_unbind(params["units"],
                                                  cfg.n_units)):
-        x = run(unit_params, x, cfg, cfg.pattern, positions, mode,
-                None if unit_caches is None
-                else _tree_index(unit_caches, u), pos)
+        x, a = run(unit_params, x, cfg, cfg.pattern, positions, mode,
+                   None if unit_caches is None
+                   else _tree_index(unit_caches, u), pos)
+        if a is not None:
+            aux = aux + a
     if cfg.n_remainder:
-        x = _unit_apply(params["rem"], x, cfg, cfg.remainder_pattern,
-                        positions, mode, cache["rem"] if cache else None, pos)
+        x, a = _unit_apply(params["rem"], x, cfg, cfg.remainder_pattern,
+                           positions, mode, cache["rem"] if cache else None,
+                           pos)
+        if a is not None:
+            aux = aux + a
     if cache is None:
-        return x, None
+        return x, None, aux
     # the per-unit caches are views of the stacked tensors, written in place
     new_cache = dict(cache)
     new_cache["pos"] = (positions.shape[-1] if mode == "prefill"
                         else cache["pos"] + 1)
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def forward_train(params, cfg: ModelConfig, tokens, extra_embeds=None):
-    """Full logits ``(B, S, V)`` (no aux loss without MoE).
+    """(full logits ``(B, S, V)``, the MoE aux loss: a 0-d float32
+    tensor, 0 without MoE).
 
     tokens: (B, S_text) int; extra_embeds: (B, n_frontend, D) or None.
     """
-    _require_ported(cfg)
     x = _embed(params, cfg, tokens, extra_embeds)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     x = _add_abs_pos(x, cfg, positions)
-    x, _ = _run_stack(params, cfg, x, positions, "train", None, None)
-    return _logits(params, cfg, x)
+    x, _, aux = _run_stack(params, cfg, x, positions, "train", None, None)
+    return _logits(params, cfg, x), aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
-    """Mean cross-entropy in float32. batch: ``tokens`` (B, S), ``labels``
-    (B, S), optional ``weights`` (B, S) and ``extra_embeds``. The
-    reference adds its MoE aux loss, which is 0 for every ported block."""
+    """Mean cross-entropy in float32 plus the MoE aux loss. batch:
+    ``tokens`` (B, S), ``labels`` (B, S), optional ``weights`` (B, S)
+    and ``extra_embeds``."""
     extra = batch.get("extra_embeds")
-    logits = forward_train(params, cfg, batch["tokens"], extra)
+    logits, aux = forward_train(params, cfg, batch["tokens"], extra)
     n_front = cfg.n_frontend_tokens if extra is not None else 0
-    return softmax_cross_entropy(logits[:, n_front:], batch["labels"],
+    loss = softmax_cross_entropy(logits[:, n_front:], batch["labels"],
                                  batch.get("weights"))
+    return loss + aux
 
 
 # ---------------------------------------------------------------------------
@@ -278,9 +327,14 @@ def loss_fn(params, cfg: ModelConfig, batch):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=DEFAULT_DEVICE) -> dict:
-    """Zeroed caches: ``units`` stacked over ``n_units``, ``rem`` for the
-    remainder layers, ``pos`` (an int) the tokens cached so far."""
-    _require_ported(cfg)
+    """Caches: ``units`` stacked over ``n_units``, ``rem`` for the
+    remainder layers, ``pos`` (an int) the tokens cached so far.
+
+    As in the reference, every stacked leaf is zeros (an int8 cache's
+    scales too, where ``init_layer_cache`` sets ones: the reference
+    builds the stack with ``jnp.zeros`` of each leaf's shape); the
+    remainder unit's caches are ``init_layer_cache``'s own. The two
+    differ only in slots that no decode reads before writing."""
     dev = resolve_device(device)
 
     def block(spec):
@@ -294,9 +348,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     def unit(pattern):
         return {f"b{i}": block(spec) for i, spec in enumerate(pattern)}
 
-    cache = {"units": _tree_stack([unit(cfg.pattern)
-                                   for _ in range(cfg.n_units)]),
-             "pos": 0}
+    def zeros(tree):
+        if isinstance(tree, dict):
+            return {k: zeros(v) for k, v in tree.items()}
+        return tree.new_zeros((cfg.n_units,) + tuple(tree.shape))
+
+    cache = {"units": zeros(unit(cfg.pattern)), "pos": 0}
     if cfg.n_remainder:
         cache["rem"] = unit(cfg.remainder_pattern)
     return cache
@@ -305,24 +362,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def prefill(params, cfg: ModelConfig, tokens, cache, extra_embeds=None):
     """Forward over the prompt, filling caches (in place). Returns
     (logits of the last position ``(B, 1, V)``, cache)."""
-    _require_ported(cfg)
     x = _embed(params, cfg, tokens, extra_embeds)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     x = _add_abs_pos(x, cfg, positions)
-    x, new_cache = _run_stack(params, cfg, x, positions, "prefill", cache,
-                              None)
+    x, new_cache, _ = _run_stack(params, cfg, x, positions, "prefill",
+                                 cache, None)
     return _logits(params, cfg, x[:, -1:]), new_cache
 
 
 def decode_step(params, cfg: ModelConfig, token, cache):
     """token: (B, 1) int. Returns (logits (B, 1, V), cache)."""
-    _require_ported(cfg)
     pos = int(cache["pos"])
     x = _embed(params, cfg, token, None)
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     x = _add_abs_pos(x, cfg, positions)
-    x, new_cache = _run_stack(params, cfg, x, positions, "decode", cache, pos)
+    x, new_cache, _ = _run_stack(params, cfg, x, positions, "decode", cache,
+                                 pos)
     return _logits(params, cfg, x), new_cache

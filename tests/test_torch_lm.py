@@ -82,14 +82,12 @@ def _assert_config_equals_reference(name, smoke):
     return got, want
 
 
-@pytest.mark.parametrize("smoke", [False, True])
-def test_olmo_config_equals_reference(smoke):
-    _assert_config_equals_reference("olmo-1b", smoke)
+ARCHS = ("olmo-1b", "mamba2-780m", "recurrentgemma-2b", "llama3-8b",
+         "qwen3-14b", "gemma3-12b", "mixtral-8x22b", "arctic-480b",
+         "pixtral-12b", "musicgen-large")
 
 
-@pytest.mark.parametrize("smoke", [False, True])
-def test_mamba2_config_equals_reference(smoke):
-    got, want = _assert_config_equals_reference("mamba2-780m", smoke)
+def _check_mamba2(got, want, smoke):
     if smoke:
         assert (got.ssm.d_state, got.ssm.d_head, got.ssm.chunk,
                 got.n_layers) == (16, 16, 8, 2)
@@ -98,9 +96,7 @@ def test_mamba2_config_equals_reference(smoke):
         assert tssd.ssd_dims(got) == jssd.ssd_dims(want) == (3072, 48, 3328)
 
 
-@pytest.mark.parametrize("smoke", [False, True])
-def test_recurrentgemma_config_equals_reference(smoke):
-    got, want = _assert_config_equals_reference("recurrentgemma-2b", smoke)
+def _check_recurrentgemma(got, want, smoke):
     assert [s.kind for s in got.pattern] == [RGLRU, RGLRU, ATTN]
     if smoke:
         assert (got.n_layers, got.n_remainder, got.recurrent.rnn_width,
@@ -111,11 +107,33 @@ def test_recurrentgemma_config_equals_reference(smoke):
                                                            2048)
 
 
+def _check_arctic(got, want, smoke):
+    assert got.moe.dense_residual and got.moe.n_experts == (4 if smoke
+                                                           else 128)
+    # smoke() keeps the bf16 cache; the full config quantises it
+    assert got.kv_cache_dtype == ("bfloat16" if smoke else "int8")
+    assert got.param_dtype == ("float32" if smoke else "bfloat16")
+
+
+CONFIG_CHECKS = {"mamba2-780m": _check_mamba2,
+                 "recurrentgemma-2b": _check_recurrentgemma,
+                 "arctic-480b": _check_arctic}
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("name", ARCHS)
+def test_config_equals_reference(name, smoke):
+    got, want = _assert_config_equals_reference(name, smoke)
+    if name in CONFIG_CHECKS:
+        CONFIG_CHECKS[name](got, want, smoke)
+
+
 def test_registry_and_shapes():
-    assert tcfgs.list_architectures() == ["mamba2_780m", "olmo_1b",
-                                          "recurrentgemma_2b"]
+    assert tcfgs.list_architectures() == jcfgs.list_architectures()
+    assert sorted(tcfgs.list_architectures()) == sorted(
+        a.replace("-", "_") for a in ARCHS)
     with pytest.raises(KeyError, match="port has"):
-        tcfgs.get_config("llama3-8b")
+        tcfgs.get_config("no-such-arch")
     assert [dataclasses.asdict(s) for s in tcfgs.ALL_SHAPES] == [
         dataclasses.asdict(s) for s in jcfgs.ALL_SHAPES]
     cfg = tcfgs.get_config("olmo-1b")
@@ -277,6 +295,43 @@ def _assert_same_leaves(tree, got):
         assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
+def test_from_reference_params_carries_the_moe_leaves():
+    """arctic's smoke model in bfloat16 (its published ``param_dtype``):
+    the router and the stacked experts under ``units``, the dense
+    residual MLP beside them; and its train state (bf16 moments)."""
+    from repro.dist import stepfns as jstep
+    from repro.optim import optimizers as jopt
+    from repro_torch.models.convert import from_reference_train_state
+
+    jcfg = jcfgs.get_config("arctic-480b", smoke=True).replace(
+        param_dtype="bfloat16", opt_state_dtype="bfloat16")
+    tree = _np_tree(jlm.init_params(jax.random.PRNGKey(0), jcfg))
+    got = from_reference_params(tree, _torch_cfg(jcfg), device="cpu")
+    b0 = got["units"]["b0"]
+    assert set(b0) == {"mix_norm", "mixer", "ffn_norm", "moe", "mlp"}
+    assert b0["moe"]["w_gate"].shape == (jcfg.n_units, 4, 64, 64)
+    assert b0["moe"]["router"].dtype == torch.bfloat16
+
+    def bits(t):          # a leaf's bits: bfloat16 as int16 on both sides
+        if isinstance(t, torch.Tensor):
+            return t.view(torch.int16).numpy()
+        return np.asarray(t).view(np.int16)
+
+    _assert_same_leaves(jax.tree.map(bits, tree),
+                        jax.tree.map(lambda t: torch.from_numpy(bits(t)),
+                                     got))
+    state = jax.tree.map(np.asarray, jstep.init_train_state(
+        jax.random.PRNGKey(1), jcfg,
+        jopt.OptimizerConfig(state_dtype="bfloat16")))
+    tstate = from_reference_train_state(state, _torch_cfg(jcfg), "cpu")
+    mu = tstate.opt.mu["units"]["b0"]["moe"]["w_down"]
+    assert mu.dtype == torch.bfloat16 and mu.shape == (jcfg.n_units, 4, 64,
+                                                       64)
+    assert np.array_equal(
+        bits(tstate.params["units"]["b0"]["moe"]["w_up"]),
+        bits(state.params["units"]["b0"]["moe"]["w_up"]))
+
+
 def test_from_reference_params_rejects_a_wrong_tree():
     jcfg = jcfgs.get_config("olmo-1b", smoke=True)
     tree = _np_tree(jlm.init_params(jax.random.PRNGKey(0), jcfg))
@@ -311,18 +366,22 @@ VARIANTS = {
 
 
 def _run_reference(jcfg, tokens, extra=None):
-    """The reference's outputs, greedy tokens included, as numpy."""
+    """The reference's outputs, greedy tokens included, as numpy. With
+    ``extra`` (frontend embeddings) before the prompt, the cache holds
+    their tokens too (the port's ``serve()`` sizing, caveat C9)."""
     params = jlm.init_params(jax.random.PRNGKey(0), jcfg)
-    train = jax.jit(lambda p, t, e: jlm.forward_train(p, jcfg, t, e)[0])
-    logits_train = train(params, tokens, extra)
-    max_len = tokens.shape[1] + N_DECODE + 8
+    train = jax.jit(lambda p, t, e: jlm.forward_train(p, jcfg, t, e))
+    logits_train, aux = train(params, tokens, extra)
+    n_front = 0 if extra is None else extra.shape[1]
+    max_len = n_front + tokens.shape[1] + N_DECODE + 8
     cache = jlm.init_cache(jcfg, tokens.shape[0], max_len)
-    pre = jax.jit(lambda p, t, c: jlm.prefill(p, jcfg, t, c))
+    pre = jax.jit(lambda p, t, c, e: jlm.prefill(p, jcfg, t, c, e))
     dec = jax.jit(lambda p, t, c: jlm.decode_step(p, jcfg, t, c))
-    logits, cache = pre(params, tokens, cache)
+    logits, cache = pre(params, tokens, cache, extra)
     out = {"params": _np_tree(params), "train": np.asarray(logits_train),
-           "prefill": np.asarray(logits), "cache": _np_tree(cache),
-           "max_len": max_len, "tokens": [], "decode": []}
+           "aux": float(aux), "prefill": np.asarray(logits),
+           "cache": _np_tree(cache), "max_len": max_len, "tokens": [],
+           "decode": []}
     tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
     for _ in range(N_DECODE):
         out["tokens"].append(np.array(tok))
@@ -334,8 +393,10 @@ def _run_reference(jcfg, tokens, extra=None):
 
 
 def _assert_cache(got, want):
-    """Every tensor of every block's cache (k/v, or the SSD or RG-LRU
-    h/conv), the stacked units' and the remainder unit's."""
+    """Every tensor of every block's cache (k/v and an int8 cache's
+    scales, or the SSD or RG-LRU h/conv), the stacked units' and the
+    remainder unit's, in the reference's dtype. int8 codes may differ by
+    1 where float32 noise moves a value across a rounding edge."""
     assert set(got) == set(want)
     for part in ("units", "rem"):
         if part not in want:
@@ -344,23 +405,34 @@ def _assert_cache(got, want):
         for block, tensors in want[part].items():
             assert set(got[part][block]) == set(tensors)
             for key, value in tensors.items():
-                np.testing.assert_allclose(got[part][block][key].numpy(),
-                                           value, **TOL)
+                g = got[part][block][key].numpy()
+                assert g.dtype == value.dtype, (block, key)
+                if value.dtype == np.int8:
+                    diff = np.abs(g.astype(np.int32) - value)
+                    assert diff.max() <= 1, (block, key)
+                else:
+                    np.testing.assert_allclose(g, value, **TOL)
     assert got["pos"] == int(want["pos"])
 
 
-def _assert_model_matches_reference(jcfg, tokens):
-    """forward_train, prefill (logits and caches) and teacher-forced
-    decode steps equal the reference's; returns the port's cache."""
-    want = _run_reference(jcfg, jnp.asarray(tokens))
+def _assert_model_matches_reference(jcfg, tokens, extra=None):
+    """forward_train (logits and MoE aux loss), prefill (logits and
+    caches) and teacher-forced decode steps equal the reference's, with
+    ``extra`` (numpy frontend embeddings or None) before the prompt;
+    returns the port's cache."""
+    want = _run_reference(jcfg, jnp.asarray(tokens),
+                          None if extra is None else jnp.asarray(extra))
     cfg = _torch_cfg(jcfg)
     params = from_reference_params(want["params"], cfg, device="cpu")
     tt = torch.as_tensor(tokens)
+    te = None if extra is None else torch.as_tensor(extra)
     with torch.inference_mode():
-        np.testing.assert_allclose(
-            tlm.forward_train(params, cfg, tt).numpy(), want["train"], **TOL)
+        logits, aux = tlm.forward_train(params, cfg, tt, te)
+        np.testing.assert_allclose(logits.numpy(), want["train"], **TOL)
+        np.testing.assert_allclose(float(aux), want["aux"], **TOL)
+        assert cfg.moe is not None or float(aux) == 0.0
         cache = tlm.init_cache(cfg, BATCH, want["max_len"], device="cpu")
-        logits, cache = tlm.prefill(params, cfg, tt, cache)
+        logits, cache = tlm.prefill(params, cfg, tt, cache, te)
         np.testing.assert_allclose(logits.numpy(), want["prefill"], **TOL)
         _assert_cache(cache, want["cache"])
         for tok, want_logits in zip(want["tokens"], want["decode"]):
@@ -448,7 +520,8 @@ def test_feature_variant_matches_reference():
     assert set(params) == {"embed", "units", "final_norm", "rem", "lm_head"}
     with torch.inference_mode():
         np.testing.assert_allclose(
-            tlm.forward_train(params, cfg, torch.as_tensor(tokens)).numpy(),
+            tlm.forward_train(params, cfg,
+                              torch.as_tensor(tokens))[0].numpy(),
             want["train"], **TOL)
         cache = tlm.init_cache(cfg, BATCH, want["max_len"], device="cpu")
         logits, cache = tlm.prefill(params, cfg, torch.as_tensor(tokens),
@@ -466,32 +539,51 @@ def test_feature_variant_matches_reference():
         want_x = jlm.forward_train(jparams, jcfg, jnp.asarray(tokens),
                                    jnp.asarray(extra))[0]
         got_x = tlm.forward_train(params, cfg, torch.as_tensor(tokens),
-                                  torch.as_tensor(extra))
+                                  torch.as_tensor(extra))[0]
     np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), **TOL)
 
 
-MOE = MoEConfig(n_experts=4, top_k=2, d_ff_expert=64)
+def _olmo_with(pattern=None, moe=True, **kw):
+    """olmo-1b's smoke config with ``pattern``, mixtral's smoke MoE and
+    the SSD and RG-LRU sub-configs of mamba2's and recurrentgemma's
+    smoke configs (the blocks of ``pattern`` read them)."""
+    jcfg = jcfgs.get_config("olmo-1b", smoke=True)
+    if pattern is not None:
+        kw["pattern"] = tuple(jcfgs.LayerSpec(k) for k in pattern)
+        kw["ssm"] = jcfgs.get_config("mamba2-780m", smoke=True).ssm
+        kw["recurrent"] = jcfgs.get_config("recurrentgemma-2b",
+                                           smoke=True).recurrent
+    if moe:
+        kw["moe"] = jcfgs.MoEConfig(n_experts=4, top_k=2, d_ff_expert=64)
+    return jcfg.replace(**kw)
 
 
-@pytest.mark.parametrize("pattern,moe", [
-    ((LayerSpec(RGLRU),), MOE),
-    ((LayerSpec(SSD), LayerSpec(RGLRU)), MOE),
-    ((LayerSpec(ATTN),), MOE),
-])
-def test_unported_blocks_raise(pattern, moe):
-    cfg = tcfgs.get_config("olmo-1b", smoke=True).replace(pattern=pattern,
-                                                          moe=moe)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.init_cache(cfg, 1, 8, device="cpu")
+# configurations the port once refused (MoE beside other block kinds,
+# where the reference gives MoE to attention blocks only; the int8 cache)
+MIXED = {
+    "rglru_moe": lambda: _olmo_with((RGLRU,)),
+    "ssd_rglru_moe": lambda: _olmo_with((SSD, RGLRU)),
+    "attn_moe": lambda: _olmo_with((ATTN,)),
+    "int8_cache": lambda: _olmo_with(moe=False, kv_cache_dtype="int8"),
+}
 
 
-def test_int8_cache_raises():
-    cfg = tcfgs.get_config("olmo-1b", smoke=True).replace(
-        kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        tattn.init_layer_cache(cfg, cfg.pattern[0], 1, 8, device="cpu")
+@pytest.mark.parametrize("variant", list(MIXED))
+def test_mixed_blocks_and_int8_cache_match_reference(variant):
+    jcfg = MIXED[variant]()
+    tokens = np.random.default_rng(11).integers(
+        0, jcfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    cache = _assert_model_matches_reference(jcfg, tokens)
+    blocks = cache["units"]
+    if variant == "int8_cache":
+        assert blocks["b0"]["k"].dtype == torch.int8
+        assert set(blocks["b0"]) == {"k", "v", "k_scale", "v_scale"}
+    params = tlm.init_params(_torch_cfg(jcfg), device="cpu")
+    kinds = {k: set(v) for k, v in params["units"].items()}
+    if variant == "attn_moe":
+        assert kinds["b0"] == {"mix_norm", "mixer", "ffn_norm", "moe"}
+    elif variant != "int8_cache":            # no MoE outside attention
+        assert all("moe" not in v for v in kinds.values())
 
 
 def test_unknown_attn_impl_raises():

@@ -196,3 +196,92 @@ def test_serve_defaults_to_cuda():
         serve_mod.serve(arch="mamba2-780m")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_mod.serve(arch="recurrentgemma-2b")
+
+
+# ---------------------------------------------------------------------------
+# caveat C9: the serving cache and the frontend tokens
+# ---------------------------------------------------------------------------
+
+
+def test_reference_cache_sizing_drops_the_frontend_tokens():
+    """Pins the reference's behaviour (``repro/launch/serve.py``): it
+    sizes the cache as ``prompt_len + max_new_tokens + 8`` and leaves out
+    the frontend tokens that prefill puts before the prompt. With 24 of
+    them, 8 prompt tokens and 4 new ones the cache has 20 slots for 32
+    prefill tokens: prefill keeps the last 20 even with no window, and
+    each decode writes the clamped last slot. The prefill logits equal
+    those at a cache sized with the frontend tokens; the decode logits
+    do not, from the first step on."""
+    jcfg = jcfgs.get_config("musicgen-large", smoke=True).replace(
+        n_frontend_tokens=24)
+    params = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.default_rng(0)
+    prompts = jnp.asarray(rng.integers(0, jcfg.vocab_size, (2, 8)), jnp.int32)
+    extra = jnp.asarray(rng.standard_normal((2, 24, jcfg.d_model),
+                                            np.float32))
+    pre = jax.jit(jstepfns.make_prefill_step(jcfg))
+    dec = jax.jit(jstepfns.make_decode_step(jcfg))
+    runs = {}
+    for what, max_len in (("serve.py", 8 + 4 + 8), ("sized", 24 + 8 + 4 + 8)):
+        logits, cache = pre(params, prompts, jlm.init_cache(jcfg, 2, max_len),
+                            extra)
+        steps = [np.asarray(logits)]
+        tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+        for _ in range(3):
+            logits, cache = dec(params, tok, cache)
+            steps.append(np.asarray(logits))
+            tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+        runs[what] = steps
+    short, sized = runs["serve.py"], runs["sized"]
+    np.testing.assert_allclose(short[0], sized[0], **TOL)
+    for a, b in zip(short[1:], sized[1:]):
+        assert float(np.abs(a - b).max()) > 0.01
+
+
+@pytest.mark.parametrize("arch", ["pixtral-12b", "musicgen-large",
+                                  "olmo-1b"])
+def test_serve_sizes_the_cache_with_the_frontend_tokens(arch, monkeypatch):
+    seen = []
+    init_cache = lm.init_cache
+
+    def spy(cfg, batch, max_len, device):
+        seen.append(max_len)
+        return init_cache(cfg, batch, max_len, device=device)
+
+    monkeypatch.setattr(serve_mod.lm, "init_cache", spy)
+    out = serve_mod.serve(arch=arch, batch=2, prompt_len=6, max_new_tokens=3,
+                          device="cpu")
+    cfg = get_config(arch, smoke=True)
+    assert seen == [cfg.n_frontend_tokens + 6 + 3 + 8]
+    assert serve_mod.cache_len(cfg, 6, 3) == seen[0]
+    assert out.shape == (2, 3)
+    assert (cfg.n_frontend_tokens > 0) == (arch != "olmo-1b")
+
+
+@pytest.mark.parametrize("arch", ["pixtral-12b", "musicgen-large"])
+def test_frontend_serve_equals_the_step_functions(arch):
+    """The frontend embeddings come from the parameter generator after
+    the parameters, in the compute dtype, before the prompt."""
+    out = serve_mod.serve(arch=arch, batch=2, prompt_len=5,
+                          max_new_tokens=4, seed=3, device="cpu")
+    cfg = get_config(arch, smoke=True)
+    gen = torch.Generator().manual_seed(3)
+    params = lm.init_params(cfg, gen, "cpu")
+    extra = serve_mod.frontend_embeds(cfg, 2, gen)
+    assert extra.shape == (2, cfg.n_frontend_tokens, cfg.d_model)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 5),
+                            generator=torch.Generator().manual_seed(4))
+    cache = lm.init_cache(cfg, 2, serve_mod.cache_len(cfg, 5, 4),
+                          device="cpu")
+    with torch.inference_mode():
+        logits, cache = stepfns.make_prefill_step(cfg)(params, prompts, cache,
+                                                       extra)
+        toks = [logits[:, -1:].argmax(-1)]
+        for _ in range(3):
+            logits, cache = stepfns.make_decode_step(cfg)(params, toks[-1],
+                                                          cache)
+            toks.append(logits[:, -1:].argmax(-1))
+    assert cache["pos"] == cfg.n_frontend_tokens + 5 + 3
+    assert np.array_equal(out, torch.cat(toks, dim=1).numpy())
+    assert serve_mod.frontend_embeds(get_config("olmo-1b", smoke=True), 2,
+                                     gen) is None
