@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-The port has fourteen paths, each driven through its user entry point with
-the kernel counts set to 0 just before and read just after (the
-fourteenth, the model zoo's serving, once a config):
+The port has sixteen paths, each driven through its user entry point with
+the kernel counts set to 0 just before and read just after (the model
+zoo's serving once a config):
 
 * the Fig. 2b round engine (``repro_torch.net.simulate``), through K1
   (traffic sampler) and K2 (waterfill grant);
@@ -48,7 +48,14 @@ fourteenth, the model zoo's serving, once a config):
   llama3-8b, qwen3-14b, gemma3-12b, mixtral-8x22b and arctic-480b
   (Mixture-of-Experts; arctic with its int8 KV cache), pixtral-12b and
   musicgen-large (stub frontends), through K4 in every attention layer
-  of the prefill.
+  of the prefill;
+* olmo-1b federated training on two pods (``repro_torch.launch.train``
+  where it sees two devices: each pod's AdamW steps, an int8 FedAvg
+  round a round), through K4 in every pod's step and K3 and K3' on
+  every stacked leaf of every round;
+* its coupled FedBuff branch (a deadline, fault injection and a
+  quorum: each round's arrivals, staleness, drops and retries from the
+  timeline drive the async round step), through the same kernels.
 
 Phases, each printing its own line with its seconds; any failure exits
 nonzero:
@@ -332,19 +339,46 @@ nonzero:
    compute: the kernel run's loss, gradient norm and parameter change
    no farther from the float32 run than ``TRAIN_F32_RATIO`` times the
    plain run's plus a floor. (c) K4's autograd Function's forward at
-   the train steps' shapes within ``K4_TOL`` of the plain version; K4's,
+   the train steps' shapes (the one-pod step's, a pod's of the fed step
+   in ``fed_train``, the long step's) within ``K4_TOL`` of the plain
+   version; K4's,
    K5's and K6's Functions at the serving shapes with S cut to
    ``TRAIN_BWD_S``: every input gradient bit for bit autograd of the
    plain version on the same inputs; each backward's ms. (d) 2 layers, 3 rounds x 2 steps with a
    checkpoint a round; only round 2's copied into a fresh directory and
    resumed: the final state (params, moments, step) bit for bit the
-   uninterrupted run's.
+   uninterrupted run's; (c) also times SDPA's forward and backward
+   under autograd on the K4 checks' inputs (a yardstick only);
+12. ``fed_train``: (a) ``train()``'s federated branch (``FED_RUNS``
+   "fed") at olmo-1b's published width cut to ``FED_LAYERS`` of 16
+   layers (memory), ``FED_PODS`` pods on the card (``train()`` sees that
+   many devices through its ``device_count`` seam), batch 8 x 64 (4 a
+   pod), 2 rounds x 4 steps, int8 FedAvg rounds, its ``--log-jsonl``
+   read back: every loss finite, the mesh event's pod axis, each
+   round's sync within ``SYNC_TOL`` of ``FED_SYNC_PINS``, K4 twice a
+   layer a pod a step, all on the tensor-core kernel, K3 and K3' once a
+   stacked leaf a round; a fed step and an int8 round timed, each
+   profiled for its busy share; (b) the coupled FedBuff branch
+   ("fed_async": 2 s deadline, defer, faults of seed 3, quorum 0.5), 3
+   rounds x 2 steps, held the same way; (c) one fed step bit for bit the
+   single-pod step on each pod's slice (deterministic algorithms), the
+   int8 FedAvg round with and without error feedback and the int8
+   FedBuff round bit for bit the same calls through the plain quantiser,
+   and K3/K3' alone at the largest stacked leaf (the embedding, one block
+   a pod) bit for bit their plain versions, timed beside them and the
+   bound; (d) a coupled run of 3 rounds with a checkpoint a round (both
+   pods' train and async states), only round 2's copied into a fresh
+   directory and resumed: the final state bit for bit the uninterrupted
+   run's (1 layer at the published width, for the checkpoints' I/O).
+   Prints the peak memory.
 
 Before the last line it prints one JSON object with each kernel's
 launches on its path (K4's and K5's ``launches_tc`` of them on the
 tensor-core kernels; ``launches_by_path`` for the kernels several paths
 run; K4's, K5's and K6's ``backward_ms``, ``backward_plain_ms`` and
-``backward_bound_ms`` from ``train`` (c)), its error against the plain version, its time, the plain
+``backward_bound_ms`` from ``train`` (c), K4's ``backward_library_ms``;
+K3's and K3''s times at the fed leaf from ``fed_train`` (c)), its error
+against the plain version, its time, the plain
 version's time, a library call's time where one computes the same
 function, and the least time the card could take (``bound_ms``). Every
 time is ``_device_ms``'s: launches queued back to back behind a sleep
@@ -630,6 +664,41 @@ TRAIN_DELTA_FLOOR = 1e-2
 # gradients must equal autograd of the plain version on the same inputs
 # bit for bit: the backward recomputes the same operations
 TRAIN_BWD_S = 512
+
+# fed_train phase. train()'s federated branch at olmo-1b's published
+# width (d_model 2048, 16 heads of 128, d_ff 8192, vocab 50304), float32
+# parameters, bf16 compute, FED_PODS pods on the card (train() sees that
+# many devices through its device_count seam; the reference would give
+# each pod its own), batch 8 x 64 (4 a pod), AdamW under warmup_cosine,
+# BS at load 0.8, int8 rounds. Cut to FED_LAYERS of 16 layers: two pods'
+# (params, mu, nu) take ~28 GB at 16 layers and the async state
+# (global, refs, pending) as much again, past the card's 80 GB with a
+# step's new state beside them. At 4 layers (~0.37 B parameters a pod)
+# an NVIDIA H100 80GB HBM3 (700 W) measured a peak of 44.2 GB in (a)
+# and (b) and 49.3 GB in (c); the deepest depth that fits was not
+# measured. Each run: config_overrides, rounds, train()'s arguments;
+# FED_STEPS steps a round. (a) "fed": int8 FedAvg rounds; (b)
+# "fed_async": the coupled FedBuff rounds (a 2 s deadline, defer, fault
+# seed 3 with dropout 0.4, loss 0.2, outage 0.5, quorum 0.5:
+# tests/test_faults.py's resume shape); (d) "fed_resume": the same at 1
+# layer of the published width, 1 step a round: a checkpoint holds both
+# pods' train and async states (8.2 GB), four are written and one read,
+# which makes (d) the phase's longest part (87 s on that card)
+FED_PODS = 2
+FED_LAYERS = 4
+FED_COUPLED = {"deadline_s": 2.0, "deadline_policy": "defer",
+               "dropout_rate": 0.4, "loss_rate": 0.2, "outage_rate": 0.5,
+               "fault_seed": 3, "quorum": 0.5}
+FED_RUNS = {"fed": ({"n_layers": FED_LAYERS}, 2, {}),
+            "fed_async": ({"n_layers": FED_LAYERS}, 3, FED_COUPLED),
+            "fed_resume": ({"n_layers": 1}, 3, FED_COUPLED)}
+FED_STEPS = {"fed": 4, "fed_async": 2, "fed_resume": 1}
+# each round's sync (s) of those runs' timelines on the JAX package's
+# engine; tests/test_torch_train.py::test_chip_smoke_fed_sync_pins
+# recomputes them
+FED_SYNC_PINS = {"fed": (5.164100000000059, 5.164100000000059),
+                 "fed_async": (4.0, 3.6950999999997043, 0.3241000000000002),
+                 "fed_resume": (4.0, 2.8200999999998007, 0.1491000000000001)}
 
 # K3/K3' grid (shape, block): tests/test_kernels.py's shapes x {64, 256,
 # 4096}, ragged tails, block >= n, blocks past one CTA's 4096-element tile;
@@ -5089,6 +5158,38 @@ def _bwd_check(what, function, plain, ins, grads_out, n_out=1):
     return err, ms, plain_ms, _bwd_bytes_bound(ins, grads_out)
 
 
+def _sdpa_backward_ms(ins, gy, group: int, window):
+    """``scaled_dot_product_attention`` under autograd on the same
+    inputs as a K4 backward check (k/v given to every query head; causal,
+    with a boolean mask where the window cuts), a yardstick only: ms of
+    its forward and backward, the median of 3 after a warm-up."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = (t.detach().transpose(1, 2) for t in ins)
+    if group > 1:
+        k, v = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    q, k, v = (t.contiguous().requires_grad_(True) for t in (q, k, v))
+    S, T = q.shape[2], k.shape[2]
+    kw = {"is_causal": True}
+    if window is not None and window < S:
+        qi = torch.arange(S, device="cuda")[:, None]
+        kj = torch.arange(T, device="cuda")[None, :]
+        kw = {"attn_mask": (kj <= qi) & (qi - kj < window)}
+    g = gy.transpose(1, 2).contiguous()
+
+    def both():
+        return torch.autograd.grad(sdpa(q, k, v, **kw), (q, k, v), g)
+
+    both()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        both()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def _train_backwards() -> dict:
     """(c) at the serving shapes with S cut to ``TRAIN_BWD_S``: returns
     each kernel's Function launches and backward ms."""
@@ -5106,9 +5207,11 @@ def _train_backwards() -> dict:
     k4.launches = k5.launches = k6.launches = 0
     k4.launches_tc = k5.launches_tc = 0
     out = {}
-    # the Function's forward, which the train steps use, at their shapes
+    # the Function's forward, which the train steps use, at their shapes:
+    # the one-pod step's, the fed step's a pod (fed_train) and the long one
     H, K, D = OLMO_PREFILL[3:]
-    for B, T in ((TRAIN_BATCH, TRAIN_SEQ), TRAIN_LONG):
+    for B, T in ((TRAIN_BATCH, TRAIN_SEQ),
+                 (TRAIN_BATCH // FED_PODS, TRAIN_SEQ), TRAIN_LONG):
         q, k, v = (t.requires_grad_(True) for t in
                    _qkv(B, T, T, H, K, D, torch.bfloat16, seed=11))
         before = k4.launches_tc
@@ -5143,6 +5246,7 @@ def _train_backwards() -> dict:
         # backward's dP, dS Q/K and P^T dO products (8 B H D)
         ops_s = 12 * B * H * D * _live_keys(S, S, True, window) / BF16_S
         out[f"k4_{name}"] = (err, ms, plain_ms, max(bytes_ms, ops_s * 1e3))
+        out[f"sdpa_{name}"] = _sdpa_backward_ms(ins, gy, H // K, window)
     B, _, H, P, N, chunk = MAMBA_PREFILL
     (xh, bm, cm, dt, a), _ = _ssd_inputs(B, S, H, P, N, torch.bfloat16,
                                          seed=5)
@@ -5255,6 +5359,8 @@ def phase_train():
 
     # (c) the three backwards at kernel level
     bwd = _train_backwards()
+    checks = {k: v for k, v in bwd.items()
+              if isinstance(v, tuple) and not k.startswith("sdpa_")}
 
     # (d) resume: only round 2's checkpoint into a fresh directory
     with tempfile.TemporaryDirectory() as tmp:
@@ -5298,16 +5404,335 @@ def phase_train():
           k4_fwd_err={k: f"{v:.3g}" for k, v in bwd.items()
                       if k.startswith("k4_fwd")},
           syncs_held="yes", **held,
-          bwd_ms={k: f"{v[1]:.3f}" for k, v in bwd.items()
-                  if isinstance(v, tuple)},
-          bwd_plain_ms={k: f"{v[2]:.3f}" for k, v in bwd.items()
-                        if isinstance(v, tuple)},
-          bwd_bound_ms={k: f"{v[3]:.5f}" for k, v in bwd.items()
-                        if isinstance(v, tuple)},
+          bwd_ms={k: f"{v[1]:.3f}" for k, v in checks.items()},
+          bwd_plain_ms={k: f"{v[2]:.3f}" for k, v in checks.items()},
+          bwd_bound_ms={k: f"{v[3]:.5f}" for k, v in checks.items()},
+          bwd_library_fwd_bwd_ms={k: f"{v:.3f}" for k, v in bwd.items()
+                                  if k.startswith("sdpa_")},
           resume_bitwise="yes", ckpt_gb=f"{ckpt_gb:.3f}",
           resume_full_wall_s=f"{full_wall:.3f}",
           resume_wall_s=f"{resume_wall:.3f}", resume_k4=res_launches["k4"])
     return {"olmo-1b-train": launches, "bwd": bwd}
+
+
+def _fed_kernels() -> dict:
+    """The kernel counts of the federated path: those of the training
+    path, and K3 and K3' in the int8 rounds."""
+    from repro_torch.kernels.quant import kernel as k3
+
+    return {**_train_kernels(), "k3": _CountOf(k3, "quantize_launches"),
+            "k3p": _CountOf(k3, "dequantize_launches")}
+
+
+def _fed_entry(name: str, log_jsonl=None, **kw):
+    """``train()``'s federated branch at olmo-1b's width, reached as a
+    user with ``FED_PODS`` devices reaches it (here through its
+    ``device_count`` seam), with the kernels' counts set to 0 just before
+    and read just after. Returns (state, history, launches, wall s)."""
+    from repro_torch.launch import train as ttrain
+
+    overrides, rounds, extra = FED_RUNS[name]
+    kernels = _fed_kernels()
+    torch.cuda.synchronize()
+    for kernel in kernels.values():
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(ttrain, "device_count", lambda dev: FED_PODS):
+        state, history = ttrain.train(
+            arch="olmo-1b", smoke=False, steps_per_round=FED_STEPS[name],
+            rounds=rounds, n_pods=FED_PODS, global_batch=TRAIN_BATCH,
+            seq_len=TRAIN_SEQ, config_overrides=overrides,
+            log_jsonl=log_jsonl, device="cuda", **extra, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: kernel.launches for k, kernel in kernels.items()}
+    syncs = tuple(h["sync_s"] for h in history)
+    want = FED_SYNC_PINS[name][-len(syncs):] if syncs else ()
+    if len(syncs) != len(want) or any(
+            abs(a - b) > SYNC_TOL for a, b in zip(syncs, want)):
+        raise SystemExit(f"fed_train {name}: round syncs {syncs}, pinned "
+                         f"{want}")
+    return state, history, launches, wall
+
+
+def _bitwise(a, b) -> bool:
+    """Two trees of tensors (dicts, NamedTuples, tuples) equal bit for
+    bit, float32 by their bits."""
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+
+    la, lb = ([t for _, t in _flatten_with_paths(x)] for x in (a, b))
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(bits(x), bits(y)) for x, y in zip(la, lb))
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic algorithms for one hold (cuBLAS needs its
+    workspace setting named; 4096:8 is the H100's default, 32 MiB)."""
+    was = torch.are_deterministic_algorithms_enabled()
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = env or ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+
+
+def _plain_quant():
+    """A patch under which the int8 dispatch takes the plain versions on
+    the card's tensors (a hold's yardstick; no user reaches it)."""
+    from repro_torch.kernels.quant import ops as qops
+    from repro_torch.kernels.quant import ref as qref
+
+    return mock.patch.multiple(
+        qops,
+        quantize_int8=lambda x, block=qref.DEFAULT_BLOCK:
+            qref.quantize_int8_ref(x, block),
+        dequantize_int8=lambda q, s, block=qref.DEFAULT_BLOCK:
+            qref.dequantize_int8_ref(q, s, block))
+
+
+def _fed_holds(cfg, state, state2, batch, n_leaves: int) -> dict:
+    """(c) at (a)'s shapes: one fed step against the single-pod step on
+    each pod's slice, bit for bit under deterministic algorithms; the
+    int8 FedAvg (with and without error feedback) and FedBuff rounds
+    against the same calls through the plain quantiser, bit for bit, K3
+    and K3' once a stacked leaf each."""
+    from repro_torch.dist import stepfns
+    from repro_torch.kernels.quant import kernel as k3
+    from repro_torch.optim import OptimizerConfig
+
+    opt_cfg = OptimizerConfig("adamw", lr=3e-3)
+    with _deterministic():
+        fed, fm = stepfns.make_fed_train_step(cfg, opt_cfg)(state2, batch)
+        single = stepfns.make_train_step(cfg, opt_cfg)
+        for i in range(FED_PODS):
+            pod = stepfns._map_state(lambda l: l[i].clone(), state2)
+            one, m = single(pod, {k: v[i] for k, v in batch.items()})
+            if not (_bitwise(stepfns._map_state(lambda l: l[i], fed), one)
+                    and all(torch.equal(fm[k][i], m[k]) for k in m)):
+                raise SystemExit(f"fed_train (c): pod {i}'s fed step differs "
+                                 f"from the single-pod step on its slice")
+            del pod, one
+        del fed
+    dev = torch.device("cuda")
+    w = torch.ones(FED_PODS, device=dev)
+    calls = {
+        "fedavg": (stepfns.make_fed_round_step(cfg, "int8"), (state2, w)),
+        "fedavg_ef": (stepfns.make_fed_round_step(cfg, "int8",
+                                                  error_feedback=True),
+                      (state2, w, stepfns.init_round_residuals(state2))),
+        "fedbuff": (stepfns.make_async_round_step(
+            cfg, "int8", quorum_frac=0.5, quorum_expected=FED_PODS),
+            (state2, stepfns.init_async_state(state), w,
+             torch.ones(FED_PODS, dtype=torch.bool, device=dev),
+             torch.tensor([0, 1], dtype=torch.int32, device=dev),
+             torch.tensor([1.0, 0.5], device=dev),
+             torch.ones(FED_PODS, dtype=torch.bool, device=dev),
+             torch.ones(FED_PODS, dtype=torch.bool, device=dev)))}
+    held = {}
+    for name, (fn, args) in calls.items():
+        k3.quantize_launches = k3.dequantize_launches = 0
+        got = fn(*args)
+        torch.cuda.synchronize()
+        counts = (k3.quantize_launches, k3.dequantize_launches)
+        with _plain_quant():
+            want = fn(*args)
+        if counts != (n_leaves, n_leaves) or not _bitwise(got, want):
+            raise SystemExit(f"fed_train (c): the int8 {name} round with K3 "
+                             f"({counts} launches for {n_leaves} leaves) "
+                             f"differs from its plain quantiser's")
+        held[name] = counts[0]
+        del got, want
+    return held
+
+
+def _fed_leaf(state, state2):
+    """(c) K3 and K3' alone on the largest stacked leaf's pod deltas (the
+    payload of a FedBuff round), one block a pod: held to the plain
+    versions bit for bit, then timed beside them and the bound."""
+    from repro_torch._tree import tree_leaves
+
+    pairs = sorted(zip(tree_leaves(state2.params), tree_leaves(state.params)),
+                   key=lambda p: p[0].numel())
+    new, old = pairs[-1]
+    x = (new.float() - old.float()).contiguous()
+    block = x[0].numel()
+    _k3_hold(x, block, f"the stacked fed leaf {tuple(x.shape)}, one block "
+                       f"a pod")
+    times = _k3_timed([x], block)
+    bound, d_bound, by = _k3_bounds(x.numel(), block, 4)
+    return {"shape": list(x.shape), "block": block, **times,
+            "bound_ms": bound, "dq_bound_ms": d_bound, "bound_by": by}
+
+
+def phase_fed_train():
+    """(a) train()'s federated branch at olmo-1b's width, two pods, int8
+    FedAvg rounds; (b) its coupled FedBuff branch under a deadline,
+    faults and quorum; (c) the fed step and the int8 rounds held, K3/K3'
+    alone at the largest fed leaf; (d) a resumed coupled run bit for
+    bit."""
+    import tempfile
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.dist import stepfns
+    from repro_torch.optim import OptimizerConfig
+
+    t0 = time.time()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("olmo-1b").replace(grad_accum=1, n_layers=FED_LAYERS)
+    k4_a_step = 2 * FED_LAYERS * FED_PODS   # forward + recompute, a pod
+    runs = {}
+    # (a) and (b): the branch at olmo-1b's width, events read back
+    for name, path_name in (("fed", "olmo-1b-fed"),
+                            ("fed_async", "olmo-1b-fed-async")):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "train.jsonl")
+            state, history, launches, wall = _fed_entry(
+                name, log_jsonl=path, log_every=1)
+            with open(path) as f:
+                events = [json.loads(line) for line in f]
+        n_leaves = len(tree_leaves(state.params))
+        n_rounds = FED_RUNS[name][1]
+        n_steps = FED_STEPS[name] * n_rounds
+        losses = [e["loss"] for e in events if e["event"] == "step"]
+        if len(losses) != n_steps or not all(math.isfinite(x)
+                                             for x in losses):
+            raise SystemExit(f"fed_train {name}: step losses {losses}")
+        if events[0]["shape"] != {"pod": FED_PODS, "data": 1, "model": 1}:
+            raise SystemExit(f"fed_train {name}: mesh {events[0]}")
+        want = {"k4": n_steps * k4_a_step, "k4_tc": n_steps * k4_a_step,
+                "k3": n_leaves * n_rounds, "k3p": n_leaves * n_rounds}
+        if any(launches[k] != v for k, v in want.items()):
+            raise SystemExit(f"fed_train {name}: launches {launches}, want "
+                             f"{want} (K4 {k4_a_step} a step, all on the "
+                             f"tensor cores; K3 and K3' one a stacked leaf "
+                             f"a round)")
+        if tuple(state.opt.step.shape) != (FED_PODS,):
+            raise SystemExit(f"fed_train {name}: not a pod-stacked state")
+        step_ms = [h["wall_s"] * 1e3 / FED_STEPS[name] for h in history]
+        print(f"  ({'a' if name == 'fed' else 'b'}) {name}: losses "
+              f"{[round(x, 4) for x in losses]}; syncs "
+              f"{[h['sync_s'] for h in history]}; K4 {launches['k4']} "
+              f"({launches['k4_tc']} tensor cores), K3 {launches['k3']}, "
+              f"K3' {launches['k3p']}, K1 {launches['k1']}, K2 "
+              f"{launches['k2']}, phase kernel {launches['phase']}; "
+              f"{wall:.3f} s", flush=True)
+        runs[path_name] = {"launches": launches, "wall_s": wall,
+                           "step_ms": step_ms, "losses": losses}
+        if name == "fed_async":
+            del state
+        else:
+            fed_state = state
+    state = fed_state
+    peak_ab = torch.cuda.max_memory_allocated() / 1e9
+    split = {"ab": time.time() - t0}
+
+    # a step and a round of (a)'s state timed, and profiled: busy share
+    opt_cfg = OptimizerConfig("adamw", lr=3e-3)
+    fed_step = stepfns.make_fed_train_step(cfg, opt_cfg)
+    round_step = stepfns.make_fed_round_step(cfg, "int8")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    tok = torch.randint(0, cfg.vocab_size, (FED_PODS, TRAIN_BATCH // FED_PODS,
+                                            TRAIN_SEQ + 1), device="cuda",
+                        generator=g)
+    batch = {"tokens": tok[..., :-1], "labels": tok[..., 1:]}
+    state2, _ = fed_step(state, batch)       # the pods apart again
+    step_wall_ms, dev_ms, top = _timed_step(fed_step, state, batch)
+    _print_top(f"a fed step, {FED_PODS} pods x {TRAIN_BATCH // FED_PODS} x "
+               f"{TRAIN_SEQ}", dev_ms, step_wall_ms, top)
+    weights = torch.ones(FED_PODS, device="cuda")
+    round_wall_ms, round_dev_ms, round_top = _timed_step(round_step, state2,
+                                                         weights)
+    _print_top("an int8 FedAvg round", round_dev_ms, round_wall_ms,
+               round_top)
+    split["timed"] = time.time() - t0 - sum(split.values())
+
+    # (c) the holds at (a)'s shapes
+    n_leaves = len(tree_leaves(state.params))
+    tok = torch.randint(0, cfg.vocab_size, tok.shape, device="cuda",
+                        generator=g)
+    held = _fed_holds(cfg, state, state2,
+                      {"tokens": tok[..., :-1], "labels": tok[..., 1:]},
+                      n_leaves)
+    split["holds"] = time.time() - t0 - sum(split.values())
+    leaf = _fed_leaf(state, state2)
+    split["leaf"] = time.time() - t0 - sum(split.values())
+    print(f"  K3 at the fed leaf {leaf['shape']} (block {leaf['block']}): "
+          f"{leaf['ms']:.5f} ms (plain {leaf['plain_ms']:.5f}, bound "
+          f"{leaf['bound_ms']:.5f}); K3' {leaf['dq_ms']:.5f} ms (plain "
+          f"{leaf['dq_plain_ms']:.5f}, torch.mul "
+          f"{leaf['dq_library_ms']:.5f}, bound {leaf['dq_bound_ms']:.5f})",
+          flush=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del state, state2, batch, tok
+
+    # (d) resume: only round 2's checkpoint into a fresh directory
+    with tempfile.TemporaryDirectory() as tmp:
+        full_dir, fresh = os.path.join(tmp, "full"), os.path.join(tmp, "re")
+        full, _, res_launches, full_wall = _fed_entry(
+            "fed_resume", ckpt_dir=full_dir, resume=False)
+        os.makedirs(fresh)
+        # moved, not copied: the uninterrupted run is done with it
+        os.replace(os.path.join(full_dir, "step_2.ckpt"),
+                   os.path.join(fresh, "step_2.ckpt"))
+        ckpt_gb = os.path.getsize(os.path.join(fresh, "step_2.ckpt")) / 1e9
+        resumed, hist, _, resume_wall = _fed_entry("fed_resume",
+                                                   ckpt_dir=fresh)
+    if [h["round"] for h in hist] != [2] or not _bitwise(full, resumed):
+        raise SystemExit("fed_train (d): the resumed coupled run's state "
+                         "differs from the uninterrupted run's")
+    del full, resumed
+    split["resume"] = time.time() - t0 - sum(split.values())
+
+    a, b = runs["olmo-1b-fed"], runs["olmo-1b-fed-async"]
+    _line("fed_train", time.time() - t0, arch="olmo-1b", layers=FED_LAYERS,
+          reduced=f"{FED_LAYERS} of 16 layers (memory)", pods=FED_PODS,
+          batch=TRAIN_BATCH, seq=TRAIN_SEQ, syncs_held="yes",
+          wall_s=f"{a['wall_s']:.3f}",
+          step_ms_by_round=",".join(f"{x:.3f}" for x in a["step_ms"]),
+          step_wall_ms=f"{step_wall_ms:.3f}",
+          profiled_step_device_ms=("not measured" if dev_ms is None
+                                   else f"{dev_ms:.3f}"),
+          device_busy=("not measured" if dev_ms is None
+                       else f"{dev_ms / step_wall_ms:.3f}"),
+          round_step_ms=f"{round_wall_ms:.3f}",
+          round_step_device_ms=("not measured" if round_dev_ms is None
+                                else f"{round_dev_ms:.3f}"),
+          round_device_busy=("not measured" if round_dev_ms is None
+                             else f"{round_dev_ms / round_wall_ms:.3f}"),
+          peak_gb_ab=f"{peak_ab:.3f}", peak_gb=f"{peak_gb:.3f}",
+          **{f"{k}_launches": v for k, v in a["launches"].items()},
+          async_wall_s=f"{b['wall_s']:.3f}",
+          async_step_ms_by_round=",".join(f"{x:.3f}"
+                                          for x in b["step_ms"]),
+          **{f"async_{k}_launches": v for k, v in b["launches"].items()},
+          step_held_bitwise="yes",
+          rounds_held_bitwise=",".join(f"{k}:{v}" for k, v in held.items()),
+          fed_leaf=leaf["shape"], fed_leaf_k3_ms=f"{leaf['ms']:.5f}",
+          fed_leaf_k3_plain_ms=f"{leaf['plain_ms']:.5f}",
+          fed_leaf_k3_bound_ms=f"{leaf['bound_ms']:.5f}",
+          fed_leaf_k3p_ms=f"{leaf['dq_ms']:.5f}",
+          fed_leaf_k3p_plain_ms=f"{leaf['dq_plain_ms']:.5f}",
+          fed_leaf_k3p_library_ms=f"{leaf['dq_library_ms']:.5f}",
+          fed_leaf_k3p_bound_ms=f"{leaf['dq_bound_ms']:.5f}",
+          resume_bitwise="yes",
+          resume_reduced="1 of 16 layers (checkpoint I/O)",
+          ckpt_gb=f"{ckpt_gb:.3f}",
+          resume_full_wall_s=f"{full_wall:.3f}",
+          resume_wall_s=f"{resume_wall:.3f}", resume_k4=res_launches["k4"],
+          split_s={k: f"{v:.1f}" for k, v in split.items()})
+    return {**{p: r["launches"] for p, r in runs.items()}, "leaf": leaf}
 
 
 def main() -> int:
@@ -5367,11 +5792,17 @@ def main() -> int:
     by_path["olmo-1b-train"] = {"k1": train_counts["k1"],
                                 "k2": train_counts["k2"],
                                 "phase": train_counts["phase"]}
+    fed = phase_fed_train()
+    fed_paths = ("olmo-1b-fed", "olmo-1b-fed-async")
+    for path in fed_paths:
+        by_path[path] = {k: fed[path][k] for k in ("k1", "k2", "phase")}
     # K4 runs on the prefill of every served config but mamba2-780m, on
-    # the tensor-core kernel alone, and on olmo-1b's train steps
+    # the tensor-core kernel alone, and on olmo-1b's train steps, one pod
+    # and federated
     launches["flash_attention"] = (olmo["k4"] + rg["k4"]
                                    + sum(z["k4"] for z in zoo.values())
-                                   + train_counts["k4"])
+                                   + train_counts["k4"]
+                                   + sum(fed[p]["k4"] for p in fed_paths))
     launches["rglru_scan"] = rg["k6"]
     phase_entry.update(wide_hold.finish())
     phase_entry["max_abs_err"] = max(phase_entry["max_abs_err"],
@@ -5389,16 +5820,31 @@ def main() -> int:
                 **{path: c[engine_paths[name]]
                    for path, c in by_path.items()}}
         if name in ("quantize_int8", "dequantize_int8"):
-            entry["launches_by_path"] = {"fig2a-int8": launches[name],
-                                         "cosim-accuracy": cosim[name]}
+            key = "k3" if name == "quantize_int8" else "k3p"
+            entry["launches_by_path"] = {
+                "fig2a-int8": launches[name], "cosim-accuracy": cosim[name],
+                **{p: fed[p][key] for p in fed_paths}}
+            # alone at the largest stacked leaf of the fed rounds, one
+            # block a pod
+            leaf, dq = fed["leaf"], "" if key == "k3" else "dq_"
+            entry.update({
+                "fed_leaf_shape": leaf["shape"],
+                "ms_fed_leaf": leaf[f"{dq}ms"],
+                "plain_ms_fed_leaf": leaf[f"{dq}plain_ms"],
+                "bound_ms_fed_leaf": leaf[f"{dq}bound_ms"],
+                "library_ms_fed_leaf": (leaf["dq_library_ms"] if dq
+                                        else None)})
         if entry["name"] == "flash_attention":
             entry["launches_tc"] = (olmo["k4_tc"] + rg["k4_tc"]
                                     + sum(z["k4_tc"] for z in zoo.values())
-                                    + train_counts["k4_tc"])
+                                    + train_counts["k4_tc"]
+                                    + sum(fed[p]["k4_tc"]
+                                          for p in fed_paths))
             entry["launches_by_path"] = {
                 "olmo-1b": olmo["k4"], "recurrentgemma-2b": rg["k4"],
                 **{name: z["k4"] for name, z in zoo.items()},
                 "olmo-1b-train": train_counts["k4"],
+                **{p: fed[p]["k4"] for p in fed_paths},
                 "train-backward-check": bwd["launches"]["k4"]}
             # K4 alone at each zoo config's prefill shape
             for key in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -5416,6 +5862,10 @@ def main() -> int:
             entry["backward_bound_ms"] = {
                 "olmo-1b-s512": bwd["k4_olmo-1b"][3],
                 "recurrentgemma-2b-s512": bwd["k4_recurrentgemma-2b"][3]}
+            # SDPA's forward and backward under autograd, same inputs
+            entry["backward_library_ms"] = {
+                "olmo-1b-s512": bwd["sdpa_olmo-1b"],
+                "recurrentgemma-2b-s512": bwd["sdpa_recurrentgemma-2b"]}
         if entry["name"] == "ssd_scan":
             entry["launches_tc"] = mamba["k5_tc"]
             entry["launches_by_path"] = {

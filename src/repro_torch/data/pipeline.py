@@ -4,8 +4,11 @@ The counterpart of the reference package's ``data/pipeline.py``
 ``TokenBatcher``: the same blocks, the same ``np.random.default_rng``
 permutations, so it yields the reference's batches in the reference's
 order. Each pod sees a disjoint contiguous shard of the stream (the FL
-property). The reference's ``shard_batch`` places a batch onto a device
-mesh; it comes with the federated steps (ROADMAP Queue 1 item 10).
+property); the federated branch of ``launch/train.py`` stacks the pods'
+batches to ``(n_pods, B / n_pods, S)`` on one device. The reference's
+``shard_batch`` places a batch onto a device mesh; it waits for the
+port's mesh and specs (``launch/mesh.py``, ``launch/specs.py``, ROADMAP
+Queue 1 item 10).
 """
 from __future__ import annotations
 

@@ -1,15 +1,24 @@
-"""Step functions of the port: the single-pod train step, serving, and
-a pod update's wire size.
+"""Step functions of the port: training on one pod and on a pod axis,
+the federated FedAvg and FedBuff rounds, serving, and a pod update's
+wire size.
 
-The counterparts of the reference package's ``dist/stepfns.py``
-``TrainState``, ``init_train_state``, ``make_train_step``,
-``make_prefill_step``, ``make_decode_step`` and ``fed_update_bits``.
-There they are jitted and lowered onto meshes; here they run eagerly on
-one device, and a step's gradients come from autograd (through the
-kernels' ``autograd.Function``s on a card). The federated and async
-steps (``make_fed_train_step``, ``make_fed_round_step``,
-``make_async_round_step``) and ``grad_shardings``, a mesh concept, are
-not ported yet (ROADMAP Queue 1 item 10).
+The counterparts of the reference package's ``dist/stepfns.py``. There
+they are jitted and lowered onto meshes; here they run eagerly on one
+device, and a step's gradients come from autograd (through the kernels'
+``autograd.Function``s on a card).
+
+Federated layout: every leaf of a federated ``TrainState`` carries a
+leading ``n_pods`` axis (one pod per EC-node site). The reference vmaps
+the single-pod step over that axis and shards it over the mesh's
+``pod`` axis; ``make_fed_train_step`` here runs the pods' steps in turn
+on one device over the stacked leaves, which computes what the vmap
+computes (``torch.func.vmap`` cannot take ``torch.autograd.grad`` or the
+kernels' Functions). ``make_fed_round_step`` is the weighted FedAvg
+whose upload (``M_i^UD``) the paper's BS slice is sized for, and
+``make_async_round_step`` the buffered staleness-weighted FedBuff merge
+driven by the network timeline's arrivals. The reference's
+``grad_shardings`` and ``spmd_axis_name`` are mesh placements and have
+no counterpart here.
 """
 from __future__ import annotations
 
@@ -43,6 +52,27 @@ def init_train_state(cfg: ModelConfig, opt_cfg: OptimizerConfig,
     dev = resolve_device(DEFAULT_DEVICE if device is None else device)
     params = lm.init_params(cfg, generator, dev)
     return TrainState(params=params, opt=init_opt_state(params, opt_cfg))
+
+
+def init_fed_state(cfg: ModelConfig, opt_cfg: OptimizerConfig, n_pods: int,
+                   generator: Optional[torch.Generator] = None,
+                   device=None) -> TrainState:
+    """One :func:`init_train_state` repeated over a leading ``n_pods``
+    axis on every leaf, each pod's copy in storage of its own: all pods
+    start from the same global model (the CPS broadcast) and diverge
+    through local steps."""
+    base = init_train_state(cfg, opt_cfg, generator, device)
+    return _map_state(lambda l: fedops._pod_broadcast(l, n_pods), base)
+
+
+def _map_state(fn: Callable, state: TrainState, *rest) -> TrainState:
+    """``fn`` over every leaf of a ``TrainState`` (params, the
+    optimizer's step and moments) and the matching leaves of ``rest``."""
+    return TrainState(
+        params=tree_map(fn, state.params, *(r.params for r in rest)),
+        opt=OptState(fn(state.opt.step, *(r.opt.step for r in rest)),
+                     tree_map(fn, state.opt.mu, *(r.opt.mu for r in rest)),
+                     tree_map(fn, state.opt.nu, *(r.opt.nu for r in rest))))
 
 
 def _value_and_grad(params, cfg: ModelConfig, batch):
@@ -98,6 +128,170 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
     return step
 
 
+def make_fed_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
+                        schedule: Optional[Callable] = None) -> Callable:
+    """Per-pod local step over the federated (pod-stacked) state.
+
+    ``step(state, batch) -> (state, metrics)`` with batch leaves
+    ``(n_pods, per_pod_B, ...)``: each pod takes :func:`make_train_step`
+    on its own slice of the state and its own batch, with no cross-pod
+    traffic (the paper's local-epoch phase). The pods run in turn on
+    the state's device, each result copied into freshly allocated
+    stacked leaves; the metrics (``loss``, ``grad_norm``, ``lr``) are
+    ``(n_pods,)`` tensors.
+    """
+    base = make_train_step(cfg, opt_cfg, schedule)
+
+    def step(state: TrainState, batch):
+        n_pods = state.opt.step.shape[0]
+        out, metrics = None, []
+        for i in range(n_pods):
+            new, m = base(_map_state(lambda l: l[i], state),
+                          {k: v[i] for k, v in batch.items()})
+            if out is None:
+                out = _map_state(lambda l: l.new_empty(
+                    (n_pods,) + tuple(l.shape)), new)
+            _map_state(lambda dst, src: dst[i].copy_(src), out, new)
+            metrics.append(m)
+            del new
+        return out, {k: torch.stack([m[k] for m in metrics])
+                     for k in metrics[0]}
+
+    return step
+
+
+def make_fed_round_step(cfg: ModelConfig, compress: Optional[str] = None,
+                        topk_frac: float = 0.05,
+                        error_feedback: bool = False) -> Callable:
+    """Weighted FedAvg across the pod axis.
+
+    ``round_step(state, weights) -> state`` with ``weights`` ``(n_pods,)``
+    (client data sizes). ``compress`` in ``{None, "none", "int8",
+    "topk", "int8+topk"}`` round-trips each pod's update through the
+    wire compression before averaging (``fedops.fedavg_pods``).
+    Optimizer moments stay pod-local. With ``error_feedback=True`` the
+    signature becomes ``round_step(state, weights, residuals) -> (state,
+    residuals)`` (:func:`init_round_residuals` builds the zeros). The
+    upload's wire size is ``fed_update_bits(cfg, compress)``.
+    """
+    scheme = fedops.check_scheme(compress)
+
+    if error_feedback:
+        def round_step_ef(state: TrainState, weights, residuals):
+            params, new_res = fedops.fedavg_pods(
+                state.params, weights, scheme=scheme, topk_frac=topk_frac,
+                residuals=residuals)
+            return TrainState(params=params, opt=state.opt), new_res
+
+        return round_step_ef
+
+    def round_step(state: TrainState, weights) -> TrainState:
+        params = fedops.fedavg_pods(state.params, weights, scheme=scheme,
+                                    topk_frac=topk_frac)
+        return TrainState(params=params, opt=state.opt)
+
+    return round_step
+
+
+def init_round_residuals(state: TrainState):
+    """Zero error-feedback residuals for the round steps with
+    ``error_feedback=True``: pod-stacked float32, like the params."""
+    return fedops.init_residuals(state.params)
+
+
+class AsyncRoundState(NamedTuple):
+    """Cross-round state of the async (FedBuff) federated loop.
+
+    ``global_params``: pod-stacked copies of the current global model.
+    ``refs``: each pod's download reference, the global model it last
+    synced to, which its next upload delta is computed against.
+    ``pending``: each pod's snapshotted float32 update delta, the
+    payload on the wire while its upload is in flight.
+    """
+
+    global_params: Any
+    refs: Any
+    pending: Any
+
+
+def init_async_state(state: TrainState) -> AsyncRoundState:
+    """Fresh async state: every pod synced to the same global model (the
+    state's parameters, shared: no step writes in place), nothing in
+    flight."""
+    return AsyncRoundState(
+        global_params=state.params, refs=state.params,
+        pending=fedops.init_residuals(state.params))
+
+
+def make_async_round_step(cfg: ModelConfig, compress: Optional[str] = None,
+                          topk_frac: float = 0.05,
+                          error_feedback: bool = False,
+                          server_lr: float = 1.0,
+                          staleness_power: float = 0.5,
+                          quorum_frac: Optional[float] = None,
+                          quorum_expected: Optional[int] = None) -> Callable:
+    """Buffered asynchronous aggregation (FedBuff) across the pod axis.
+
+    ``async_step(state, astate, weights, arrived, staleness, frac, snap,
+    rejoin) -> (state, astate)``, every argument after ``astate`` a
+    ``(n_pods,)`` tensor driven by the network timeline's arrivals:
+
+    * ``snap`` (bool): pods that just finished their local round; their
+      delta ``params - refs`` is snapshotted into ``pending`` (later
+      training never leaks into the in-flight payload);
+    * ``arrived`` (bool): pods whose upload reached the CPS this round;
+      their pending deltas merge into the global, weighted ``w_i ·
+      frac_i / (1+τ_i)^p`` (``staleness`` τ in rounds);
+    * ``rejoin`` (bool): pods that resync to the new global (params and
+      refs); stragglers still uploading keep theirs.
+
+    Optimizer moments stay pod-local. With ``error_feedback=True`` the
+    step takes a trailing ``residuals`` and returns ``(state, astate,
+    residuals)``. ``quorum_frac`` gates the merge (``fedops.fedbuff_pods``)
+    against ``quorum_expected`` pods (default ``n_pods``): below quorum
+    the global passes through and rejoining pods resync to it unchanged.
+    """
+    scheme = fedops.check_scheme(compress)
+
+    def _advance(state, astate, weights, arrived, staleness, frac, snap,
+                 rejoin, residuals):
+        dev = state.opt.step.device
+        snap = torch.as_tensor(snap, device=dev)
+        rejoin = torch.as_tensor(rejoin, device=dev)
+        pending = tree_map(
+            lambda p, ref, pen: torch.where(fedops._bmask(snap, pen),
+                                            p.float() - ref.float(), pen),
+            state.params, astate.refs, astate.pending)
+        merged = fedops.fedbuff_pods(
+            pending, astate.global_params, weights, arrived, staleness,
+            server_lr=server_lr, scheme=scheme, topk_frac=topk_frac,
+            staleness_power=staleness_power, frac=frac,
+            residuals=residuals, quorum_frac=quorum_frac,
+            n_expected=quorum_expected)
+        new_global, new_res = merged if error_feedback else (merged, None)
+
+        def take(new, old):
+            return tree_map(lambda n, o: torch.where(
+                fedops._bmask(rejoin, o), n, o), new, old)
+
+        params = take(new_global, state.params)
+        refs = take(new_global, astate.refs)
+        new_astate = AsyncRoundState(global_params=new_global, refs=refs,
+                                     pending=pending)
+        return TrainState(params=params, opt=state.opt), new_astate, new_res
+
+    if error_feedback:
+        return _advance
+
+    def async_step(state, astate, weights, arrived, staleness, frac, snap,
+                   rejoin):
+        state, astate, _ = _advance(state, astate, weights, arrived,
+                                    staleness, frac, snap, rejoin, None)
+        return state, astate
+
+    return async_step
+
+
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     """``step(params, tokens, cache, extra_embeds=None) -> (logits, cache)``."""
 
@@ -136,3 +330,16 @@ def fed_update_bits(cfg: ModelConfig, compress: Optional[str] = "int8",
         params = lm.init_params(cfg, device="cpu")
     comp = CompressorConfig(scheme=scheme, topk_frac=topk_frac)
     return compressed_update_bits(params, comp)
+
+
+def payload_summary(cfg: ModelConfig, schemes=("none", "int8"),
+                    topk_frac: float = 0.05) -> dict:
+    """Wire-size provenance of one pod's upload a compression scheme
+    (``model_bits`` is the float32 broadcast downlink)."""
+    bits = {str(s): int(fed_update_bits(cfg, s, topk_frac))
+            for s in schemes}
+    return {
+        "model_bits": bits.get("none", int(fed_update_bits(cfg, "none"))),
+        "upload_bits": bits,
+        "topk_frac": topk_frac,
+    }

@@ -13,13 +13,19 @@ co-simulation (``net.simulate``: faults, tenant jobs, several PONs and a
 CPS uplink as given), a checkpoint a round, resume, and the
 ``--log-jsonl``/``--trace`` observability of ``repro_torch.obs``.
 
-The reference splits the devices into ``pods = n_pods`` federated pods
-where the device count allows (``n_dev % n_pods == 0 and n_dev >=
-n_pods``), else runs one pod. One pod is what the port runs: the
-single-pod train step. Where the formula gives more than one pod, the
-federated and async round steps would run; they are not ported yet
-(ROADMAP Queue 1 item 10), and ``train`` raises ``NotImplementedError``.
-On one card, as on one JAX device, the formula gives one pod.
+The pods are the reference's: ``pods = n_pods`` where the device count
+allows (``n_dev % n_pods == 0 and n_dev >= n_pods``), else one. One pod
+takes the single-pod train step. More than one takes the federated
+branch: one ``TokenBatcher`` a pod, the pod-stacked state of
+``init_fed_state``, ``make_fed_train_step`` and an int8 (``compress``)
+FedAvg round a round; with a deadline or an async buffer, the coupled
+FedBuff round (``make_async_round_step``) driven by each timeline
+round's arrivals, staleness, partial fractions, drops and give-ups,
+its ``AsyncRoundState`` checkpointed beside the train state. The
+reference gives each pod its own devices; here every pod's step runs
+on ``device`` in turn. On one card, as on one JAX device, the formula
+gives one pod; ``device_count`` is the seam through which the tests
+(and ``chip_smoke.py`` ``fed_train``) see two devices.
 """
 from __future__ import annotations
 
@@ -50,6 +56,47 @@ from repro_torch.optim import OptimizerConfig, warmup_cosine
 def device_count(dev: torch.device) -> int:
     """The devices a run may spread over: the cards, or 1 on the CPU."""
     return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
+def mesh_shape(n_dev: int, pods: int) -> dict:
+    """The axes of the reference's ``make_host_mesh`` over ``n_dev``
+    devices (model parallelism 1): ``pod`` first where there is more
+    than one pod. Here the pods' steps run on one device, as the pod
+    axis of a vmap does."""
+    axes = {"pod": pods} if pods > 1 else {}
+    return {**axes, "data": n_dev // pods, "model": 1}
+
+
+def round_masks(timeline, idx: int, pods: int, in_retry: set, dev):
+    """The coupled round step's ``(arrived, staleness, frac, snap,
+    rejoin)`` of the timeline's round ``idx``, as ``(pods,)`` tensors on
+    ``dev``. A pod snapshots its payload where its upload is fresh (in
+    the round's ``ul_bits``, neither deferred from the round before nor
+    a retry of a failed upload); it contributes where it arrived (a
+    served fraction where its upload was partial), and rejoins the
+    global where it contributed, was dropped or partial (a fraction 0
+    is discarded like a drop) or gave up on its retries."""
+    rn = timeline.rounds[idx]
+    prev_def = timeline.rounds[idx - 1].deferred if idx > 0 else {}
+    fresh = set(rn.ul_bits) - set(prev_def) - in_retry
+    contrib = {cid: 1.0 for cid in rn.arrived}
+    contrib.update({cid: f for cid, f in rn.partial.items() if f > 0.0})
+    arrived = np.zeros(pods, bool)
+    stale = np.zeros(pods, np.int32)
+    fracs = np.ones(pods, np.float32)
+    snap = np.zeros(pods, bool)
+    rejoin = np.zeros(pods, bool)
+    for cid in range(pods):
+        snap[cid] = cid in fresh
+        if cid in contrib:
+            arrived[cid] = True
+            fracs[cid] = contrib[cid]
+            stale[cid] = rn.staleness.get(cid, 0)
+        if (cid in contrib or cid in rn.dropped or cid in rn.partial
+                or cid in rn.gave_up):
+            rejoin[cid] = True
+    return tuple(torch.as_tensor(a, device=dev)
+                 for a in (arrived, stale, fracs, snap, rejoin))
 
 
 def net_spec(pods: int, up_bits: float, down_bits: float, rounds: int,
@@ -152,8 +199,8 @@ def train(
     """Train for ``rounds`` x ``steps_per_round`` steps on ``device``
     (the card by default; without one it raises, unless ``device="cpu"``).
     Returns ``(state, history)``: the final ``dist.stepfns.TrainState``
-    and one dict a round (``round``, mean ``loss``, ``sync_s``,
-    ``wall_s``)."""
+    (pod-stacked on the federated branch) and one dict a round
+    (``round``, mean ``loss``, ``sync_s``, ``wall_s``)."""
     if jobs > 0 and (deadline_s is not None or async_buffer is not None
                      or quorum is not None or dropout_rate > 0.0
                      or outage_rate > 0.0 or loss_rate > 0.0):
@@ -165,12 +212,7 @@ def train(
     dev = resolve_device(device)
     n_dev = device_count(dev)
     pods = n_pods if n_dev % n_pods == 0 and n_dev >= n_pods else 1
-    if pods > 1:
-        raise NotImplementedError(
-            f"{pods} pods over {n_dev} devices take the federated and "
-            "async round steps (make_fed_train_step, make_fed_round_step, "
-            "make_async_round_step), which are not ported yet (ROADMAP "
-            "Queue 1 item 10); pass n_pods=1 for the single-pod step")
+    fed = pods > 1
 
     cfg = get_config(arch, smoke=smoke).replace(grad_accum=1)
     if config_overrides:
@@ -183,29 +225,54 @@ def train(
         collector = Collector(
             tracer=SpanTracer(enabled=trace_path is not None), device=dev)
     log.emit("mesh", echo="mesh: {shape} devices={devices}",
-             shape={"data": 1, "model": 1}, devices=n_dev, arch=arch,
+             shape=mesh_shape(n_dev, pods), devices=n_dev, arch=arch,
              pods=pods, policy=policy, load=load)
 
+    # federated data: one disjoint shard a pod
     tokens = lm_tokens(400_000, cfg.vocab_size, seed=0)
-    batches = iter(TokenBatcher(tokens, global_batch, seq_len, seed=0,
-                                pod_index=0, n_pods=1))
+    iters = [iter(TokenBatcher(tokens, global_batch // pods, seq_len,
+                               seed=i, pod_index=i, n_pods=pods))
+             for i in range(pods)]
 
-    state = stepfns.init_train_state(cfg, opt_cfg, device=dev)
-    step = stepfns.make_train_step(cfg, opt_cfg, schedule)
+    if fed:
+        state = stepfns.init_fed_state(cfg, opt_cfg, pods, device=dev)
+        step = stepfns.make_fed_train_step(cfg, opt_cfg, schedule)
+        round_step = stepfns.make_fed_round_step(cfg, compress=compress)
+    else:
+        state = stepfns.init_train_state(cfg, opt_cfg, device=dev)
+        step = stepfns.make_train_step(cfg, opt_cfg, schedule)
+        round_step = None
+    # deadline/async rounds: the buffered staleness-weighted round step,
+    # driven by the timeline's arrivals, replaces the plain FedAvg; built
+    # before the restore so that the template is the tree that is saved
+    coupled = fed and (deadline_s is not None or async_buffer is not None)
+    astate = around = None
+    if coupled:
+        astate = stepfns.init_async_state(state)
+        around = stepfns.make_async_round_step(
+            cfg, compress=compress, quorum_frac=quorum,
+            quorum_expected=pods if quorum is not None else None)
 
     mgr = CheckpointManager(ckpt_dir, keep=2) if ckpt_dir else None
     start_round = 0
     if mgr is not None and resume:
-        restored = mgr.restore_latest(like=state)
+        template = {"train": state, "async": astate} if coupled else state
+        restored = mgr.restore_latest(like=template)
         if restored is not None:
-            state, meta = restored
+            tree, meta = restored
+            if coupled:
+                state, astate = tree["train"], tree["async"]
+            else:
+                state = tree
+            del tree, template
             start_round = int(meta.get("round", 0))
             log.emit("resume", echo="resumed from round {round}",
                      round=start_round)
             # a resumed run consumes the batches an uninterrupted one
             # would (TokenBatcher is a pure function of its seed)
             for _ in range(start_round * steps_per_round):
-                next(batches)
+                for g in iters:
+                    next(g)
 
     # the round's PON timing, the slice sized for the measured payloads:
     # the compressed per-pod upload, the float32 broadcast
@@ -236,20 +303,44 @@ def train(
         sync_times = timeline.sync_times
 
     wall_simulated = 0.0
+    # pods whose failed upload is retrying (they re-enter the timeline
+    # as carriers and must not snapshot their payload again), replayed
+    # over the rounds before a resume
+    in_retry: set = set()
+    for rn in timeline.rounds[:start_round]:
+        in_retry |= set(rn.failed) | set(rn.lost)
+        in_retry -= set(rn.arrived) | set(rn.gave_up)
     history = []
     for rnd in range(start_round, rounds):
         t0 = time.time()
         losses = []
         for it in range(steps_per_round):
-            batch = {k: torch.as_tensor(v, device=dev)
-                     for k, v in next(batches).items()}
+            parts = [next(g) for g in iters]
+            if fed:
+                batch = {k: torch.as_tensor(np.stack([p[k] for p in parts]),
+                                            device=dev) for k in parts[0]}
+            else:
+                batch = {k: torch.as_tensor(v, device=dev)
+                         for k, v in parts[0].items()}
             state, metrics = step(state, batch)
-            loss = float(metrics["loss"])
+            loss = float(metrics["loss"].mean())
             losses.append(loss)
             if it % log_every == 0:
                 log.emit("step",
                          echo="round {round} step {step}: loss={loss:.4f}",
                          round=rnd, step=it, loss=loss)
+        if fed:
+            weights = torch.ones((pods,), dtype=torch.float32, device=dev)
+            if coupled:
+                idx = min(rnd, len(timeline.rounds) - 1)
+                state, astate = around(state, astate, weights,
+                                       *round_masks(timeline, idx, pods,
+                                                    in_retry, dev))
+                rn = timeline.rounds[idx]
+                in_retry |= set(rn.failed) | set(rn.lost)
+                in_retry -= set(rn.arrived) | set(rn.gave_up)
+            else:
+                state = round_step(state, weights)
         sync = float(sync_times[min(rnd, len(sync_times) - 1)])
         wall_simulated += sync
         entry = {"round": rnd, "loss": float(np.mean(losses)),
@@ -257,7 +348,9 @@ def train(
         history.append(entry)
         log.emit("round", **entry)
         if mgr is not None:
-            mgr.save(rnd + 1, state, metadata={"round": rnd + 1})
+            tree = {"train": state, "async": astate} if coupled else state
+            mgr.save(rnd + 1, tree, metadata={"round": rnd + 1})
+            del tree
     if mgr is not None:
         mgr.wait()
     if history:

@@ -10,7 +10,10 @@ is carried: the MoE leaves (``router`` and the stacked ``w_gate``,
 bfloat16 leaves (arctic-480b's ``param_dtype``) by their bits.
 ``from_reference_train_state`` carries a whole ``TrainState`` (params
 and the optimizer's step and moments) across, so that both packages
-run the same train step from the same state.
+run the same train step from the same state; a federated state (every
+leaf under a leading ``n_pods`` axis, the step ``(n_pods,)``) too.
+``from_reference_async_state`` carries the FedBuff round's
+``AsyncRoundState`` (and error-feedback residuals) of such a state.
 ``cnn_params_from_reference`` does the same for the FL CNN's dict.
 """
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import DEFAULT_DEVICE, resolve_device
+from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import cnn, lm
 
@@ -55,21 +59,39 @@ def from_reference_params(tree, cfg: ModelConfig,
     return _convert(tree, want, "", dev)
 
 
+def _want(cfg: ModelConfig, n_pods=None, dtype=None) -> dict:
+    """The parameter tree ``lm.init_params(cfg)`` builds, on the meta
+    device (no storage): under a leading ``n_pods`` axis if given, of
+    ``dtype`` if given."""
+    want = lm._init(cfg, None, torch.device("meta"))
+    lead = () if n_pods is None else (n_pods,)
+    return tree_map(lambda w: torch.empty(
+        lead + tuple(w.shape), dtype=dtype or w.dtype, device="meta"), want)
+
+
 def from_reference_train_state(state, cfg: ModelConfig,
                                device=DEFAULT_DEVICE):
     """The port's ``dist.stepfns.TrainState`` on ``device`` from the
     reference's ``TrainState`` as numpy (``jax.tree.map(np.asarray,
-    state)``): ``params`` through :func:`from_reference_params`, the
-    optimizer's ``step`` as a 0-d int32 tensor and its ``mu``/``nu``
+    state)``): ``params`` as :func:`from_reference_params` checks them,
+    the optimizer's ``step`` as an int32 tensor and its ``mu``/``nu``
     trees leaf for leaf (their dtype is the optimizer's
     ``state_dtype``; sgd's and momentum's ``(0,)`` placeholders
-    included); raises ``ValueError`` where a moment's keys or shape do
-    not match the parameters."""
+    included). A federated state (``init_fed_state``'s: a ``(n_pods,)``
+    step and every leaf under a leading ``n_pods`` axis) is carried as
+    such. Raises ``ValueError`` where a key, shape or dtype does not
+    match."""
     from repro_torch.dist.stepfns import TrainState
     from repro_torch.optim.optimizers import OptState
 
     dev = resolve_device(device)
-    want = lm._init(cfg, None, torch.device("meta"))
+    steps = np.asarray(state.opt.step)
+    if steps.ndim > 1:
+        raise ValueError(f"opt/step: shape {steps.shape} is neither () "
+                         "nor (n_pods,)")
+    n_pods = steps.shape[0] if steps.ndim == 1 else None
+    lead = () if n_pods is None else (n_pods,)
+    want = _want(cfg, n_pods)
 
     def moments(tree, like, path):
         if isinstance(like, dict):
@@ -79,17 +101,41 @@ def from_reference_train_state(state, cfg: ModelConfig,
             return {k: moments(tree[k], like[k], f"{path}/{k}")
                     for k in like}
         t = _tensor(tree)
-        if tuple(t.shape) not in (tuple(like.shape), (0,)):
+        if tuple(t.shape) not in (tuple(like.shape), lead + (0,)):
             raise ValueError(f"{path}: shape {tuple(t.shape)} != "
                              f"{tuple(like.shape)}")
         return t.to(dev)
 
-    step = torch.tensor(int(np.asarray(state.opt.step)), dtype=torch.int32,
-                        device=dev)
+    step = torch.from_numpy(steps.astype(np.int32)).to(dev)
     opt = OptState(step, moments(state.opt.mu, want, "mu"),
                    moments(state.opt.nu, want, "nu"))
-    return TrainState(params=from_reference_params(state.params, cfg, dev),
+    return TrainState(params=_convert(state.params, want, "", dev),
                       opt=opt)
+
+
+def from_reference_async_state(astate, cfg: ModelConfig,
+                               device=DEFAULT_DEVICE, residuals=None):
+    """The port's ``dist.stepfns.AsyncRoundState`` on ``device`` from the
+    reference's as numpy: ``global_params`` and ``refs`` pod-stacked
+    parameter trees, ``pending`` their float32 deltas. With
+    ``residuals`` (the reference's error-feedback residuals, pod-stacked
+    float32) returns ``(astate, residuals)``. Raises ``ValueError``
+    where a key, shape or dtype does not match."""
+    from repro_torch.dist.stepfns import AsyncRoundState
+
+    dev = resolve_device(device)
+    lead = np.asarray(tree_leaves(astate.global_params)[0]).shape[:1]
+    if not lead:
+        raise ValueError("global_params: no leading pod axis")
+    want = _want(cfg, lead[0])
+    want32 = _want(cfg, lead[0], torch.float32)
+    out = AsyncRoundState(
+        global_params=_convert(astate.global_params, want, "global", dev),
+        refs=_convert(astate.refs, want, "refs", dev),
+        pending=_convert(astate.pending, want32, "pending", dev))
+    if residuals is None:
+        return out
+    return out, _convert(residuals, want32, "residuals", dev)
 
 
 def cnn_params_from_reference(tree, device=DEFAULT_DEVICE) -> dict:
