@@ -55,7 +55,15 @@ zoo's serving once a config):
   every stacked leaf of every round;
 * its coupled FedBuff branch (a deadline, fault injection and a
   quorum: each round's arrivals, staleness, drops and retries from the
-  timeline drive the async round step), through the same kernels.
+  timeline drive the async round step), through the same kernels;
+* olmo-1b training on a ``DeviceMesh`` (the train step on a state and
+  batches that are DTensors placed by ``launch/specs.py``'s specs, on a
+  one-rank NCCL group), through K4 on each rank's local heads.
+
+The training phases share one one-rank NCCL process group on an
+in-process ``HashStore`` (``_process_group``), ended before the last
+line. ``train()`` takes its mesh path over more than one rank only; on
+one rank it runs the same steps on plain tensors.
 
 Phases, each printing its own line with its seconds; any failure exits
 nonzero:
@@ -370,7 +378,23 @@ nonzero:
    pods' train and async states), only round 2's copied into a fresh
    directory and resumed: the final state bit for bit the uninterrupted
    run's (1 layer at the published width, for the checkpoints' I/O).
-   Prints the peak memory.
+   Prints the peak memory. (c)'s fed step runs on the pod-sharded
+   DTensor state (a ``("pod", "data", "model")`` mesh of one rank, both
+   pods on it) against the no-mesh single-pod step on each pod's slice;
+13. ``mesh``: (a) olmo-1b at its published width and depth (16 layers),
+   one pod, batch 8 x 64, two AdamW steps (``MESH_STEPS``) through the
+   mesh step (``make_train_step`` with ``grad_shardings`` on the state
+   placed by ``launch/specs.py``, batches by ``shard_batch``, on a
+   one-rank mesh): every step's loss and gradient norm and every
+   parameter and moment bit for bit the same steps through
+   ``make_train_step`` on plain tensors with no mesh (deterministic
+   algorithms), K4 the same launches in each, all on the tensor cores;
+   a mesh step and a no-mesh step timed, each profiled for its busy
+   share (DTensor's dispatch is host time). (b) the partition specs of
+   all ten configs on the two production meshes
+   (``make_production_mesh``: 16 x 16,
+   2 x 16 x 16 fed) from their meta-device shapes, printed as each
+   device's parameter and moment bytes (host only).
 
 Before the last line it prints one JSON object with each kernel's
 launches on its path (K4's and K5's ``launches_tc`` of them on the
@@ -699,6 +723,11 @@ FED_STEPS = {"fed": 4, "fed_async": 2, "fed_resume": 1}
 FED_SYNC_PINS = {"fed": (5.164100000000059, 5.164100000000059),
                  "fed_async": (4.0, 3.6950999999997043, 0.3241000000000002),
                  "fed_resume": (4.0, 2.8200999999998007, 0.1491000000000001)}
+
+# mesh phase: olmo-1b at its published width and depth, one pod, batch
+# TRAIN_BATCH x TRAIN_SEQ, train()'s defaults (AdamW, warmup_cosine(3e-3,
+# 20, MESH_STEPS)), MESH_STEPS steps
+MESH_STEPS = 2
 
 # K3/K3' grid (shape, block): tests/test_kernels.py's shapes x {64, 256,
 # 4096}, ragged tails, block >= n, blocks past one CTA's 4096-element tile;
@@ -5285,6 +5314,7 @@ def phase_train():
     from repro_torch._tree import tree_leaves
     from repro_torch.dist import stepfns
 
+    _process_group()
     t0 = time.time()
     # (a) the slice at full width, its step events read back
     with tempfile.TemporaryDirectory() as tmp:
@@ -5500,27 +5530,72 @@ def _plain_quant():
             qref.dequantize_int8_ref(q, s, block))
 
 
+def _process_group() -> None:
+    """The smoke's process group, started once: one rank on an
+    in-process ``HashStore``, NCCL, on card 0. ``train()`` and the mesh
+    holds run their meshes on it."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1,
+                                device_id=torch.device("cuda", 0))
+
+
+def _fed_mesh_step(cfg, opt_cfg, state, batch):
+    """The fed step on ``state`` placed on a one-rank ``("pod", "data",
+    "model")`` mesh by ``launch/specs.py`` (its pod axis ``Shard(0)``
+    over ``pod``, both pods on the rank), the batch by ``shard_batch``,
+    the per-pod ``grad_shardings`` and ``spmd_axis_name="pod"``: the
+    new state and metrics as whole tensors."""
+    from repro_torch import _dtensor
+    from repro_torch._tree import tree_map
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import stepfns
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_host_mesh
+
+    _process_group()
+    mesh = make_host_mesh(1, pods=1, pod_axis=True)
+    spec = specs.state_spec_tree(state, cfg, mesh, fed=True)
+    placed = specs.place_tree(state, spec, mesh)
+    sub = mesh["data", "model"]
+    grad_sh = tree_map(lambda s: shd.to_placements(shd.P(*s[1:]), sub),
+                       spec.params)
+    new, m = stepfns.make_fed_train_step(
+        cfg, opt_cfg, grad_shardings=grad_sh, spmd_axis_name="pod")(
+            placed, shard_batch(batch, mesh, shd.P("pod", "data", None)))
+    if not _dtensor.is_dtensor(new.opt.step):
+        raise SystemExit("fed_train (c): the mesh step left the mesh")
+    return (tree_map(_dtensor.full, new),
+            {k: _dtensor.full(v) for k, v in m.items()})
+
+
 def _fed_holds(cfg, state, state2, batch, n_leaves: int) -> dict:
-    """(c) at (a)'s shapes: one fed step against the single-pod step on
-    each pod's slice, bit for bit under deterministic algorithms; the
-    int8 FedAvg (with and without error feedback) and FedBuff rounds
-    against the same calls through the plain quantiser, bit for bit, K3
-    and K3' once a stacked leaf each."""
+    """(c) at (a)'s shapes: one fed step on the pod-sharded DTensor state
+    against the no-mesh single-pod step on each pod's slice, bit for bit
+    under deterministic algorithms; the int8 FedAvg (with and without
+    error feedback) and FedBuff rounds against the same calls through
+    the plain quantiser, bit for bit, K3 and K3' once a stacked leaf
+    each."""
+    from repro_torch._tree import tree_map
     from repro_torch.dist import stepfns
     from repro_torch.kernels.quant import kernel as k3
     from repro_torch.optim import OptimizerConfig
 
     opt_cfg = OptimizerConfig("adamw", lr=3e-3)
     with _deterministic():
-        fed, fm = stepfns.make_fed_train_step(cfg, opt_cfg)(state2, batch)
+        fed, fm = _fed_mesh_step(cfg, opt_cfg, state2, batch)
         single = stepfns.make_train_step(cfg, opt_cfg)
         for i in range(FED_PODS):
-            pod = stepfns._map_state(lambda l: l[i].clone(), state2)
+            pod = tree_map(lambda l: l[i].clone(), state2)
             one, m = single(pod, {k: v[i] for k, v in batch.items()})
-            if not (_bitwise(stepfns._map_state(lambda l: l[i], fed), one)
+            if not (_bitwise(tree_map(lambda l: l[i], fed), one)
                     and all(torch.equal(fm[k][i], m[k]) for k in m)):
-                raise SystemExit(f"fed_train (c): pod {i}'s fed step differs "
-                                 f"from the single-pod step on its slice")
+                raise SystemExit(f"fed_train (c): pod {i}'s fed step on the "
+                                 f"mesh differs from the no-mesh single-pod "
+                                 f"step on its slice")
             del pod, one
         del fed
     dev = torch.device("cuda")
@@ -5587,6 +5662,7 @@ def phase_fed_train():
     from repro_torch.dist import stepfns
     from repro_torch.optim import OptimizerConfig
 
+    _process_group()
     t0 = time.time()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5735,6 +5811,177 @@ def phase_fed_train():
     return {**{p: r["launches"] for p, r in runs.items()}, "leaf": leaf}
 
 
+def _mesh_batches(cfg):
+    """The host batches ``train()`` draws for one pod: ``TokenBatcher``
+    over ``lm_tokens`` (seed 0), ``MESH_STEPS`` of them."""
+    from repro_torch.data import TokenBatcher, lm_tokens
+
+    it = iter(TokenBatcher(lm_tokens(400_000, cfg.vocab_size, seed=0),
+                           TRAIN_BATCH, TRAIN_SEQ, seed=0))
+    return [next(it) for _ in range(MESH_STEPS)]
+
+
+def _mesh_steps(cfg, opt_cfg, schedule, on_mesh: bool):
+    """``MESH_STEPS`` steps of a fresh full-width state (``train()``'s
+    init, seed 0) on ``_mesh_batches``: through the mesh step (the state
+    placed by ``launch/specs.py``, the batches by ``shard_batch``, the
+    gradients pinned to the parameters' placements) or through
+    ``make_train_step`` on plain tensors. Returns (the final state, the
+    last batch, the step, each step's (loss, grad norm), K4 launches)."""
+    from repro_torch import _dtensor
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import stepfns
+    from repro_torch.kernels.attention import kernel as k4
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_host_mesh
+
+    state = stepfns.init_train_state(cfg, opt_cfg, device="cuda")
+    hosts = _mesh_batches(cfg)
+    if on_mesh:
+        mesh = make_host_mesh(1)
+        spec = specs.state_spec_tree(state, cfg, mesh)
+        state = specs.place_tree(state, spec, mesh)
+        step = stepfns.make_train_step(
+            cfg, opt_cfg, schedule,
+            grad_shardings=shd.spec_tree_placements(spec.params, mesh))
+        batches = [shard_batch(b, mesh) for b in hosts]
+    else:
+        step = stepfns.make_train_step(cfg, opt_cfg, schedule)
+        batches = [{k: torch.as_tensor(v, device="cuda")
+                    for k, v in b.items()} for b in hosts]
+    k4.launches = k4.launches_tc = 0
+    metrics = []
+    for b in batches:
+        state, m = step(state, b)
+        metrics.append((_dtensor.full(m["loss"]),
+                        _dtensor.full(m["grad_norm"])))
+    torch.cuda.synchronize()
+    launches = (k4.launches, k4.launches_tc)
+    if on_mesh and not _dtensor.is_dtensor(state.opt.step):
+        raise SystemExit("mesh (a): the mesh step left the mesh")
+    return state, batches[-1], step, metrics, launches
+
+
+def _spec_bytes(tree, mesh) -> float:
+    """Bytes one device of ``mesh`` holds of a tree of ``TensorSpec``s:
+    each dim cut by the sizes of its spec's axes, rounded up."""
+    from repro_torch._tree import tree_leaves
+
+    sizes = dict(mesh.shape)
+    total = 0
+    for t in tree_leaves(tree):
+        n = 1
+        for d, size in enumerate(t.shape):
+            entry = t.spec[d] if d < len(t.spec) else None
+            axes = (() if entry is None else entry if isinstance(entry, tuple)
+                    else (entry,))
+            split = math.prod(sizes[a] for a in axes)
+            n *= -(-size // split)
+        total += n * t.dtype.itemsize
+    return total
+
+
+def _spec_table() -> dict:
+    """(b): each config's parameter and moment bytes a device on the two
+    production meshes (single pod, and fed with two pods), from
+    ``launch/specs.py``'s specs of its meta-device state."""
+    from repro_torch.configs import get_config, list_architectures
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.optim import OptimizerConfig
+
+    table = {}
+    for arch in list_architectures():
+        cfg = get_config(arch)
+        row = {}
+        for multi in (False, True):
+            mesh = make_production_mesh(multi_pod=multi)
+            st, _ = specs.state_specs(cfg, OptimizerConfig(), mesh,
+                                      fed=multi, n_pods=2)
+            key = "2x16x16" if multi else "16x16"
+            row[f"{key}_params_gb"] = round(
+                _spec_bytes(st.params, mesh) / 1e9, 4)
+            row[f"{key}_moments_gb"] = round(
+                (_spec_bytes(st.opt.mu, mesh)
+                 + _spec_bytes(st.opt.nu, mesh)) / 1e9, 4)
+        table[arch] = row
+        print(f"  {arch}: " + ", ".join(f"{k} {v}" for k, v in row.items()),
+              flush=True)
+    return table
+
+
+def phase_mesh():
+    """(a) olmo-1b at its published width and depth through the mesh
+    step, bit for bit the no-mesh steps, both timed; (b) the production
+    meshes' spec table."""
+    from repro_torch import _dtensor
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.optim import OptimizerConfig, warmup_cosine
+
+    _process_group()
+    t0 = time.time()
+    cfg = get_config("olmo-1b").replace(grad_accum=1)
+    opt_cfg = OptimizerConfig(name="adamw", lr=3e-3)
+    schedule = warmup_cosine(3e-3, 20, MESH_STEPS)
+    k4_want = MESH_STEPS * TRAIN_K4_A_STEP
+    with _deterministic():
+        plain, plain_batch, plain_step, plain_m, plain_k4 = _mesh_steps(
+            cfg, opt_cfg, schedule, on_mesh=False)
+        mesh, mesh_batch, mesh_step, mesh_m, mesh_k4 = _mesh_steps(
+            cfg, opt_cfg, schedule, on_mesh=True)
+        if (not _bitwise(tree_map(_dtensor.full, mesh), plain)
+                or mesh_k4 != plain_k4
+                or plain_k4 != (k4_want, k4_want)
+                or not all(torch.equal(a, b) for x, y in zip(mesh_m, plain_m)
+                           for a, b in zip(x, y))):
+            raise SystemExit(
+                f"mesh (a): the mesh step differs from the no-mesh step: "
+                f"(loss, grad norm) {[tuple(map(float, m)) for m in mesh_m]}"
+                f" / {[tuple(map(float, m)) for m in plain_m]}, K4 "
+                f"{mesh_k4} / {plain_k4} (want {k4_want} on the tensor "
+                f"cores)")
+        n_leaves = len(tree_leaves(plain.params))
+    # one more step of each final state, timed and profiled (outside
+    # deterministic mode, as train() runs)
+    plain_ms, plain_dev, plain_top = _timed_step(plain_step, plain,
+                                                 plain_batch)
+    del plain
+    mesh_ms, mesh_dev, mesh_top = _timed_step(mesh_step, mesh, mesh_batch)
+    del mesh
+    _print_top(f"a no-mesh step at {TRAIN_BATCH} x {TRAIN_SEQ}", plain_dev,
+               plain_ms, plain_top)
+    _print_top(f"a mesh step at {TRAIN_BATCH} x {TRAIN_SEQ}", mesh_dev,
+               mesh_ms, mesh_top)
+    split = {"a": time.time() - t0}
+    table = _spec_table()
+    split["b"] = time.time() - t0 - split["a"]
+
+    def busy(dev, wall):
+        return "not measured" if dev is None else f"{dev / wall:.3f}"
+
+    _line("mesh", time.time() - t0, arch="olmo-1b", layers=16,
+          batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=MESH_STEPS,
+          mesh_shape="data 1 x model 1 (one rank, NCCL)",
+          held_bitwise="the mesh step vs no mesh: losses, grad norms, "
+                       "params, moments",
+          leaves=n_leaves, k4=mesh_k4[0], k4_tc=mesh_k4[1],
+          losses=",".join(f"{float(m[0]):.6f}" for m in mesh_m),
+          mesh_step_ms=f"{mesh_ms:.3f}",
+          mesh_step_device_ms=("not measured" if mesh_dev is None
+                               else f"{mesh_dev:.3f}"),
+          mesh_device_busy=busy(mesh_dev, mesh_ms),
+          no_mesh_step_ms=f"{plain_ms:.3f}",
+          no_mesh_step_device_ms=("not measured" if plain_dev is None
+                                  else f"{plain_dev:.3f}"),
+          no_mesh_device_busy=busy(plain_dev, plain_ms),
+          spec_table_s=f"{split['b']:.3f}",
+          split_s={k: f"{v:.1f}" for k, v in split.items()})
+    return {"olmo-1b-mesh": {"k4": mesh_k4[0], "k4_tc": mesh_k4[1]},
+            "spec_table": table}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5796,13 +6043,15 @@ def main() -> int:
     fed_paths = ("olmo-1b-fed", "olmo-1b-fed-async")
     for path in fed_paths:
         by_path[path] = {k: fed[path][k] for k in ("k1", "k2", "phase")}
+    mesh = phase_mesh()["olmo-1b-mesh"]
     # K4 runs on the prefill of every served config but mamba2-780m, on
-    # the tensor-core kernel alone, and on olmo-1b's train steps, one pod
-    # and federated
+    # the tensor-core kernel alone, and on olmo-1b's train steps, one pod,
+    # federated and on the mesh
     launches["flash_attention"] = (olmo["k4"] + rg["k4"]
                                    + sum(z["k4"] for z in zoo.values())
                                    + train_counts["k4"]
-                                   + sum(fed[p]["k4"] for p in fed_paths))
+                                   + sum(fed[p]["k4"] for p in fed_paths)
+                                   + mesh["k4"])
     launches["rglru_scan"] = rg["k6"]
     phase_entry.update(wide_hold.finish())
     phase_entry["max_abs_err"] = max(phase_entry["max_abs_err"],
@@ -5839,12 +6088,14 @@ def main() -> int:
                                     + sum(z["k4_tc"] for z in zoo.values())
                                     + train_counts["k4_tc"]
                                     + sum(fed[p]["k4_tc"]
-                                          for p in fed_paths))
+                                          for p in fed_paths)
+                                    + mesh["k4_tc"])
             entry["launches_by_path"] = {
                 "olmo-1b": olmo["k4"], "recurrentgemma-2b": rg["k4"],
                 **{name: z["k4"] for name, z in zoo.items()},
                 "olmo-1b-train": train_counts["k4"],
                 **{p: fed[p]["k4"] for p in fed_paths},
+                "olmo-1b-mesh": mesh["k4"],
                 "train-backward-check": bwd["launches"]["k4"]}
             # K4 alone at each zoo config's prefill shape
             for key in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -5887,6 +6138,10 @@ def main() -> int:
             entry["backward_bound_ms"] = {
                 "recurrentgemma-2b-s512": bwd["k6"][3]}
     _line("total", time.time() - t0)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

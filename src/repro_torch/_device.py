@@ -34,8 +34,9 @@ def resolve_device(device) -> torch.device:
                 "CUDA is not available; pass device='cpu' to run the "
                 "plain PyTorch path on the CPU"
             )
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}; use cuda or cpu")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {device!r}; use cuda or cpu "
+                         f"(or meta for shapes alone)")
     return dev
 
 

@@ -1,5 +1,5 @@
-"""Parameter trees of the FL half (the CNN, its updates): nested dicts of
-tensors.
+"""Parameter trees: nested dicts of tensors (the FL half's CNN, its
+updates; the LM's parameters), and the NamedTuples that hold them.
 
 The reference walks its pytrees with ``jax.tree``, which visits a dict's
 keys in sorted order; these helpers do the same, so that leaves pair up
@@ -32,8 +32,12 @@ def tree_unflatten(like, leaves) -> object:
 
 def tree_map(fn: Callable, tree, *rest) -> object:
     """``fn`` over the leaves of ``tree`` and the matching leaves of
-    ``rest`` (trees of the same keys)."""
+    ``rest`` (trees of the same keys). NamedTuples (a ``TrainState``, an
+    ``OptState``) are walked field by field and rebuilt in place."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *parts)
+                            for parts in zip(tree, *rest)))
     return fn(tree, *rest)

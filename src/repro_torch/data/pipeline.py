@@ -1,20 +1,25 @@
-"""Host-side batching of a token stream for LM training (numpy).
+"""Host-side batching of a token stream for LM training (numpy), and
+its placement onto a device mesh.
 
-The counterpart of the reference package's ``data/pipeline.py``
-``TokenBatcher``: the same blocks, the same ``np.random.default_rng``
-permutations, so it yields the reference's batches in the reference's
-order. Each pod sees a disjoint contiguous shard of the stream (the FL
-property); the federated branch of ``launch/train.py`` stacks the pods'
-batches to ``(n_pods, B / n_pods, S)`` on one device. The reference's
-``shard_batch`` places a batch onto a device mesh; it waits for the
-port's mesh and specs (``launch/mesh.py``, ``launch/specs.py``, ROADMAP
-Queue 1 item 10).
+The counterpart of the reference package's ``data/pipeline.py``:
+``TokenBatcher`` makes the same blocks with the same
+``np.random.default_rng`` permutations, so it yields the reference's
+batches in the reference's order. Each pod sees a disjoint contiguous
+shard of the stream (the FL property); the federated branch of
+``launch/train.py`` stacks the pods' batches to ``(n_pods, B / n_pods,
+S)``. ``shard_batch`` places a host batch onto a ``DeviceMesh`` as
+DTensors, the batch dim over ``("pod", "data")``.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
+
+from repro_torch import _dtensor
+from repro_torch.dist import sharding as shd
+from repro_torch.launch.mesh import batch_axes
 
 
 class TokenBatcher:
@@ -47,3 +52,18 @@ class TokenBatcher:
                     "labels": rows[:, 1:].astype(np.int32),
                 }
             self.epoch += 1
+
+
+def shard_batch(batch: Dict[str, np.ndarray], mesh,
+                spec: Optional[shd.P] = None) -> Dict[str, torch.Tensor]:
+    """Place a host batch onto ``mesh``: DTensors on the mesh's device,
+    the batch dim ``Shard(0)`` over ``("pod", "data")`` (those the mesh
+    has, the pod axis major), or as ``spec`` says (the federated
+    ``(n_pods, B / n_pods, S)`` stack: ``P("pod", "data")``). Every rank
+    passes the same host batch and keeps its own rows."""
+    if spec is None:
+        spec = shd.P(batch_axes(mesh))
+    placements = shd.to_placements(spec, mesh)
+    return {k: _dtensor.place(torch.as_tensor(v, device=mesh.device_type),
+                              mesh, placements)
+            for k, v in batch.items()}

@@ -8,13 +8,23 @@ and the backward recomputes ``ref.attention_ref`` under autograd and
 returns its gradients, as the reference's ``_bwd`` takes ``jax.vjp`` of
 its oracle. On the CPU autograd differentiates the plain version
 directly.
+
+On DTensors (training on a mesh) the dispatch runs on each rank's
+local part: the batch and the heads may stay split (column-parallel
+``wq``/``wk``/``wv`` leave each rank its own heads), any other split is
+gathered first (``_dtensor.local_kernel``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import _dtensor
 from repro_torch.kernels.attention import kernel as _kernel
 from repro_torch.kernels.attention import ref as _ref
+
+
+# the dims of q, k, v and the output a rank may hold a part of
+_SPLIT = {0: "batch", 2: "head"}
 
 
 class FlashAttention(torch.autograd.Function):
@@ -45,8 +55,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     On a CUDA tensor this launches the kernel or raises, through
     :class:`FlashAttention` where a gradient is needed; on a CPU tensor
-    it runs ``ref.attention_ref``.
+    it runs ``ref.attention_ref``. DTensors run on their local parts.
     """
+    if _dtensor.is_dtensor(q):
+        return _dtensor.local_kernel(
+            lambda q, k, v: flash_attention(q, k, v, causal, window),
+            (q, k, v), (_SPLIT,) * 3, _SPLIT)
     if q.is_cuda:
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v)):

@@ -6,12 +6,15 @@ gradient it runs inside :class:`RGLRUScan`, the counterpart of the
 reference package's ``custom_vjp``: the kernel forward saves ``a``,
 ``b`` and ``h0``, and the backward recomputes ``ref.rglru_scan_ref``
 under autograd and returns its gradients. On the CPU autograd
-differentiates the plain version directly.
+differentiates the plain version directly. DTensors (training on a
+mesh) run on each rank's local part, the batch and the channels split at
+most (``_dtensor.local_kernel``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import _dtensor
 from repro_torch.kernels.rglru import kernel as _kernel
 from repro_torch.kernels.rglru import ref as _ref
 
@@ -44,8 +47,13 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
 
     On a CUDA tensor this launches the kernel or raises, through
     :class:`RGLRUScan` where a gradient is needed; on a CPU tensor it
-    runs ``ref.rglru_scan_ref``.
+    runs ``ref.rglru_scan_ref``. DTensors run on their local parts.
     """
+    if _dtensor.is_dtensor(a):
+        bsr = {0: "batch", 2: "channel"}
+        return _dtensor.local_kernel(
+            rglru_scan, (a, b, h0),
+            (bsr, bsr, {0: "batch", 1: "channel"}), bsr)
     if a.is_cuda:
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad for t in (a, b, h0)):

@@ -8,12 +8,15 @@ and the backward recomputes ``ref.ssd_chunked_ref`` (which masks before
 ``exp``, caveat C5) under autograd and returns the gradients of both
 outputs, ``y`` and ``h_last``, for every tensor input, ``h0`` included
 (the reference's kernel takes no ``h0``). On the CPU autograd
-differentiates the plain version directly.
+differentiates the plain version directly. DTensors (training on a
+mesh) run on each rank's local part, the batch and the heads split at
+most (``_dtensor.local_kernel``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import _dtensor
 from repro_torch.kernels.ssd import kernel as _kernel
 from repro_torch.kernels.ssd import ref as _ref
 
@@ -57,8 +60,15 @@ def ssd_scan(xh: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
 
     On a CUDA tensor this launches the kernel or raises, through
     :class:`SSDScan` where a gradient is needed; on a CPU tensor it runs
-    ``ref.ssd_chunked_ref``.
+    ``ref.ssd_chunked_ref``. DTensors run on their local parts.
     """
+    if _dtensor.is_dtensor(xh):
+        bh, b = {0: "batch", 2: "head"}, {0: "batch"}
+        return _dtensor.local_kernel(
+            lambda *t: ssd_scan(*t[:5], chunk, t[5]),
+            (xh, b_mat, c_mat, dt, a, h0),
+            (bh, b, b, bh, {0: "head"}, {0: "batch", 1: "head"}),
+            (bh, {0: "batch", 1: "head"}))
     if xh.is_cuda:
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad

@@ -1,9 +1,11 @@
-"""LM training driver on one device, timed by the PON co-simulation.
+"""LM training driver on a device mesh, timed by the PON co-simulation.
 
     python -m repro_torch.launch.train --steps 4 --rounds 2         # smoke, card
     python -m repro_torch.launch.train --device cpu                 # plain path
     python -m repro_torch.launch.train --arch olmo-1b --full --steps 4 --rounds 2
     python -m repro_torch.launch.train --ckpt-dir ck --log-jsonl ev.jsonl
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
+        --pods 2 --batch 4 --seq 16 --steps 2 --rounds 2      # two ranks
 
 The counterpart of the reference package's ``launch/train.py``, with its
 arguments and defaults: the config-driven model, AdamW under a
@@ -13,36 +15,61 @@ co-simulation (``net.simulate``: faults, tenant jobs, several PONs and a
 CPS uplink as given), a checkpoint a round, resume, and the
 ``--log-jsonl``/``--trace`` observability of ``repro_torch.obs``.
 
+The run is one process a device: under ``torchrun`` (``WORLD_SIZE >
+1``) the default process group starts from the environment (``nccl`` on
+the cards, ``gloo`` with ``--device cpu``); otherwise a one-rank group on
+an in-process ``HashStore`` (no sockets). A caller's running group is
+used as it is. Over more than one rank the state, the batches and the
+steps are DTensors on a ``DeviceMesh`` of ``device``'s type over the
+group's ranks (``launch/mesh.py``; a group whose backend cannot serve
+that device raises), placed by ``launch/specs.py``'s specs, as the
+reference places them under its mesh; one rank runs the same steps on
+plain tensors, a mesh of one device splitting nothing. The returned
+state is whole tensors.
+
 The pods are the reference's: ``pods = n_pods`` where the device count
 allows (``n_dev % n_pods == 0 and n_dev >= n_pods``), else one. One pod
-takes the single-pod train step. More than one takes the federated
-branch: one ``TokenBatcher`` a pod, the pod-stacked state of
-``init_fed_state``, ``make_fed_train_step`` and an int8 (``compress``)
-FedAvg round a round; with a deadline or an async buffer, the coupled
-FedBuff round (``make_async_round_step``) driven by each timeline
-round's arrivals, staleness, partial fractions, drops and give-ups,
-its ``AsyncRoundState`` checkpointed beside the train state. The
-reference gives each pod its own devices; here every pod's step runs
-on ``device`` in turn. On one card, as on one JAX device, the formula
-gives one pod; ``device_count`` is the seam through which the tests
-(and ``chip_smoke.py`` ``fed_train``) see two devices.
+takes the single-pod train step (on a ``("data", "model")`` mesh over
+several ranks). More than one takes the federated branch (on a
+``("pod", "data", "model")`` mesh): one ``TokenBatcher`` a pod, the pod-stacked state of
+``init_fed_state`` split over the ``pod`` axis, ``make_fed_train_step``
+and an int8 (``compress``) FedAvg round a round; with a deadline or an
+async buffer, the coupled FedBuff round (``make_async_round_step``)
+driven by each timeline round's arrivals, staleness, partial fractions,
+drops and give-ups, its ``AsyncRoundState`` checkpointed beside the
+train state. The device count is the ranks of a job of more than one,
+else the cards (1 on the CPU). Over several ranks the pod axis spans
+them, each rank holding ``pods // ranks`` pods; one rank holds every
+pod, in turn on its device. On one card, as on one JAX device, the formula gives one pod;
+``device_count`` is the seam through which the tests (and
+``chip_smoke.py`` ``fed_train``) see two devices. Checkpoints hold
+whole tensors; rank 0 writes them, every rank reads them.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import _dtensor
 from repro_torch._device import DEFAULT_DEVICE, resolve_device
+from repro_torch._tree import tree_map
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core.slicing import ClientProfile
 from repro_torch.data import TokenBatcher, lm_tokens
+from repro_torch.data.pipeline import shard_batch
+from repro_torch.dist import sharding as shd
 from repro_torch.dist import stepfns
 from repro_torch.faults import FaultSchedule
+from repro_torch.launch import specs
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.net.api import SweepSpec, simulate
 from repro_torch.net.engine import SweepCase
 from repro_torch.net.jobs import JobSpec, make_competing_jobs
@@ -54,17 +81,46 @@ from repro_torch.optim import OptimizerConfig, warmup_cosine
 
 
 def device_count(dev: torch.device) -> int:
-    """The devices a run may spread over: the cards, or 1 on the CPU."""
+    """The devices a run may spread over: the ranks of a
+    ``torch.distributed`` job of more than one; else the cards, or 1 on
+    the CPU."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        return dist.get_world_size()
     return torch.cuda.device_count() if dev.type == "cuda" else 1
 
 
 def mesh_shape(n_dev: int, pods: int) -> dict:
     """The axes of the reference's ``make_host_mesh`` over ``n_dev``
     devices (model parallelism 1): ``pod`` first where there is more
-    than one pod. Here the pods' steps run on one device, as the pod
-    axis of a vmap does."""
+    than one pod. It is the run's mesh where the ranks are the devices;
+    through the ``device_count`` seam (more devices than ranks: one
+    rank) there is no mesh and the rank holds every pod."""
     axes = {"pod": pods} if pods > 1 else {}
     return {**axes, "data": n_dev // pods, "model": 1}
+
+
+@contextlib.contextmanager
+def process_group(dev: torch.device):
+    """The default process group for the block: the running one, else
+    one started from the environment under ``torchrun`` (``WORLD_SIZE >
+    1``; ``nccl`` on the cards, each rank on its ``LOCAL_RANK``'s card,
+    ``gloo`` on the CPU) or a one-rank group on an in-process
+    ``HashStore``, destroyed on the way out."""
+    if dist.is_initialized():
+        yield
+        return
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group(backend)
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def round_masks(timeline, idx: int, pods: int, in_retry: set, dev):
@@ -210,171 +266,206 @@ def train(
             "features (per-job deadlines go through JobSpec.deadline_s)"
         )
     dev = resolve_device(device)
-    n_dev = device_count(dev)
-    pods = n_pods if n_dev % n_pods == 0 and n_dev >= n_pods else 1
-    fed = pods > 1
+    with process_group(dev):
+        n_dev = device_count(dev)
+        pods = n_pods if n_dev % n_pods == 0 and n_dev >= n_pods else 1
+        fed = pods > 1
+        world, rank = dist.get_world_size(), dist.get_rank()
+        lead = rank == 0
+        # over several ranks the pod axis spans them (pods = n_pods only
+        # where the ranks divide); one rank takes the plain path (a mesh
+        # of one device splits nothing, and DTensor dispatch would double
+        # the step)
+        mesh = (make_host_mesh(1, pods=pods, device=dev) if world > 1
+                else None)
 
-    cfg = get_config(arch, smoke=smoke).replace(grad_accum=1)
-    if config_overrides:
-        cfg = cfg.replace(**config_overrides)
-    opt_cfg = OptimizerConfig(name="adamw", lr=lr)
-    schedule = warmup_cosine(lr, 20, steps_per_round * rounds)
+        cfg = get_config(arch, smoke=smoke).replace(grad_accum=1)
+        if config_overrides:
+            cfg = cfg.replace(**config_overrides)
+        opt_cfg = OptimizerConfig(name="adamw", lr=lr)
+        schedule = warmup_cosine(lr, 20, steps_per_round * rounds)
 
-    log = EventLog(jsonl_path=log_jsonl)
-    if collector is None and (log_jsonl or trace_path):
-        collector = Collector(
-            tracer=SpanTracer(enabled=trace_path is not None), device=dev)
-    log.emit("mesh", echo="mesh: {shape} devices={devices}",
-             shape=mesh_shape(n_dev, pods), devices=n_dev, arch=arch,
-             pods=pods, policy=policy, load=load)
+        log = EventLog(jsonl_path=log_jsonl if lead else None, console=lead)
+        if lead and collector is None and (log_jsonl or trace_path):
+            collector = Collector(
+                tracer=SpanTracer(enabled=trace_path is not None), device=dev)
+        log.emit("mesh", echo="mesh: {shape} devices={devices}",
+                 shape=mesh_shape(n_dev, pods), devices=n_dev, arch=arch,
+                 pods=pods, policy=policy, load=load)
 
-    # federated data: one disjoint shard a pod
-    tokens = lm_tokens(400_000, cfg.vocab_size, seed=0)
-    iters = [iter(TokenBatcher(tokens, global_batch // pods, seq_len,
-                               seed=i, pod_index=i, n_pods=pods))
-             for i in range(pods)]
+        # federated data: one disjoint shard a pod
+        tokens = lm_tokens(400_000, cfg.vocab_size, seed=0)
+        iters = [iter(TokenBatcher(tokens, global_batch // pods, seq_len,
+                                   seed=i, pod_index=i, n_pods=pods))
+                 for i in range(pods)]
 
-    if fed:
-        state = stepfns.init_fed_state(cfg, opt_cfg, pods, device=dev)
-        step = stepfns.make_fed_train_step(cfg, opt_cfg, schedule)
-        round_step = stepfns.make_fed_round_step(cfg, compress=compress)
-    else:
-        state = stepfns.init_train_state(cfg, opt_cfg, device=dev)
-        step = stepfns.make_train_step(cfg, opt_cfg, schedule)
-        round_step = None
-    # deadline/async rounds: the buffered staleness-weighted round step,
-    # driven by the timeline's arrivals, replaces the plain FedAvg; built
-    # before the restore so that the template is the tree that is saved
-    coupled = fed and (deadline_s is not None or async_buffer is not None)
-    astate = around = None
-    if coupled:
-        astate = stepfns.init_async_state(state)
-        around = stepfns.make_async_round_step(
-            cfg, compress=compress, quorum_frac=quorum,
-            quorum_expected=pods if quorum is not None else None)
-
-    mgr = CheckpointManager(ckpt_dir, keep=2) if ckpt_dir else None
-    start_round = 0
-    if mgr is not None and resume:
-        template = {"train": state, "async": astate} if coupled else state
-        restored = mgr.restore_latest(like=template)
-        if restored is not None:
-            tree, meta = restored
-            if coupled:
-                state, astate = tree["train"], tree["async"]
-            else:
-                state = tree
-            del tree, template
-            start_round = int(meta.get("round", 0))
-            log.emit("resume", echo="resumed from round {round}",
-                     round=start_round)
-            # a resumed run consumes the batches an uninterrupted one
-            # would (TokenBatcher is a pure function of its seed)
-            for _ in range(start_round * steps_per_round):
-                for g in iters:
-                    next(g)
-
-    # the round's PON timing, the slice sized for the measured payloads:
-    # the compressed per-pod upload, the float32 broadcast
-    up_bits = float(stepfns.fed_update_bits(cfg, compress))
-    down_bits = float(stepfns.fed_update_bits(cfg, "none"))
-    log.emit("payload", compress=compress, upload_bits=up_bits,
-             model_bits=down_bits)
-    spec, job_specs = net_spec(
-        pods, up_bits, down_bits, rounds, policy=policy, load=load,
-        n_pons=n_pons, cps_gbps=cps_gbps, deadline_s=deadline_s,
-        deadline_policy=deadline_policy, async_buffer=async_buffer,
-        dropout_rate=dropout_rate, outage_rate=outage_rate,
-        loss_rate=loss_rate, fault_seed=fault_seed, quorum=quorum,
-        jobs=jobs, fairness=fairness)
-    if job_specs is not None:
-        log.emit("jobs", echo="tenant jobs: {n} competitors "
-                 "(fairness={fairness})", n=jobs, fairness=fairness)
-    # ALWAYS the whole schedule, even on resume: round r's counter
-    # streams are keyed by r, so a resumed run replays the same network
-    n_net_rounds = max(rounds, 1)
-    with maybe_span(collector, "net:timeline", rounds=n_net_rounds):
-        timeline = simulate(spec, collector=collector, device=dev)[0]
-    if job_specs is not None:
-        # the pods' wall clock follows their job's sync time
-        sync_times = np.array([rnd.job_sync.get(0, rnd.sync_time)
-                               for rnd in timeline.rounds])
-    else:
-        sync_times = timeline.sync_times
-
-    wall_simulated = 0.0
-    # pods whose failed upload is retrying (they re-enter the timeline
-    # as carriers and must not snapshot their payload again), replayed
-    # over the rounds before a resume
-    in_retry: set = set()
-    for rn in timeline.rounds[:start_round]:
-        in_retry |= set(rn.failed) | set(rn.lost)
-        in_retry -= set(rn.arrived) | set(rn.gave_up)
-    history = []
-    for rnd in range(start_round, rounds):
-        t0 = time.time()
-        losses = []
-        for it in range(steps_per_round):
-            parts = [next(g) for g in iters]
-            if fed:
-                batch = {k: torch.as_tensor(np.stack([p[k] for p in parts]),
-                                            device=dev) for k in parts[0]}
-            else:
-                batch = {k: torch.as_tensor(v, device=dev)
-                         for k, v in parts[0].items()}
-            state, metrics = step(state, batch)
-            loss = float(metrics["loss"].mean())
-            losses.append(loss)
-            if it % log_every == 0:
-                log.emit("step",
-                         echo="round {round} step {step}: loss={loss:.4f}",
-                         round=rnd, step=it, loss=loss)
+        # every rank draws the whole state, then keeps its part
         if fed:
-            weights = torch.ones((pods,), dtype=torch.float32, device=dev)
-            if coupled:
-                idx = min(rnd, len(timeline.rounds) - 1)
-                state, astate = around(state, astate, weights,
-                                       *round_masks(timeline, idx, pods,
-                                                    in_retry, dev))
-                rn = timeline.rounds[idx]
-                in_retry |= set(rn.failed) | set(rn.lost)
-                in_retry -= set(rn.arrived) | set(rn.gave_up)
+            state = stepfns.init_fed_state(cfg, opt_cfg, pods, device=dev)
+        else:
+            state = stepfns.init_train_state(cfg, opt_cfg, device=dev)
+        grad_sh = batch_spec = None
+        if mesh is not None:
+            spec = specs.state_spec_tree(state, cfg, mesh, fed=fed)
+            state = specs.place_tree(state, spec, mesh)
+            if fed:
+                # the per-pod step's gradients in the per-pod placements:
+                # the pod entry stripped, on the mesh's other axes
+                sub = mesh["data", "model"]
+                grad_sh = tree_map(lambda s: shd.to_placements(
+                    shd.P(*s[1:]), sub), spec.params)
+                per_pod = global_batch // pods
+                batch_spec = shd.P("pod", "data" if per_pod
+                                   % sub["data"].size() == 0 else None, None)
             else:
-                state = round_step(state, weights)
-        sync = float(sync_times[min(rnd, len(sync_times) - 1)])
-        wall_simulated += sync
-        entry = {"round": rnd, "loss": float(np.mean(losses)),
-                 "sync_s": sync, "wall_s": time.time() - t0}
-        history.append(entry)
-        log.emit("round", **entry)
+                grad_sh = shd.spec_tree_placements(spec.params, mesh)
+        if fed:
+            step = stepfns.make_fed_train_step(cfg, opt_cfg, schedule,
+                                               grad_shardings=grad_sh,
+                                               spmd_axis_name="pod")
+            round_step = stepfns.make_fed_round_step(cfg, compress=compress)
+        else:
+            step = stepfns.make_train_step(cfg, opt_cfg, schedule,
+                                           grad_shardings=grad_sh)
+            round_step = None
+        # deadline/async rounds: the buffered staleness-weighted round step,
+        # driven by the timeline's arrivals, replaces the plain FedAvg; built
+        # before the restore so that the template is the tree that is saved
+        coupled = fed and (deadline_s is not None or async_buffer is not None)
+        astate = around = None
+        if coupled:
+            astate = stepfns.init_async_state(state)
+            around = stepfns.make_async_round_step(
+                cfg, compress=compress, quorum_frac=quorum,
+                quorum_expected=pods if quorum is not None else None)
+
+        mgr = CheckpointManager(ckpt_dir, keep=2) if ckpt_dir else None
+        start_round = 0
+        if mgr is not None and resume:
+            template = {"train": state, "async": astate} if coupled else state
+            restored = mgr.restore_latest(like=template)
+            if restored is not None:
+                tree, meta = restored
+                # whole tensors, each rank keeping its part
+                tree = tree_map(_dtensor.place_like, tree, template)
+                if coupled:
+                    state, astate = tree["train"], tree["async"]
+                else:
+                    state = tree
+                del tree, template
+                start_round = int(meta.get("round", 0))
+                log.emit("resume", echo="resumed from round {round}",
+                         round=start_round)
+                # a resumed run consumes the batches an uninterrupted one
+                # would (TokenBatcher is a pure function of its seed)
+                for _ in range(start_round * steps_per_round):
+                    for g in iters:
+                        next(g)
+
+        # the round's PON timing, the slice sized for the measured payloads:
+        # the compressed per-pod upload, the float32 broadcast
+        up_bits = float(stepfns.fed_update_bits(cfg, compress))
+        down_bits = float(stepfns.fed_update_bits(cfg, "none"))
+        log.emit("payload", compress=compress, upload_bits=up_bits,
+                 model_bits=down_bits)
+        spec, job_specs = net_spec(
+            pods, up_bits, down_bits, rounds, policy=policy, load=load,
+            n_pons=n_pons, cps_gbps=cps_gbps, deadline_s=deadline_s,
+            deadline_policy=deadline_policy, async_buffer=async_buffer,
+            dropout_rate=dropout_rate, outage_rate=outage_rate,
+            loss_rate=loss_rate, fault_seed=fault_seed, quorum=quorum,
+            jobs=jobs, fairness=fairness)
+        if job_specs is not None:
+            log.emit("jobs", echo="tenant jobs: {n} competitors "
+                     "(fairness={fairness})", n=jobs, fairness=fairness)
+        # ALWAYS the whole schedule, even on resume: round r's counter
+        # streams are keyed by r, so a resumed run replays the same network
+        n_net_rounds = max(rounds, 1)
+        with maybe_span(collector, "net:timeline", rounds=n_net_rounds):
+            timeline = simulate(spec, collector=collector, device=dev)[0]
+        if job_specs is not None:
+            # the pods' wall clock follows their job's sync time
+            sync_times = np.array([rnd.job_sync.get(0, rnd.sync_time)
+                                   for rnd in timeline.rounds])
+        else:
+            sync_times = timeline.sync_times
+
+        wall_simulated = 0.0
+        # pods whose failed upload is retrying (they re-enter the timeline
+        # as carriers and must not snapshot their payload again), replayed
+        # over the rounds before a resume
+        in_retry: set = set()
+        for rn in timeline.rounds[:start_round]:
+            in_retry |= set(rn.failed) | set(rn.lost)
+            in_retry -= set(rn.arrived) | set(rn.gave_up)
+        history = []
+        for rnd in range(start_round, rounds):
+            t0 = time.time()
+            losses = []
+            for it in range(steps_per_round):
+                parts = [next(g) for g in iters]
+                host = ({k: np.stack([p[k] for p in parts])
+                         for k in parts[0]} if fed else parts[0])
+                if mesh is None:
+                    batch = {k: torch.as_tensor(v, device=dev)
+                             for k, v in host.items()}
+                else:
+                    batch = shard_batch(host, mesh, batch_spec)
+                state, metrics = step(state, batch)
+                loss = float(_dtensor.full(metrics["loss"]).mean())
+                losses.append(loss)
+                if it % log_every == 0:
+                    log.emit("step",
+                             echo="round {round} step {step}: loss={loss:.4f}",
+                             round=rnd, step=it, loss=loss)
+            if fed:
+                weights = torch.ones((pods,), dtype=torch.float32, device=dev)
+                if coupled:
+                    idx = min(rnd, len(timeline.rounds) - 1)
+                    state, astate = around(state, astate, weights,
+                                           *round_masks(timeline, idx, pods,
+                                                        in_retry, dev))
+                    rn = timeline.rounds[idx]
+                    in_retry |= set(rn.failed) | set(rn.lost)
+                    in_retry -= set(rn.arrived) | set(rn.gave_up)
+                else:
+                    state = round_step(state, weights)
+            sync = float(sync_times[min(rnd, len(sync_times) - 1)])
+            wall_simulated += sync
+            entry = {"round": rnd, "loss": float(np.mean(losses)),
+                     "sync_s": sync, "wall_s": time.time() - t0}
+            history.append(entry)
+            log.emit("round", **entry)
+            if mgr is not None:
+                tree = {"train": state, "async": astate} if coupled else state
+                tree = tree_map(_dtensor.full, tree)
+                if lead:
+                    mgr.save(rnd + 1, tree, metadata={"round": rnd + 1})
+                del tree
         if mgr is not None:
-            tree = {"train": state, "async": astate} if coupled else state
-            mgr.save(rnd + 1, tree, metadata={"round": rnd + 1})
-            del tree
-    if mgr is not None:
-        mgr.wait()
-    if history:
-        log.emit(
-            "done",
-            echo="done: {rounds} rounds, final loss {loss:.4f}, "
-                 "simulated FL wall-clock {wall_s:.1f}s "
-                 "({policy} @ load {load})",
-            rounds=rounds, loss=history[-1]["loss"],
-            wall_s=wall_simulated, policy=policy, load=load,
-        )
-    else:
-        log.emit(
-            "done",
-            echo="nothing to do: resumed at round {round}/{rounds}",
-            round=start_round, rounds=rounds, loss=None,
-            wall_s=0.0, policy=policy, load=load,
-        )
-    if collector is not None:
-        log.emit("metrics", summary=collector.report().to_dict())
-        if trace_path:
-            collector.tracer.save(trace_path)
-    log.close()
-    return state, history
+            mgr.wait()
+        if history:
+            log.emit(
+                "done",
+                echo="done: {rounds} rounds, final loss {loss:.4f}, "
+                     "simulated FL wall-clock {wall_s:.1f}s "
+                     "({policy} @ load {load})",
+                rounds=rounds, loss=history[-1]["loss"],
+                wall_s=wall_simulated, policy=policy, load=load,
+            )
+        else:
+            log.emit(
+                "done",
+                echo="nothing to do: resumed at round {round}/{rounds}",
+                round=start_round, rounds=rounds, loss=None,
+                wall_s=0.0, policy=policy, load=load,
+            )
+        if collector is not None:
+            log.emit("metrics", summary=collector.report().to_dict())
+            if trace_path:
+                collector.tracer.save(trace_path)
+        log.close()
+        return tree_map(_dtensor.full, state), history
 
 
 def main(argv=None):

@@ -15,6 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import _dtensor
 from repro_torch.configs.base import ModelConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -170,8 +171,9 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           z_loss: float = 0.0) -> torch.Tensor:
     """Mean cross-entropy in float32: logits (..., V) of any float dtype,
     integer labels (...), optional weights (...) for a weighted mean over
-    at least 1; ``z_loss`` adds ``z_loss * logsumexp**2``."""
-    logits = logits.float()
+    at least 1; ``z_loss`` adds ``z_loss * logsumexp**2``. DTensor
+    logits are first made whole along the vocabulary on every rank."""
+    logits = _dtensor.whole_dim(logits, -1).float()
     lse = torch.logsumexp(logits, dim=-1)
     label_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     loss = lse - label_logit

@@ -30,6 +30,7 @@ import functools
 import torch
 from torch.utils import checkpoint as _ckpt
 
+from repro_torch import _dtensor
 from repro_torch._device import DEFAULT_DEVICE, resolve_device
 from repro_torch.configs.base import ATTN, RGLRU, SSD, LayerSpec, ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -209,16 +210,30 @@ def _init(cfg: ModelConfig, generator, device: torch.device) -> dict:
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device=DEFAULT_DEVICE) -> dict:
     """Random parameters at the reference's scales, drawn from
-    ``generator`` (a ``torch.Generator`` on ``device``; seed 0 if None)."""
+    ``generator`` (a ``torch.Generator`` on ``device``; seed 0 if None).
+    On the meta device the leaves hold shapes and dtypes alone and
+    nothing is drawn (``generator`` is not used)."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return _init(cfg, None, dev)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     return _init(cfg, generator, dev)
 
 
+def _lookup(table, tokens):
+    """``table[tokens]``; on DTensors each rank looks its own tokens up
+    in the whole table (a split table gathered first), so that the
+    lookup and its backward are the plain ones on local tensors."""
+    if _dtensor.is_dtensor(table):
+        return _dtensor.local_kernel(lambda t, i: t[i], (table, tokens),
+                                     ({}, {0: "batch"}), {0: "batch"})
+    return table[tokens]
+
+
 def _embed(params, cfg, tokens, extra_embeds):
     dt = torch_dtype(cfg.dtype)
-    x = params["embed"][tokens].to(dt)
+    x = _lookup(params["embed"], tokens).to(dt)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
     if extra_embeds is not None:

@@ -38,6 +38,8 @@ def moe_init(generator, cfg: ModelConfig, device=None, out=None) -> dict:
         w = (out[name] if out is not None else
              torch.empty((E, d_in, d_out), dtype=torch_dtype(dt),
                          device=device))
+        if w.is_meta:        # shapes alone (launch/specs.py): no draws
+            return w
         for i in range(E):
             w[i] = dense_init(generator, d_in, d_out, dt, device=device)
         return w

@@ -1077,3 +1077,32 @@ def test_fl_round_on_card_runs_k3(cuda):
     for leaf in server.global_params.values():
         for t in leaf.values():
             assert t.is_cuda and bool(torch.isfinite(t).all())
+
+
+def test_train_on_the_card_under_a_gloo_group(cuda):
+    """``train(device="cuda")`` under a caller's one-rank gloo group runs
+    on the card (one rank takes the plain path: every leaf a CUDA
+    tensor, no DTensor), and a mesh on the card under that group raises
+    instead of falling back to the CPU."""
+    import torch.distributed as dist
+
+    from repro_torch import _dtensor
+    from repro_torch._tree import tree_leaves
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import train
+
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        with pytest.raises(ValueError, match="cuda mesh needs a nccl"):
+            make_host_mesh(1, device="cuda")
+        state, history = train(steps_per_round=1, rounds=1, n_pods=1,
+                               global_batch=2, seq_len=16, device="cuda")
+    finally:
+        if started:
+            dist.destroy_process_group()
+    leaves = tree_leaves(state.params)
+    assert all(t.is_cuda and not _dtensor.is_dtensor(t) for t in leaves)
+    assert np.isfinite(history[0]["loss"])

@@ -41,7 +41,7 @@ from repro.data import lm_tokens as jtokens
 from repro.dist import stepfns as jstep
 from repro.optim import optimizers as jopt
 from repro.optim import schedules as jsched
-from repro_torch._tree import tree_leaves
+from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.checkpoint import load, save
 from repro_torch.checkpoint.checkpoint import _flatten_with_paths
 from repro_torch.configs import get_config
@@ -171,9 +171,9 @@ def test_fed_train_step_is_the_single_step_on_each_pod(fed_state):
     fed, fm = tstep.make_fed_train_step(cfg, opt_cfg)(ts, batch)
     single = tstep.make_train_step(cfg, opt_cfg)
     for i in range(N_PODS):
-        pod = tstep._map_state(lambda l: l[i].clone(), ts)
+        pod = tree_map(lambda l: l[i].clone(), ts)
         one, m = single(pod, {k: v[i] for k, v in batch.items()})
-        assert _same(tstep._map_state(lambda l: l[i], fed), one)
+        assert _same(tree_map(lambda l: l[i], fed), one)
         assert all(torch.equal(fm[k][i], m[k]) for k in m)
     # the caller's state is untouched
     assert _same(ts, _port(state, cfg))
@@ -395,9 +395,9 @@ def test_coupled_checkpoint_tree_round_trips(fed_state, tmp_path):
     tree = {"train": ts, "async": tstep.init_async_state(ts)}
     path = str(tmp_path / "step_1.ckpt")
     save(path, tree, {"round": 1})
-    like = {"train": tstep._map_state(torch.zeros_like, ts),
+    like = {"train": tree_map(torch.zeros_like, ts),
             "async": tstep.init_async_state(
-                tstep._map_state(torch.zeros_like, ts))}
+                tree_map(torch.zeros_like, ts))}
     back, meta = load(path, like=like)
     assert meta["round"] == 1
     assert isinstance(back["train"], tstep.TrainState)
