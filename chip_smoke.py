@@ -66,7 +66,8 @@ line. ``train()`` takes its mesh path over more than one rank only; on
 one rank it runs the same steps on plain tensors.
 
 Phases, each printing its own line with its seconds; any failure exits
-nonzero:
+nonzero. ``wide_pons`` (7a) runs right after ``build``, so that its
+plain runs go on beside every later phase:
 
 1. ``build``: the Hopper kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once); prints the card's name and power
@@ -80,10 +81,11 @@ nonzero:
    (16,384) and at one past it (20,000, through the wrapper's global
    scratch); timed at 8 x 128, 1 x 2048, 1 x 4096 and 1 x 20,000;
 3a. ``k_phase``: the fused phase kernel against its plain version
-   (``run_phase_ref``, on CPU copies of the same inputs) on every phase of
-   four short sweeps at 128 ONUs (``phase_check_sweeps``): ``done_t`` bit
-   for bit, ``rem`` within ``PHASE_RTOL``, the same exact flag; they must
-   cover ``PHASE_COVER`` (the scalar-S path with background, several
+   (``run_phase_ref``, on CPU copies of the same inputs, in worker
+   processes) on every phase of four short sweeps at 128 ONUs
+   (``phase_check_sweeps``): ``done_t`` bit for bit, ``rem`` within
+   ``PHASE_RTOL``, the same exact flag; they must cover
+   ``PHASE_COVER`` (the scalar-S path with background, several
    clients an ONU, bs slots, 3-PON CPS with deadline and outage, an
    inexact ring walk); then on the three phases of the fig2b-16 sweep
    (the main path's shapes: up to 128 clients at 10 Gb/s, 1,774 to 6,312
@@ -170,7 +172,8 @@ nonzero:
    recorded, each held in full, at its full widths, to the plain version
    on CPU copies (``done_t`` bit for bit, ``rem`` within ``PHASE_RTOL``,
    the same exact flag; the plain runs in two worker processes that go on
-   beside the later phases, checked in ``wide_pons_hold`` once the last
+   beside the later phases, their arrival windows drawn on the card by
+   the same plain code, checked in ``wide_pons_hold`` once the last
    phase is done); prints the wall, each phase's device ms and µs a cycle
    and the device's busy share. Nothing is cut;
 7b. ``timeline``: (a) ``benchmarks/timeline.py``'s Fig. 3 grid (128
@@ -193,9 +196,10 @@ nonzero:
    every round and client within ``ROUND_RTOL`` of the per-cycle loop
    on the card; (e) the same schedules at 16 ONUs and 3 rounds. Every
    phase of (a), (b), (c) and (e) is recorded and held to the plain
-   version on CPU copies (``_hold_phases``: ``done_t`` bit for bit,
+   version on CPU copies (``_PhaseHolds``: ``done_t`` bit for bit,
    ``rem`` within ``PHASE_RTOL``, the same exact flag; the plain runs in
-   worker processes, one a core but one); (e)'s must cover
+   worker processes, one a core but one, started as each run is
+   recorded); (e)'s must cover
    ``TIMELINE_COVER`` (folded rows with dead columns, carriers with no
    download, a deadlined BS row, both passes of an async round). Prints,
    for each run, the wall, phase
@@ -213,15 +217,17 @@ nonzero:
    ``COSIM_FAULT_COUNTS``), the network through ``backend="jit"`` (the
    run's template ``spec``):
    every round's sync within ``SYNC_TOL`` of ``COSIM_SYNC``, K3 and K3'
-   8 launches an update; then the same on the CPU from the same initial
-   weights (its network on the per-cycle loop): syncs within
+   8 launches an update; and the same on the CPU from the same initial
+   weights (its network on the per-cycle loop; one mode a worker
+   process, beside the card's runs): syncs within
    ``SYNC_TOL`` of ``COSIM_SYNC``, arrivals and staleness identical,
    every round's accuracy
    within ``FL_REF_GAP`` and its mean loss within ``FL_REF_GAP`` of
    itself. Prints ``time_to_metric`` for each mode;
 7e. ``faults``: ``benchmarks/faults.py``'s grid (the op point, 6 rounds,
    dropout {0, 0.2} x outage {0, 0.5}, modes sync (deadline 4 s, defer),
-   async (buffer 6) and quorum (drop, 0.75)) through ``backend="jit"``,
+   async (buffer 6) and quorum (drop, 0.75); a cell with outages over its
+   mode's first ``FAULT_OUTAGE_ROUNDS`` rounds) through ``backend="jit"``,
    every round's sync, failed clients, losses, retry rounds, give-ups and
    extensions held to ``FAULT_PINS``; every phase of the three dropout
    0.2 x outage 0.5 cells held to the plain version; the all-zero
@@ -229,7 +235,7 @@ nonzero:
    held to jit client by client. A phase whose background outgrows the
    phase kernel's 128-cycle ring (a 0.5 s outage at load 0.8) re-runs on
    the per-cycle loop, as the JAX engine's does: each cell must re-run
-   exactly ``FAULT_FALLBACKS`` such upload phases (none without
+   exactly ``FAULT_OUTAGE_FALLBACKS`` such upload phases (none without
    outages), and the line counts those ``phase_fallbacks``; the loop
    cell runs under a collector, its fault events by kind and its round
    records held to ``OBS_PINS["faults"]``;
@@ -1259,22 +1265,6 @@ def _phase_bound(spec, dyn, k_stop) -> tuple:
     return n_bytes, adds, draws
 
 
-def _hold_phase(what: str, args, kwargs) -> tuple:
-    """One recorded phase through the phase kernel and through
-    ``run_phase_ref`` on CPU copies of the same inputs: ``done_t`` bit for
-    bit, ``rem`` within ``PHASE_RTOL``, the same exact flag, or the smoke
-    fails. Returns the card inputs, the largest ``rem`` error and the
-    exact flag."""
-    from repro_torch.kernels.ponsim import kernel, ops, ref
-
-    sc, tc = ops.phase_inputs(*args, **kwargs, use_k2=True, device="cuda")
-    sh, th = ops.phase_inputs(*args, **kwargs, use_k2=True, device="cpu")
-    got = kernel.run_phase_cuda(sc, tc)
-    torch.cuda.synchronize()
-    want = ref.run_phase_ref(sh, th)
-    return sc, tc, _check_phase(what, sc.mode, got, want), want[2]
-
-
 def _check_phase(what: str, mode: str, got, want) -> float:
     """The kernel's ``(done_t, rem, exact)`` against the plain version's:
     ``done_t`` bit for bit, ``rem`` within ``PHASE_RTOL``, the same exact
@@ -1291,76 +1281,132 @@ def _check_phase(what: str, mode: str, got, want) -> float:
     return float((got_r - want_r).abs().max())
 
 
-def _plain_phase(spec, tens, threads: int = 1):
-    """``run_phase_ref`` in a worker process, on ``threads`` threads."""
+def _plain_phase(spec, tens, threads: int = 1, card_draws: bool = False):
+    """``run_phase_ref`` in a worker process, on ``threads`` threads.
+
+    With ``card_draws`` the plain version's arrival windows
+    (``ref.sample_window_ref``) are drawn by the same plain code on the
+    card and copied back; every other step stays on the CPU copies. A
+    window is threefry draws, integer packet counts and one float32
+    product each, exact on any device, so ``done_t`` is the same to the
+    bit; at 100 PONs x 1,024 ONUs the draws are about two thirds of the
+    plain version's CPU time."""
     from repro_torch.kernels.ponsim import ref
 
     torch.set_num_threads(threads)
+    if card_draws:
+        sample = ref.sample_window_ref
+
+        def on_card(keys, thresholds, win, **kwargs):
+            return sample(keys.cuda(), thresholds.cuda(), win,
+                          **kwargs).cpu()
+
+        ref.sample_window_ref = on_card
     return ref.run_phase_ref(spec, tens)
 
 
-def _hold_phases(groups: dict) -> dict:
-    """:func:`_hold_phase` on every recorded phase of ``groups`` (name ->
-    ``_record_phases`` calls): each through the phase kernel here, and
-    through the plain version on CPU copies in worker processes, one a
-    core but one (these phases have narrow rows: one thread each does as
-    well as a shared pool). Returns name -> ``[(card inputs, rem error,
-    exact flag)]``."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+class _PhaseHolds:
+    """Recorded phases held to the plain version in the background:
+    :meth:`add` runs each through the phase kernel here at once and hands
+    ``run_phase_ref`` on CPU copies of the same inputs to worker
+    processes (:func:`_plain_phase`, ``threads`` threads each; by default
+    one a core but one, on one thread: narrow rows run as fast on one
+    thread as on a shared pool), which go on beside the card's later work
+    until :meth:`finish` holds the kernel's results to theirs: ``done_t`` bit
+    for bit, ``rem`` within ``PHASE_RTOL``, the same exact flag, or the
+    smoke fails (:func:`_check_phase`). The workers are daemons: a smoke
+    that fails before :meth:`finish` stops them as it exits."""
 
-    from repro_torch.kernels.ponsim import kernel, ops
+    def __init__(self, workers=None, threads: int = 1,
+                 card_draws: bool = False):
+        self.workers = workers or max(1, len(os.sched_getaffinity(0)) - 1)
+        self.threads, self.card_draws = threads, card_draws
+        self.pool, self.rows, self.ended = None, {}, []
 
-    cards, hosts = [], []
-    for name, calls in groups.items():
+    def add(self, name: str, calls) -> None:
+        import multiprocessing
+
+        from repro_torch.kernels.ponsim import kernel, ops
+
+        if self.pool is None:
+            self.t0 = time.time()
+            self.pool = multiprocessing.get_context("spawn").Pool(
+                self.workers)
+        rows = self.rows.setdefault(name, [])
         for args, kwargs in calls:
             sc, tc = ops.phase_inputs(*args, **kwargs, use_k2=True,
                                       device="cuda")
-            cards.append((name, sc, tc, kernel.run_phase_cuda(sc, tc)))
-            hosts.append(ops.phase_inputs(*args, **kwargs, use_k2=True,
-                                          device="cpu"))
-    torch.cuda.synchronize()
-    workers = max(1, min(len(hosts), len(os.sched_getaffinity(0)) - 1))
-    with ProcessPoolExecutor(
-            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-        wants = list(pool.map(_plain_phase, *zip(*hosts)))
-    out = {name: [] for name in groups}
-    for (name, sc, tc, got), want in zip(cards, wants):
-        out[name].append((sc, tc, _check_phase(name, sc.mode, got, want),
-                          want[2]))
-    return out
+            got = kernel.run_phase_cuda(sc, tc)
+            sh, th = ops.phase_inputs(*args, **kwargs, use_k2=True,
+                                      device="cpu")
+            rows.append((sc, tc, got, self.pool.apply_async(
+                _plain_phase, (sh, th, self.threads, self.card_draws),
+                callback=lambda _: self.ended.append(time.time()))))
+
+    def finish(self) -> dict:
+        """Waits for the plain runs and holds every phase to its own;
+        ``hold_s`` is then the time from the first :meth:`add` to the
+        last plain run's end. Returns name -> ``[(card inputs, rem error,
+        exact flag)]``."""
+        out = {}
+        for name, rows in self.rows.items():
+            out[name] = []
+            for sc, tc, got, run in rows:
+                want = run.get()
+                out[name].append((sc, tc,
+                                  _check_phase(name, sc.mode, got, want),
+                                  want[2]))
+        if self.pool is not None:
+            self.pool.close()
+            self.pool.join()
+        self.hold_s = max(self.ended) - self.t0 if self.ended else 0.0
+        return out
+
+
+def _hold_phases(groups: dict) -> dict:
+    """:class:`_PhaseHolds` on every recorded phase of ``groups`` (name ->
+    ``_record_phases`` calls), waited for at once."""
+    holds = _PhaseHolds()
+    for name, calls in groups.items():
+        holds.add(name, calls)
+    return holds.finish()
 
 
 def phase_kphase():
     """The fused phase kernel against its plain version (``run_phase_ref``
-    on CPU copies of the same inputs): ``done_t`` bit for bit, ``rem``
-    within ``PHASE_RTOL``, the same exact flag, on every phase of
-    :func:`phase_check_sweeps` and on the three phases of the fig2b-16
+    on CPU copies of the same inputs, in worker processes:
+    :func:`_hold_phases`): ``done_t`` bit for bit, ``rem`` within
+    ``PHASE_RTOL``, the same exact flag, on every phase of
+    :func:`phase_check_sweeps`, of :func:`wide_phases` and of the fig2b-16
     sweep; then timed on those three beside the plain version on the
     card."""
     from repro_torch.kernels.ponsim import kernel, ref
     from repro_torch.net import PONConfig, SweepSpec
 
     t0 = time.time()
-    covered = set()
-    n_checks = 0
-    err = 0.0
-    for name, spec in phase_check_sweeps().items():
-        for args, kwargs in _record_phases(spec, "cuda"):
-            sc, _, e, exact = _hold_phase(name, args, kwargs)
-            err = max(err, e)
-            covered |= {c for c, hit in PHASE_COVER.items()
-                        if hit(sc, exact)}
-            n_checks += 1
+    checks = {f"check {name}": _record_phases(spec, "cuda")
+              for name, spec in phase_check_sweeps().items()}
+    wide = wide_phases("cuda")
+    # the main path's phases: the fig2b-16 sweep's three
+    _, cases = fig2b_cases()
+    main = SweepSpec(cases=tuple(cases), pon=PONConfig(n_onus=N_ONUS),
+                     backend="jit")
+    held = _hold_phases({
+        **checks,
+        **{f"wide {name}_{i}": [(args, kwargs)]
+           for i, (name, args, kwargs) in enumerate(wide)},
+        "fig2b-16": _record_phases(main, "cuda")})
+    n_checks = sum(len(v) for v in held.values())
+    err = max(e for v in held.values() for _, _, e, _ in v)
+    covered = {c for key in checks for sc, _, _, exact in held[key]
+               for c, hit in PHASE_COVER.items() if hit(sc, exact)}
     missing = set(PHASE_COVER) - covered
     if missing:
         raise SystemExit(f"phase checks did not cover {sorted(missing)}")
     # past the widths the kernel once refused
     wide_covered, wide_ms, smem = set(), {}, {}
-    for i, (name, args, kwargs) in enumerate(wide_phases("cuda")):
-        sc, tc, e, _ = _hold_phase(name, args, kwargs)
-        err = max(err, e)
-        n_checks += 1
+    for i, (name, _, _) in enumerate(wide):
+        sc, tc, _, _ = held[f"wide {name}_{i}"][0]
         hits = {c for c, hit in WIDE_COVER.items() if hit(sc, tc)}
         wide_covered |= hits
         if hits:
@@ -1377,16 +1423,9 @@ def phase_kphase():
         raise SystemExit("the 16,385-queue row's sort was not in global "
                          "scratch")
 
-    # the main path's phases: the fig2b-16 sweep's three
-    _, cases = fig2b_cases()
-    main = SweepSpec(cases=tuple(cases), pon=PONConfig(n_onus=N_ONUS),
-                     backend="jit")
     ms, plain_ms, cycles = [], [], []
     n_bytes = n_adds = n_draws = 0
-    for args, kwargs in _record_phases(main, "cuda"):
-        sc, tc, e, _ = _hold_phase("fig2b-16", args, kwargs)
-        err = max(err, e)
-        n_checks += 1
+    for sc, tc, _, _ in held["fig2b-16"]:
         state = kernel.launch_phase(sc, tc)
         k_stop = state["k_stop"].cpu().numpy().astype(np.int64)
         ms.append(_device_ms(kernel.launch_phase, [(sc, tc)], reps=3))
@@ -2374,47 +2413,16 @@ def _hold_round(what: str, got, want, sync_rtol=None) -> None:
 ROUND_RTOL = 1e-6     # a client's time or bits, jit against the per-cycle loop
 
 
-class _WideHold:
-    """The wide round's recorded phases held in full, at their full
-    widths, to the plain version on CPU copies (as :func:`_hold_phase`
-    holds one): the kernel runs here at once, the plain runs (256-328 s of
-    CPU, the smoke's longest step) in one worker process a phase, which go
-    on beside the later phases until :meth:`finish`. The workers are
-    daemons: a smoke that fails before then stops them as it exits."""
-
-    def __init__(self, calls):
-        import multiprocessing
-
-        from repro_torch.kernels.ponsim import kernel, ops
-
-        self.t0 = time.time()
-        self.cards, hosts = [], []
-        for args, kwargs in calls:
-            sc, tc = ops.phase_inputs(*args, **kwargs, use_k2=True,
-                                      device="cuda")
-            self.cards.append((sc.mode, kernel.run_phase_cuda(sc, tc)))
-            hosts.append(ops.phase_inputs(*args, **kwargs, use_k2=True,
-                                          device="cpu"))
-        torch.cuda.synchronize()
-        threads = max(1, (len(os.sched_getaffinity(0)) - 2) // len(hosts))
-        self.pool = multiprocessing.get_context("spawn").Pool(len(hosts))
-        self.wants = [self.pool.apply_async(_plain_phase, (sh, th, threads))
-                      for sh, th in hosts]
-
-    def finish(self) -> dict:
-        """Waits for the plain runs and holds the kernel's phases to them;
-        prints the ``wide_pons_hold`` line."""
-        t_wait = time.time()
-        wants = [w.get() for w in self.wants]
-        self.pool.close()
-        self.pool.join()
-        err = max(_check_phase("wide_pons", mode, got, want)
-                  for (mode, got), want in zip(self.cards, wants))
-        hold_s = time.time() - self.t0
-        _line("wide_pons_hold", time.time() - t_wait,
-              phases_held=len(wants), done_t_bitwise="yes",
-              rem_max_abs_err=f"{err:.3g}", hold_s=f"{hold_s:.1f}")
-        return {"wide_pons_max_abs_err": err, "wide_pons_hold_s": hold_s}
+def _finish_wide_hold(holds: _PhaseHolds) -> dict:
+    """Waits for the wide round's plain runs (:func:`phase_wide_pons`)
+    and holds its phases to them; prints the ``wide_pons_hold`` line."""
+    t_wait = time.time()
+    held = holds.finish()["wide_pons"]
+    err = max(e for _, _, e, _ in held)
+    _line("wide_pons_hold", time.time() - t_wait, phases_held=len(held),
+          done_t_bitwise="yes", rem_max_abs_err=f"{err:.3g}",
+          hold_s=f"{holds.hold_s:.1f}")
+    return {"wide_pons_max_abs_err": err, "wide_pons_hold_s": holds.hold_s}
 
 
 def phase_wide_pons(hold_later: bool = False):
@@ -2423,10 +2431,11 @@ def phase_wide_pons(hold_later: bool = False):
     state past shared memory in global scratch), held to the per-cycle
     loop on the same card client by client (:func:`_hold_round`); each of
     its two phases then held in full, at its full widths, to the plain
-    version on CPU copies (:class:`_WideHold`; with ``hold_later`` its
-    plain runs go on in the background and the hold is returned to be
-    finished later). Prints the wall, each phase's device ms and µs a
-    cycle, and the device's busy share of the wall."""
+    version on CPU copies (:class:`_PhaseHolds`, one worker a phase, their
+    arrival windows drawn on the card: :func:`_plain_phase`; with
+    ``hold_later`` the plain runs go on in the background and the hold is
+    returned to be finished later). Prints the wall, each phase's device
+    ms and µs a cycle, and the device's busy share of the wall."""
     from repro_torch.kernels.ponsim import kernel
     from repro_torch.net import engine, simulate
 
@@ -2464,7 +2473,10 @@ def phase_wide_pons(hold_later: bool = False):
     _hold_jit_counts(counts, 2, "wide_pons")
     ms = [s.elapsed_time(e) for s, e, _, _ in timed]
     cycles = [int(k.max()) for _, _, k, _ in timed]
-    hold = _WideHold(calls)
+    hold = _PhaseHolds(workers=len(calls), threads=max(
+        1, (len(os.sched_getaffinity(0)) - 2) // len(calls)),
+        card_draws=True)
+    hold.add("wide_pons", calls)
     t_run = time.time()
     loop = simulate(wide_pons_spec(), device="cuda")[0]
     torch.cuda.synchronize()
@@ -2489,7 +2501,7 @@ def phase_wide_pons(hold_later: bool = False):
           clients_match="yes", phases_to_hold=len(calls))
     if hold_later:
         return out, hold
-    out.update(hold.finish())
+    out.update(_finish_wide_hold(hold))
     return out
 
 
@@ -3003,6 +3015,13 @@ FAULT_MODES = {"sync": {"deadline_s": 4.0},
 # the JAX engine re-runs the same way); in the d0.2 o0.5 cells every
 # phase's exact flag is also held to the plain version's
 FAULT_FALLBACKS = {"sync": 3, "async": 5, "quorum": 8}
+# the smoke runs a cell with outages over its mode's first
+# FAULT_OUTAGE_ROUNDS rounds (each fallback is ~10 s of the per-cycle loop
+# on the card), which re-run FAULT_OUTAGE_FALLBACKS phases: sync re-runs
+# its one in round 1 and keeps FAULT_LOOP_ROUNDS for the loop cell; async
+# and quorum re-run 2 in round 1 (3 and 4 by round 2)
+FAULT_OUTAGE_ROUNDS = {"sync": 3, "async": 1, "quorum": 1}
+FAULT_OUTAGE_FALLBACKS = {"sync": 1, "async": 2, "quorum": 2}
 FAULT_LOOP_CELL = ("sync", 0.2, 0.5)   # held on the per-cycle loop too,
 FAULT_LOOP_ROUNDS = 3                  # over its first rounds
 # accuracy_part's faulty co-simulation modes (COSIM_MODES' run arguments)
@@ -3031,10 +3050,11 @@ JOBS_CADENCE = ((1, 0), (2, 0), (2, 1), (4, 3))
 JOBS_TL_ROUNDS = 4
 # the collector (repro_torch.obs): benchmarks/obs_overhead.py's run (the
 # Fig. 3 grid, OBS_ROUNDS elastic rounds, folded, 128 ONUs), collector off
-# and on OBS_REPEATS times each; OBS_PINS are the JAX package's values on
+# and on OBS_REPEATS times each (one pair: each run is ~19 s of the
+# per-cycle loop on the card); OBS_PINS are the JAX package's values on
 # the CPU for it, the Fig. 2b sweep, the jobs grid's per-job p95 and the
 # faults loop cell (obs_pin; tests/test_torch_obs_pins.py recomputes them)
-OBS_ROUNDS, OBS_REPEATS = 6, 2
+OBS_ROUNDS, OBS_REPEATS = 6, 1
 OBS_SUM_RTOL = 1e-12   # bit totals and grant_utilization
 OBS_PCT_TOL = 1e-9     # upload-delay percentiles (s)
 OBS_BITS_RTOL = 1e-6   # a round's uploaded bits (the engines' contract)
@@ -3607,8 +3627,10 @@ def phase_timeline():
     # its three phases timed as k_phase times fig2b-16's (8 CTAs), for µs
     # a cycle at 48 CTAs against 8
     steady_ms, steady_us = [], []
-    held = {"fig3": _record_phases(fig3_spec("jit"), "cuda")}
-    for args, kwargs in held["fig3"]:
+    holds = _PhaseHolds()
+    fig3_calls = _record_phases(fig3_spec("jit"), "cuda")
+    holds.add("fig3", fig3_calls)
+    for args, kwargs in fig3_calls:
         sc, tc = ops.phase_inputs(*args, **kwargs, use_k2=True,
                                   device="cuda")
         cycles = int(kernel.launch_phase(sc, tc)["k_stop"].max())
@@ -3634,7 +3656,7 @@ def phase_timeline():
     res, saving = _timeline_run(saving_spec("jit"))
     _hold_timeline("saving", res, names, SAVING_SYNC)
     _hold_timeline_counts(saving, "saving", True)
-    held["saving"] = _record_phases(saving_spec("jit"), "cuda")
+    holds.add("saving", _record_phases(saving_spec("jit"), "cuda"))
     n = SAVING_SEEDS
     fcfs = float(np.mean([r.total_time_s for r in res[:n]]))
     bs = float(np.mean([r.total_time_s for r in res[n:]]))
@@ -3662,8 +3684,8 @@ def phase_timeline():
                        [f"{p}_{mode}" for p in ("fcfs", "bs")], OP_SYNC)
         _hold_timeline_counts(stats, f"op point {mode}", True)
         _print_run(f"async-op-point {mode} jit", stats)
-        held[f"op_{mode}"] = _record_phases(op_point_spec(mode, "jit"),
-                                            "cuda")
+        holds.add(f"op_{mode}", _record_phases(op_point_spec(mode, "jit"),
+                                               "cuda"))
         for key in op_counts:
             op_counts[key] += stats["counts"][key]
         out[f"op_{mode}"] = stats
@@ -3687,12 +3709,12 @@ def phase_timeline():
                        syncs=res[0].sync_times.tolist())
 
     # every phase of (a)-(c) and of (e), the short timelines, held to the
-    # plain version
+    # plain version (the plain runs of (a)-(c) went on beside (b)-(d))
     t_hold = time.time()
     short = _short_timelines()
-    held.update({f"short_{run}": _record_phases(spec, "cuda")
-                 for run, spec in short.items()})
-    checked = _hold_phases(held)
+    for run, spec in short.items():
+        holds.add(f"short_{run}", _record_phases(spec, "cuda"))
+    checked = holds.finish()
     hold_s = time.time() - t_hold
     covered = {c for run in short for sc, tc, _, _ in checked[f"short_{run}"]
                for c, hit in TIMELINE_COVER.items() if hit(run, sc, tc)}
@@ -3726,11 +3748,12 @@ def _curve(res, key: str) -> str:
     return "/".join(f"{r[key]:.4f}" for r in res.rounds)
 
 
-def _cosim_runs(device, clients, test_batch, params, count, backend=None):
-    """Every mode of ``COSIM_MODES`` through ``FLNetworkCoSim`` on
-    ``device`` from ``params``, its network on the round engine's
-    ``backend`` (given by the run's template ``spec``): mode -> (result,
-    wall s)."""
+def _cosim_runs(device, clients, test_batch, params, count, backend=None,
+                modes=None):
+    """Every mode of ``COSIM_MODES`` (or of ``modes``) through
+    ``FLNetworkCoSim`` on ``device`` from ``params``, its network on the
+    round engine's ``backend`` (given by the run's template ``spec``):
+    mode -> (result, wall s)."""
     from repro_torch import fl
     from repro_torch.models import cnn
     from repro_torch.net import FaultSchedule, PONConfig, SweepCase, SweepSpec
@@ -3740,7 +3763,8 @@ def _cosim_runs(device, clients, test_batch, params, count, backend=None):
                                       policy="bs"),),
                      pon=pon, backend=backend)
     out = {}
-    for mode, kw in COSIM_MODES.items():
+    for mode in modes or COSIM_MODES:
+        kw = COSIM_MODES[mode]
         server = fl.CPSServer(
             global_params=params, clients=clients,
             selection=fl.SelectionConfig(strategy="all"),
@@ -3764,13 +3788,22 @@ def _cosim_runs(device, clients, test_batch, params, count, backend=None):
     return out
 
 
+def _cosim_cpu_mode(mode, clients, test_batch, params, threads: int):
+    """One mode of :func:`_cosim_runs` on the CPU, in a worker process
+    on ``threads`` threads: (result, wall s)."""
+    torch.set_num_threads(threads)
+    return _cosim_runs("cpu", clients, test_batch, params,
+                       contextlib.nullcontext(), modes=(mode,))[mode]
+
+
 def phase_cosim():
     """``accuracy_part``'s co-simulation (``FLNetworkCoSim``, BS at load
     0.8, int8 updates through K3/K3') on the card in every mode of
     ``COSIM_MODES``, its network through ``backend="jit"``: each round's
     sync held to its pin, K3 and K3' run 8 times an update, the phase
-    kernel at least as often as there are modes; then the same on the CPU (its network
-    on the per-cycle loop), from the same initial weights: syncs held to
+    kernel at least as often as there are modes; and the same on the CPU
+    (its network on the per-cycle loop), from the same initial weights,
+    one mode a worker process beside the card's runs: syncs held to
     the pins, arrivals and staleness identical, every round's accuracy
     within ``FL_REF_GAP`` of the CPU's and its mean loss within
     ``FL_REF_GAP`` of it, relatively, but for the faulty modes' loss
@@ -3778,6 +3811,8 @@ def phase_cosim():
     clients a round held to ``COSIM_FAULT_COUNTS`` and to the CPU's.
     Prints ``time_to_metric`` and each mode's largest loss gap. Returns
     the card runs' launches of K3, K3' and the round engine's kernels."""
+    import multiprocessing
+
     from repro_torch import fl
     from repro_torch._tree import tree_map
     from repro_torch.data import build_federated_cnn_clients
@@ -3794,6 +3829,14 @@ def phase_cosim():
         seed=COSIM_DATA_SEED)
     test_batch = {k: v[:COSIM_TEST] for k, v in test.items()}
     params = cnn.init_params(torch.Generator(device="cuda").manual_seed(0))
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    workers = max(1, min(len(COSIM_MODES),
+                         len(os.sched_getaffinity(0)) - 1))
+    threads = max(1, (len(os.sched_getaffinity(0)) - 1) // workers)
+    pool = multiprocessing.get_context("spawn").Pool(workers)
+    cpu_runs = {mode: pool.apply_async(
+        _cosim_cpu_mode, (mode, clients, test_batch, cpu_params, threads))
+        for mode in COSIM_MODES}
     updates = [0]
     compress = server_mod.compress_delta
 
@@ -3813,9 +3856,9 @@ def phase_cosim():
                          f"{updates[0]} updates")
     if engine_counts["phase"] < len(COSIM_MODES):
         raise SystemExit(f"cosim: engine counts {engine_counts}")
-    cpu = _cosim_runs("cpu", clients, test_batch,
-                      tree_map(lambda t: t.cpu(), params),
-                      contextlib.nullcontext())
+    cpu = {mode: run.get() for mode, run in cpu_runs.items()}
+    pool.close()
+    pool.join()
     out = {}
     for mode, (res, wall) in card.items():
         want = COSIM_SYNC[mode]
@@ -3920,12 +3963,13 @@ def _same_results(what: str, got, want) -> None:
 
 
 def _hold_fallbacks(what: str, stats, mode: str, outage: float) -> None:
-    """A fault cell re-ran ``FAULT_FALLBACKS[mode]`` phases on the
-    per-cycle loop with outages (none without), each an upload phase
-    whose outage outgrows the phase kernel's background ring."""
+    """A fault cell re-ran ``FAULT_OUTAGE_FALLBACKS[mode]`` phases on the
+    per-cycle loop in its ``FAULT_OUTAGE_ROUNDS[mode]`` rounds with outages
+    (none without), each an upload phase whose outage outgrows the phase
+    kernel's background ring."""
     from repro_torch.kernels.ponsim.ref import HISTORY_CYCLES
 
-    want = FAULT_FALLBACKS[mode] if outage else 0
+    want = FAULT_OUTAGE_FALLBACKS[mode] if outage else 0
     fell = stats["fallback_outage_cycles"]
     if (stats["counts"]["fallbacks"] != want or len(fell) != want
             or any(c < HISTORY_CYCLES for c in fell)):
@@ -3937,14 +3981,15 @@ def _hold_fallbacks(what: str, stats, mode: str, outage: float) -> None:
 
 def phase_faults():
     """``benchmarks/faults.py``'s grid on the card (``repro_torch.net``
-    timelines with a ``FaultSchedule``): the op point, 6 rounds, dropout
-    {0, 0.2} x outage {0, 0.5} in the sync (deadline 4 s, defer), async
-    (buffer 6) and quorum (drop, quorum 0.75) modes, all through
-    ``backend="jit"``: every round held to ``FAULT_PINS`` (sync, failed,
-    lost, retry rounds, give-ups, extensions), the phase kernel launched
-    (and K1/K2 only where a phase fell back to the per-cycle loop: exactly
-    ``FAULT_FALLBACKS`` upload phases a cell with outages, each with an
-    outage past the kernel's 128-cycle background ring); every
+    timelines with a ``FaultSchedule``): the op point, 6 rounds (a cell
+    with outages its mode's ``FAULT_OUTAGE_ROUNDS``), dropout {0, 0.2} x
+    outage {0, 0.5} in the sync (deadline 4 s, defer), async (buffer 6)
+    and quorum (drop, quorum 0.75) modes, all through ``backend="jit"``:
+    every round held to ``FAULT_PINS`` (sync, failed, lost, retry rounds,
+    give-ups, extensions), the phase kernel launched (and K1/K2 only
+    where a phase fell back to the per-cycle loop: exactly
+    ``FAULT_OUTAGE_FALLBACKS`` upload phases a cell with outages, each
+    with an outage past the kernel's 128-cycle background ring); every
     phase of the three dropout 0.2 x outage 0.5 cells held
     to the plain version on CPU copies (``_hold_phases``); the all-zero
     schedule bit for bit ``faults=None``'s result in each mode; and
@@ -3958,11 +4003,17 @@ def phase_faults():
 
     t0 = time.time()
     grid = dict.fromkeys(("phase", "k1", "k2", "fallbacks"), 0)
-    out, jit_res, held = {}, {}, {}
+    out, jit_res = {}, {}
+    holds = _PhaseHolds()
+    n_rounds = 0
     for name, mode, d, o in fault_cells():
         calls = []
-        res, stats = _timeline_run(faults_spec(mode, d, o, "jit"), calls)
-        _hold_faults(f"faults {name} jit", res[0], FAULT_PINS[name])
+        rounds = FAULT_OUTAGE_ROUNDS[mode] if o else FAULT_ROUNDS
+        n_rounds += rounds
+        res, stats = _timeline_run(faults_spec(mode, d, o, "jit", rounds),
+                                   calls)
+        _hold_faults(f"faults {name} jit", res[0],
+                     FAULT_PINS[name][:rounds])
         _hold_timeline_counts(stats, f"faults {name} jit", True)
         _hold_fallbacks(f"faults {name} jit", stats, mode, o)
         _print_run(f"faults {name} jit", stats)
@@ -3971,7 +4022,7 @@ def phase_faults():
         out[name] = stats
         jit_res[name] = res
         if (d, o) == (FAULT_DROPOUTS[-1], FAULT_OUTAGES[-1]):
-            held[name] = calls
+            holds.add(name, calls)
     for mode in FAULT_MODES:
         res, _ = _timeline_run(faults_spec(mode, 0.0, 0.0, "jit",
                                            trivial=True))
@@ -3995,14 +4046,14 @@ def phase_faults():
     _print_run(f"faults {name} per-cycle, {FAULT_LOOP_ROUNDS} rounds",
                loop)
     t_hold = time.time()
-    checked = _hold_phases(held)
+    checked = holds.finish()
     hold_s = time.time() - t_hold
     n_held = sum(len(v) for v in checked.values())
     err = max(e for v in checked.values() for _, _, e, _ in v)
     n_failed = sum(len(r.failed) for tl in jit_res.values()
                    for r in tl[0].rounds)
     _line("faults", time.time() - t0, cells=len(jit_res),
-          rounds_held=len(jit_res) * FAULT_ROUNDS, failed=n_failed,
+          rounds_held=n_rounds, failed=n_failed,
           retries=sum(len(r.retry_at) for tl in jit_res.values()
                       for r in tl[0].rounds),
           extensions=sum(r.deadline_extensions for tl in jit_res.values()
@@ -5753,7 +5804,9 @@ def phase_fed_train():
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del state, state2, batch, tok
 
-    # (d) resume: only round 2's checkpoint into a fresh directory
+    # (d) resume: only round 2's checkpoint into a fresh directory; the
+    # dry run's cell of mesh (d) runs beside these writes
+    _dryrun_cell_start()
     with tempfile.TemporaryDirectory() as tmp:
         full_dir, fresh = os.path.join(tmp, "full"), os.path.join(tmp, "re")
         full, _, res_launches, full_wall = _fed_entry(
@@ -5911,17 +5964,149 @@ def _spec_table() -> dict:
     return table
 
 
+_DRYRUN_CELL: list = []          # (process, record path, its directory)
+
+
+def _dryrun_cell_start() -> None:
+    """``mesh`` (d), started (once): ``olmo-1b x train_4k x 16x16``
+    through the dry run's CLI (``python -m repro_torch.launch.dryrun``)
+    in a process of its own (this one's process group is up). The
+    smoke starts it beside ``fed_train``'s checkpoint writes, where its
+    host work slows no timed step; ``mesh`` alone starts it itself."""
+    import atexit
+    import tempfile
+
+    if _DRYRUN_CELL:
+        return
+    out_dir = tempfile.mkdtemp()
+    path = os.path.join(out_dir, "dryrun_olmo_train.jsonl")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), env.get("PYTHONPATH")) if p)
+    # at a lower priority than this process, whose steps it runs beside
+    proc = subprocess.Popen(
+        ["nice", "-n", "10", sys.executable, "-m",
+         "repro_torch.launch.dryrun", "--arch", "olmo-1b", "--shape",
+         "train_4k", "--mesh", "single", "--out", path], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    _DRYRUN_CELL.append((proc, path, out_dir))
+    atexit.register(_dryrun_cell_stop)
+
+
+def _dryrun_cell_stop() -> None:
+    """Kill the (d) process if it still runs; remove its directory."""
+    import shutil
+
+    while _DRYRUN_CELL:
+        proc, _, out_dir = _DRYRUN_CELL.pop()
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _dryrun_cell_finish() -> dict:
+    """(d), ended: the cell's record, which must be ``ok``, from the CLI
+    that printed ``1/1 cells OK`` and exited 0; its numbers printed."""
+    from repro_torch.launch import roofline
+
+    proc, path, _ = _DRYRUN_CELL[0]
+    text, _ = proc.communicate(timeout=900)
+    if proc.returncode or "1/1 cells OK" not in text:
+        raise SystemExit(f"mesh (d): the dry run failed ({proc.returncode}):"
+                         f"\n{text[-4000:]}")
+    with open(path) as f:
+        rec = json.loads(f.readlines()[-1])
+    _dryrun_cell_stop()
+    row = roofline.analyze_record(rec)
+    if row is None or rec["kernels"].get("flash_attention", 0) < 1:
+        raise SystemExit(f"mesh (d): not an ok record through K4: {rec}")
+    mem = rec["memory_analysis"]
+    print(f"  (d) dry run olmo-1b x train_4k x 16x16 (fake cuda, one rank "
+          f"of 256): trace {rec['lower_s']} s, flops {rec['hlo_flops']:.6e}, "
+          f"hbm {rec['hlo_hbm_bytes']:.6e} B, dots {rec['hlo_dot_count']}, "
+          f"collectives {rec['collectives']['per_kind']}, kernels "
+          f"{rec['kernels']}, args {mem['argument_size_in_bytes']} B, temp "
+          f"{mem['temp_size_in_bytes']} B; at the H100's peaks compute "
+          f"{row.compute_s:.6f} s, memory {row.memory_s:.6f} s, "
+          f"collective {row.collective_s:.6f} s ({row.dominant}), useful "
+          f"{row.useful_ratio:.4f}", flush=True)
+    return rec
+
+
+def _dryrun_hold(step, state, batch, step_ms: float) -> dict:
+    """(c): one real step of ``step`` on the card under the dry run's op
+    counter, and the same step traced on fake tensors of the same shapes
+    on a fake ``cuda`` device: every count equal (per operator, dot
+    FLOPs, HBM bytes, products, kernel operators; K4 ``TRAIN_K4_A_STEP``
+    a step), the real step's K4 launches those of its kernel operators.
+    Prints the roofline terms at the H100's peaks beside ``step_ms``."""
+    from repro_torch.kernels.attention import kernel as k4
+    from repro_torch.launch import dryrun, roofline
+
+    before = k4.launches
+    real = dryrun.trace_step(step, (state, batch))
+    torch.cuda.synchronize()
+    launched = k4.launches - before
+    mode = dryrun.fake_mode()
+    fake_args = dryrun._map(lambda t: mode.from_tensor(t)
+                            if isinstance(t, torch.Tensor) else t,
+                            (state, batch))
+    fake = dryrun.trace_step(step, fake_args)
+    if k4.launches - before != launched:
+        raise SystemExit("mesh (c): the fake trace launched K4")
+    keys = ("ops", "hlo_flops", "hlo_hbm_bytes", "hlo_dot_count", "kernels")
+    diff = {k: (real[k], fake[k]) for k in keys if real[k] != fake[k]}
+    if diff.get("ops"):
+        r, f = diff["ops"]
+        diff["ops"] = {n: (r.get(n), f.get(n)) for n in set(r) | set(f)
+                       if r.get(n) != f.get(n)}
+    if (diff or real["kernels"] != {"flash_attention": TRAIN_K4_A_STEP}
+            or launched != TRAIN_K4_A_STEP):
+        raise SystemExit(f"mesh (c): the fake trace differs from the "
+                         f"card's step: {diff}; kernels {real['kernels']}, "
+                         f"K4 launched {launched}")
+    row = roofline.analyze_record(dict(
+        real, ok=True, arch="olmo-1b", shape="train", mesh="1",
+        kind="train"))
+    bound_ms = max(row.compute_s, row.memory_s) * 1e3
+    print(f"  (c) a step at {TRAIN_BATCH} x {TRAIN_SEQ}: {step_ms:.3f} ms "
+          f"measured; counted {real['hlo_flops']:.6e} dot flops, "
+          f"{real['hlo_hbm_bytes']:.6e} HBM B, {real['hlo_dot_count']} "
+          f"products, {sum(real['ops'].values())} operators, kernels "
+          f"{real['kernels']}: at the H100's peaks compute "
+          f"{row.compute_s * 1e3:.3f} ms, memory {row.memory_s * 1e3:.3f} "
+          f"ms (bound {bound_ms:.3f} ms, {step_ms / bound_ms:.1f}x); temp "
+          f"{real['memory_analysis']['temp_size_in_bytes']} B real, "
+          f"{fake['memory_analysis']['temp_size_in_bytes']} B fake; trace "
+          f"{fake['lower_s']} s", flush=True)
+    return {"real": real, "fake": fake, "compute_ms": row.compute_s * 1e3,
+            "memory_ms": row.memory_s * 1e3}
+
+
 def phase_mesh():
     """(a) olmo-1b at its published width and depth through the mesh
     step, bit for bit the no-mesh steps, both timed; (b) the production
-    meshes' spec table."""
+    meshes' spec table; (c) the no-mesh step on the card under the dry
+    run's op counter, equal in every count to its fake trace; (d) one
+    production cell through the dry run's CLI, started beside
+    ``fed_train``'s checkpoint writes (here, after (a)'s timed steps, when
+    ``mesh`` runs alone). ``split_s`` gives each part's seconds, ``d``
+    the wait for the cell, ``c+d`` what (c) and (d) add to the phase."""
+    _process_group()
+    t0 = time.time()
+    try:
+        return _mesh_parts(t0)
+    finally:
+        _dryrun_cell_stop()
+
+
+def _mesh_parts(t0: float) -> dict:
     from repro_torch import _dtensor
     from repro_torch._tree import tree_leaves, tree_map
     from repro_torch.configs import get_config
     from repro_torch.optim import OptimizerConfig, warmup_cosine
 
-    _process_group()
-    t0 = time.time()
     cfg = get_config("olmo-1b").replace(grad_accum=1)
     opt_cfg = OptimizerConfig(name="adamw", lr=3e-3)
     schedule = warmup_cosine(3e-3, 20, MESH_STEPS)
@@ -5947,7 +6132,6 @@ def phase_mesh():
     # deterministic mode, as train() runs)
     plain_ms, plain_dev, plain_top = _timed_step(plain_step, plain,
                                                  plain_batch)
-    del plain
     mesh_ms, mesh_dev, mesh_top = _timed_step(mesh_step, mesh, mesh_batch)
     del mesh
     _print_top(f"a no-mesh step at {TRAIN_BATCH} x {TRAIN_SEQ}", plain_dev,
@@ -5955,8 +6139,20 @@ def phase_mesh():
     _print_top(f"a mesh step at {TRAIN_BATCH} x {TRAIN_SEQ}", mesh_dev,
                mesh_ms, mesh_top)
     split = {"a": time.time() - t0}
+    # (d) runs beside fed_train's checkpoint writes, or (mesh alone) here,
+    # after the timed steps (its host work would slow them)
+    t_cd = time.time()
+    _dryrun_cell_start()
+    held = _dryrun_hold(plain_step, plain, plain_batch, plain_ms)
+    split["c"] = time.time() - t_cd
+    del plain
+    t_b = time.time()
     table = _spec_table()
-    split["b"] = time.time() - t0 - split["a"]
+    split["b"] = time.time() - t_b
+    t_d = time.time()
+    cell_rec = _dryrun_cell_finish()
+    split["d"] = time.time() - t_d          # the wait beyond (c) and (b)
+    split["c+d"] = time.time() - t_cd - split["b"]
 
     def busy(dev, wall):
         return "not measured" if dev is None else f"{dev / wall:.3f}"
@@ -5977,6 +6173,16 @@ def phase_mesh():
                                   else f"{plain_dev:.3f}"),
           no_mesh_device_busy=busy(plain_dev, plain_ms),
           spec_table_s=f"{split['b']:.3f}",
+          dryrun_equal="ops, flops, HBM bytes, products, kernel operators",
+          dryrun_k4_a_step=held["real"]["kernels"]["flash_attention"],
+          dryrun_step_flops=f"{held['real']['hlo_flops']:.6e}",
+          dryrun_step_hbm_bytes=f"{held['real']['hlo_hbm_bytes']:.6e}",
+          dryrun_compute_ms=f"{held['compute_ms']:.3f}",
+          dryrun_memory_ms=f"{held['memory_ms']:.3f}",
+          dryrun_cell_flops=f"{cell_rec['hlo_flops']:.6e}",
+          dryrun_cell_coll_bytes=(
+              f"{cell_rec['collectives']['total_bytes']:.6e}"),
+          dryrun_cell_trace_s=cell_rec["lower_s"],
           split_s={k: f"{v:.1f}" for k, v in split.items()})
     return {"olmo-1b-mesh": {"k4": mesh_k4[0], "k4_tc": mesh_k4[1]},
             "spec_table": table}
@@ -5988,6 +6194,8 @@ def main() -> int:
         return 1
     t0 = time.time()
     phase_build()
+    # first: its plain runs go on beside every later phase
+    wide, wide_hold = phase_wide_pons(hold_later=True)
     phase_entry = phase_kphase()
     kernels = [phase_k1(), phase_k2(), phase_entry, *phase_k3(), phase_k4(),
                phase_k5(), phase_k6()]
@@ -5996,7 +6204,6 @@ def main() -> int:
     phase_entry.update(jit_walls)
     oracle, _ = phase_oracle()
     phase_full_width()
-    wide, wide_hold = phase_wide_pons(hold_later=True)
     phase_entry.update(wide)
     timeline, by_path = phase_timeline()
     by_path["oracle"] = oracle
@@ -6053,7 +6260,7 @@ def main() -> int:
                                    + sum(fed[p]["k4"] for p in fed_paths)
                                    + mesh["k4"])
     launches["rglru_scan"] = rg["k6"]
-    phase_entry.update(wide_hold.finish())
+    phase_entry.update(_finish_wide_hold(wide_hold))
     phase_entry["max_abs_err"] = max(phase_entry["max_abs_err"],
                                      phase_entry["wide_pons_max_abs_err"])
     engine_paths = {"traffic_sampler": "k1", "waterfill_grants": "k2",

@@ -82,6 +82,86 @@ def whole_dim(x, dim: int):
     return x.redistribute(x.device_mesh, pl)
 
 
+def unflatten(x, dim: int, sizes: Sequence[int]):
+    """``x`` with dim ``dim`` split into ``sizes`` (a reshape). A DTensor
+    whose ``dim`` is split over mesh dims that do not divide ``sizes[0]``
+    (8 kv heads over a 16-way ``model`` axis) is made whole along ``dim``
+    first, as DTensor cannot split such a dim in place."""
+    d = dim % x.dim()
+    if is_dtensor(x):
+        from torch.distributed.tensor import Shard
+
+        n = 1
+        for m, p in enumerate(x.placements):
+            if isinstance(p, Shard) and p.dim % x.dim() == d:
+                n *= x.device_mesh.size(m)
+        if sizes[0] % n:
+            x = whole_dim(x, d)
+    return x.reshape(tuple(x.shape[:d]) + tuple(sizes)
+                     + tuple(x.shape[d + 1:]))
+
+
+class _Merge(torch.autograd.Function):
+    """Dims ``dim`` up to ``dim + n`` merged into one; the gradient split
+    back by :func:`unflatten`."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, n: int):
+        ctx.dim, ctx.sizes = dim, tuple(x.shape[dim:dim + n])
+        return x.flatten(dim, dim + n - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return unflatten(g, ctx.dim, ctx.sizes), None, None
+
+
+def merge(x, dim: int, n: int):
+    """``x`` with its dims ``dim`` up to ``dim + n`` merged into one (a
+    reshape). On a DTensor the gradient is split back with
+    :func:`unflatten`, so that a split the heads do not divide is
+    gathered rather than refused."""
+    d = dim % x.dim()
+    if is_dtensor(x):
+        return _Merge.apply(x, d, n)
+    return x.reshape(tuple(x.shape[:d]) + (-1,) + tuple(x.shape[d + n:]))
+
+
+class _Unbind(torch.autograd.Function):
+    """``torch.unbind`` of a DTensor along dim 0. The backward stacks the
+    slices' gradients as ``unbind``'s does; where, on one mesh dim, some
+    came back partial and some split, which DTensor cannot stack, each is
+    first placed as its slice is."""
+
+    @staticmethod
+    def forward(ctx, x):
+        outs = torch.unbind(x)
+        ctx.placements = [o.placements for o in outs]
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from torch.distributed.tensor import Partial, Shard
+
+        some = next(g for g in grads if g is not None)
+        grads = [torch.zeros_like(some) if g is None else g for g in grads]
+        mixed = any(
+            any(isinstance(g.placements[m], Partial) for g in grads)
+            and any(isinstance(g.placements[m], Shard) for g in grads)
+            for m in range(some.device_mesh.ndim))
+        if mixed:
+            grads = [g.redistribute(g.device_mesh, pl)
+                     for g, pl in zip(grads, ctx.placements)]
+        return torch.stack(grads)
+
+
+def unbind(x) -> tuple:
+    """``torch.unbind(x)`` (dim 0); on a DTensor through :class:`_Unbind`,
+    whose backward stacks gradients of mixed placements."""
+    if is_dtensor(x):
+        return _Unbind.apply(x)
+    return torch.unbind(x)
+
+
 def mesh_context(*tensors):
     """``implicit_replication()`` where any of ``tensors`` is a DTensor
     (plain tensors then join DTensor ops as replicated), else a no-op."""

@@ -43,16 +43,21 @@ class CheckpointManager:
         path = self._path(step)
         if self.writer:
             self.writer.save(path, tree, meta)
+            # the background write may land before or after the rotation:
+            # leave its step out, so the same files go either way
+            self._rotate(writing=step)
         else:
             save(path, tree, meta)
-        self._rotate()
+            self._rotate()
 
     def wait(self):
         if self.writer:
             self.writer.wait()
 
-    def _rotate(self):
-        steps = self.all_steps()
+    def _rotate(self, writing: Optional[int] = None):
+        """Remove all but the ``keep`` newest steps on disk, ``writing``
+        (a step whose write is in flight) not counted."""
+        steps = [s for s in self.all_steps() if s != writing]
         for s in steps[: -self.keep] if self.keep else []:
             try:
                 os.remove(self._path(s))

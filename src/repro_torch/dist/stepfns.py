@@ -133,9 +133,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
 
     def _step(state: TrainState, batch):
         if accum > 1:
-            micro = [{k: v.reshape((accum, v.shape[0] // accum)
-                                   + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()} for i in range(accum)]
+            micro = [{k: _microbatch(v, accum, i) for k, v in batch.items()}
+                     for i in range(accum)]
             g_sum = constrain(tree_map(lambda p: torch.zeros_like(
                 p, dtype=torch.float32), state.params))
             l_sum = torch.zeros_like(state.opt.step, dtype=torch.float32)
@@ -160,6 +159,25 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
         return TrainState(params=params, opt=opt), metrics
 
     return step
+
+
+def _microbatch(v, accum: int, i: int):
+    """Microbatch ``i`` of ``accum`` of the batch leaf ``v``: its rows
+    ``i * B / accum`` up to ``(i + 1) * B / accum``, as the reference's
+    reshape to ``(accum, B / accum, ...)`` takes them. A DTensor whose
+    batch dim is split is made whole along it first (a microbatch's rows
+    lie on other ranks: the reference's reshape fails to lower there,
+    ROADMAP C3), and the microbatch is split as ``v`` was."""
+    def take(x):
+        return x.reshape((accum, x.shape[0] // accum)
+                         + tuple(x.shape[1:]))[i]
+
+    if not _dtensor.is_dtensor(v):
+        return take(v)
+    whole = _dtensor.whole_dim(v, 0)
+    if whole is v:
+        return take(v)
+    return take(whole).redistribute(v.device_mesh, v.placements)
 
 
 def _replicated(x):
@@ -426,19 +444,23 @@ def make_async_round_step(cfg: ModelConfig, compress: Optional[str] = None,
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
-    """``step(params, tokens, cache, extra_embeds=None) -> (logits, cache)``."""
+    """``step(params, tokens, cache, extra_embeds=None) -> (logits, cache)``
+    (on DTensors, plain tensors made inside join as replicated)."""
 
     def step(params, tokens, cache, extra_embeds=None):
-        return lm.prefill(params, cfg, tokens, cache, extra_embeds)
+        with _dtensor.mesh_context(tokens):
+            return lm.prefill(params, cfg, tokens, cache, extra_embeds)
 
     return step
 
 
 def make_decode_step(cfg: ModelConfig) -> Callable:
-    """``step(params, token, cache) -> (logits, cache)`` — one token."""
+    """``step(params, token, cache) -> (logits, cache)`` — one token (on
+    DTensors, plain tensors made inside join as replicated)."""
 
     def step(params, token, cache):
-        return lm.decode_step(params, cfg, token, cache)
+        with _dtensor.mesh_context(token):
+            return lm.decode_step(params, cfg, token, cache)
 
     return step
 

@@ -46,16 +46,10 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
     return "cuda_cores"
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True, window=None) -> torch.Tensor:
-    """Attention ``(B, S, H, D)`` in q's dtype, as ``ref.attention_ref``.
-
-    ``q`` ``(B, S, H, D)``, ``k``/``v`` ``(B, T, K, D)`` with
-    ``H % K == 0``: contiguous CUDA tensors of one dtype (float32 or
-    bfloat16) on one device, ``D`` in ``HEAD_DIMS``. ``window`` is None
-    or a positive number of keys (``q_pos - k_pos < window``).
-    """
-    global launches, launches_tc
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window) -> None:
+    """Raise unless the kernel takes q, k, v and ``window``: their
+    devices, dtypes, shapes and layouts (not their addresses)."""
     if q.dtype not in DTYPES:
         raise ValueError(f"q must be float32 or bfloat16; got {q.dtype}")
     _cuda.require(q, "q", q.dtype, (None,) * 4)
@@ -72,9 +66,22 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{H} query heads do not group over {K} kv heads")
     if window is not None and int(window) < 1:
         raise ValueError(f"window must be None or >= 1; got {window}")
-    tensor_cores = route(q.dtype, D) == "tensor_cores"
-    if tensor_cores and T == 0:
+    if route(q.dtype, D) == "tensor_cores" and T == 0:
         raise ValueError("the tensor-core kernel needs at least one key")
+
+
+@torch.library.custom_op(
+    "repro_torch::flash_attention", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, int? window) "
+           "-> Tensor")
+def _flash_attention(q, k, v, causal, window):
+    """K4 as one operator, as the TPU kernel is one custom call in the
+    reference's program: the kernel's launch on a card."""
+    global launches, launches_tc
+    _check(q, k, v, window)
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    tensor_cores = route(q.dtype, D) == "tensor_cores"
     out = torch.empty_like(q)
     if tensor_cores and any(t.data_ptr() % 16 for t in (q, k, v, out)):
         raise ValueError("the tensor-core kernel's TMA copies need "
@@ -92,3 +99,24 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         launches += 1
         launches_tc += tensor_cores
     return out
+
+
+@_flash_attention.register_fake
+def _(q, k, v, causal, window):
+    _check(q, k, v, window)
+    return torch.empty_like(q)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True, window=None) -> torch.Tensor:
+    """Attention ``(B, S, H, D)`` in q's dtype, as ``ref.attention_ref``.
+
+    ``q`` ``(B, S, H, D)``, ``k``/``v`` ``(B, T, K, D)`` with
+    ``H % K == 0``: contiguous CUDA tensors of one dtype (float32 or
+    bfloat16) on one device, ``D`` in ``HEAD_DIMS``. ``window`` is None
+    or a positive number of keys (``q_pos - k_pos < window``). Runs as
+    the operator ``torch.ops.repro_torch.flash_attention``: one launch
+    on a card, its output's shape alone on a fake tensor (a dry run).
+    """
+    return _flash_attention(q, k, v, bool(causal),
+                            None if window is None else int(window))

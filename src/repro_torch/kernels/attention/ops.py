@@ -45,7 +45,9 @@ class FlashAttention(torch.autograd.Function):
             out = _ref.attention_ref(*ins, ctx.causal, ctx.window)
             got = torch.autograd.grad(
                 out, [t for t, w in zip(ins, want) if w], g)
-        it = iter(got)
+        # dense, as the forward's inputs are: a mesh's DTensors take the
+        # local gradients to be laid out as their whole shape is
+        it = iter(g.contiguous() for g in got)
         return (*(next(it) if w else None for w in want), None, None)
 
 

@@ -55,16 +55,35 @@ def _partials(x: torch.Tensor, stream: int, n_blocks: int) -> torch.Tensor:
     return buf
 
 
-def quantize_int8_cuda(x: torch.Tensor, block: int = DEFAULT_BLOCK):
-    """``(q (n_pad,) int8, scales (n_blocks,) float32)`` of the contiguous
-    CUDA tensor ``x`` (float32 or bfloat16, any shape), as
-    ``ref.quantize_int8_ref``: one kernel launch. A block past
-    :data:`TILE` elements uses the scratch kept for this device and the
-    current stream."""
-    global quantize_launches
+def _check_quantize(x: torch.Tensor) -> None:
     if x.dtype not in DTYPES:
         raise ValueError(f"x must be float32 or bfloat16; got {x.dtype}")
     _cuda.require(x, "x", x.dtype, (None,) * x.dim())
+
+
+def _check_dequantize(q: torch.Tensor, scales: torch.Tensor,
+                      block: int) -> int:
+    """Raise unless K3' takes q and scales; returns the block it uses."""
+    _cuda.require(q, "q", torch.int8, (None,))
+    n_pad = q.numel()
+    block = block_size(block, n_pad)
+    if n_pad % block:
+        raise ValueError(f"q's {n_pad} elements are not whole blocks of "
+                         f"{block}")
+    _cuda.require(scales, "scales", torch.float32, (n_pad // block,))
+    if scales.device != q.device:
+        raise ValueError("q and scales must lie on one device")
+    return block
+
+
+@torch.library.custom_op(
+    "repro_torch::quantize_int8", mutates_args=(),
+    schema="(Tensor x, int block) -> (Tensor, Tensor)")
+def _quantize_int8(x, block):
+    """K3 as one operator, as the TPU kernel is one custom call in the
+    reference's program: the kernel's launch on a card."""
+    global quantize_launches
+    _check_quantize(x)
     n = x.numel()
     block = block_size(block, n)
     n_blocks = -(-n // block)
@@ -85,21 +104,23 @@ def quantize_int8_cuda(x: torch.Tensor, block: int = DEFAULT_BLOCK):
     return q, scales
 
 
-def dequantize_int8_cuda(q: torch.Tensor, scales: torch.Tensor,
-                         block: int = DEFAULT_BLOCK) -> torch.Tensor:
-    """``(n_pad,)`` float32 of ``q (n_pad,)`` int8 and ``scales
-    (n_pad / block,)`` float32, contiguous CUDA tensors on one device, as
-    ``ref.dequantize_int8_ref``."""
+@_quantize_int8.register_fake
+def _(x, block):
+    _check_quantize(x)
+    block = block_size(block, x.numel())
+    n_blocks = -(-x.numel() // block)
+    return (x.new_empty(n_blocks * block, dtype=torch.int8),
+            x.new_empty(n_blocks, dtype=torch.float32))
+
+
+@torch.library.custom_op(
+    "repro_torch::dequantize_int8", mutates_args=(),
+    schema="(Tensor q, Tensor scales, int block) -> Tensor")
+def _dequantize_int8(q, scales, block):
+    """K3' as one operator: the kernel's launch on a card."""
     global dequantize_launches
-    _cuda.require(q, "q", torch.int8, (None,))
+    block = _check_dequantize(q, scales, block)
     n_pad = q.numel()
-    block = block_size(block, n_pad)
-    if n_pad % block:
-        raise ValueError(f"q's {n_pad} elements are not whole blocks of "
-                         f"{block}")
-    _cuda.require(scales, "scales", torch.float32, (n_pad // block,))
-    if scales.device != q.device:
-        raise ValueError("q and scales must lie on one device")
     out = torch.empty(n_pad, dtype=torch.float32, device=q.device)
     if n_pad:
         lib = _cuda.library()
@@ -110,3 +131,29 @@ def dequantize_int8_cuda(q: torch.Tensor, scales: torch.Tensor,
         _cuda.check(rc, "int8 dequantise")
         dequantize_launches += 1
     return out
+
+
+@_dequantize_int8.register_fake
+def _(q, scales, block):
+    _check_dequantize(q, scales, block)
+    return q.new_empty(q.numel(), dtype=torch.float32)
+
+
+def quantize_int8_cuda(x: torch.Tensor, block: int = DEFAULT_BLOCK):
+    """``(q (n_pad,) int8, scales (n_blocks,) float32)`` of the contiguous
+    CUDA tensor ``x`` (float32 or bfloat16, any shape), as
+    ``ref.quantize_int8_ref``: one kernel launch. A block past
+    :data:`TILE` elements uses the scratch kept for this device and the
+    current stream. Runs as the operator
+    ``torch.ops.repro_torch.quantize_int8``; on a fake tensor (a dry run)
+    it gives the outputs' shapes alone."""
+    return _quantize_int8(x, int(block))
+
+
+def dequantize_int8_cuda(q: torch.Tensor, scales: torch.Tensor,
+                         block: int = DEFAULT_BLOCK) -> torch.Tensor:
+    """``(n_pad,)`` float32 of ``q (n_pad,)`` int8 and ``scales
+    (n_pad / block,)`` float32, contiguous CUDA tensors on one device, as
+    ``ref.dequantize_int8_ref``. Runs as the operator
+    ``torch.ops.repro_torch.dequantize_int8``."""
+    return _dequantize_int8(q, scales, int(block))

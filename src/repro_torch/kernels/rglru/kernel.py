@@ -26,15 +26,9 @@ WINDOW = 64                       # steps a window: 8 chunks (kW)
 launches = 0                      # kernel launches since the last reset
 
 
-def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
-                    h0: torch.Tensor | None = None) -> torch.Tensor:
-    """``h (B, S, R)`` float32, as ``ref.rglru_scan_ref``.
-
-    ``a``, ``b`` ``(B, S, R)``: contiguous CUDA tensors of one dtype
-    (float32 or bfloat16) on one device; ``h0`` ``(B, R)`` contiguous
-    float32, or None (zeros).
-    """
-    global launches
+def _check(a: torch.Tensor, b: torch.Tensor, h0) -> None:
+    """Raise unless the kernel takes a, b and h0: their devices, dtypes,
+    shapes and layouts."""
     if a.dtype not in DTYPES:
         raise ValueError(f"a must be float32 or bfloat16; got {a.dtype}")
     _cuda.require(a, "a", a.dtype, (None,) * 3)
@@ -44,6 +38,17 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
         _cuda.require(h0, "h0", torch.float32, (B, R))
     if b.device != a.device or (h0 is not None and h0.device != a.device):
         raise ValueError("a, b and h0 must lie on one device")
+
+
+@torch.library.custom_op(
+    "repro_torch::rglru_scan", mutates_args=(),
+    schema="(Tensor a, Tensor b, Tensor? h0) -> Tensor")
+def _rglru_scan(a, b, h0):
+    """K6 as one operator, as the TPU kernel is one custom call in the
+    reference's program: the kernel's launch on a card."""
+    global launches
+    _check(a, b, h0)
+    B, S, R = a.shape
     out = torch.empty((B, S, R), dtype=torch.float32, device=a.device)
     if out.numel():
         lib = _cuda.library()
@@ -56,3 +61,22 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
         _cuda.check(rc, "rglru scan")
         launches += 1
     return out
+
+
+@_rglru_scan.register_fake
+def _(a, b, h0):
+    _check(a, b, h0)
+    return a.new_empty(tuple(a.shape), dtype=torch.float32)
+
+
+def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
+                    h0: torch.Tensor | None = None) -> torch.Tensor:
+    """``h (B, S, R)`` float32, as ``ref.rglru_scan_ref``.
+
+    ``a``, ``b`` ``(B, S, R)``: contiguous CUDA tensors of one dtype
+    (float32 or bfloat16) on one device; ``h0`` ``(B, R)`` contiguous
+    float32, or None (zeros). Runs as the operator
+    ``torch.ops.repro_torch.rglru_scan``: one launch on a card, its
+    output's shape alone on a fake tensor (a dry run).
+    """
+    return _rglru_scan(a, b, h0)

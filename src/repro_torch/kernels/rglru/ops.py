@@ -37,7 +37,8 @@ class RGLRUScan(torch.autograd.Function):
             out = _ref.rglru_scan_ref(*ins)
             got = torch.autograd.grad(
                 out, [t for t, w in zip(ins, want) if w], g)
-        it = iter(got)
+        # dense, as a mesh's DTensors take the local gradients to be
+        it = iter(g.contiguous() for g in got)
         return tuple(next(it) if w else None for w in want)
 
 

@@ -83,21 +83,9 @@ def _require_rows(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"got strides {t.stride()}")
 
 
-def ssd_scan_cuda(xh: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
-                  dt: torch.Tensor, a: torch.Tensor, chunk: int,
-                  h0: torch.Tensor | None = None, route_to: str | None = None):
-    """``(y (B, S, H, P), h_last (B, H, P, N))`` float32, as
-    ``ref.ssd_chunked_ref``.
-
-    ``xh`` ``(B, S, H, P)`` and ``b_mat``/``c_mat`` ``(B, S, N)``: CUDA
-    tensors of one dtype (float32 or bfloat16), dense past the position
-    axis. ``dt`` ``(B, S, H)``, ``a`` ``(H,)`` and ``h0`` ``(B, H, P, N)``
-    (or None: zeros): contiguous float32. ``min(chunk, S) <= 128``,
-    ``N <= 256``. ``route_to`` names the kernel (:data:`ROUTES`); by
-    default :func:`route` picks it. Asking for the tensor-core kernel on
-    inputs it does not take raises.
-    """
-    global launches, launches_tc
+def _check(xh, b_mat, c_mat, dt, a, chunk: int, h0, route_to) -> None:
+    """Raise unless the kernels take these inputs: their devices, dtypes,
+    shapes and layouts (not their addresses)."""
     if xh.dtype not in DTYPES:
         raise ValueError(f"xh must be float32 or bfloat16; got {xh.dtype}")
     if xh.dim() != 4:
@@ -121,18 +109,39 @@ def ssd_scan_cuda(xh: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
     if not 1 <= N <= MAX_STATE:
         raise ValueError(f"state size {N} not supported; the kernel takes "
                          f"1..{MAX_STATE}")
-    chosen = route(xh.dtype, P, N, int(chunk),
+    if route_to is not None and route_to not in ROUTES:
+        raise ValueError(f"route_to must be one of {ROUTES}; got "
+                         f"{route_to!r}")
+
+
+def _choose(xh, b_mat, c_mat, chunk: int, route_to) -> str:
+    """The route of a launch: :func:`route`'s, or ``route_to`` where it
+    names one the inputs allow."""
+    chosen = route(xh.dtype, xh.shape[3], b_mat.shape[2], int(chunk),
                    tma_strides(xh, b_mat, c_mat))
     if route_to is not None:
-        if route_to not in ROUTES:
-            raise ValueError(f"route_to must be one of {ROUTES}; got "
-                             f"{route_to!r}")
         if route_to == "tensor_cores" and chosen != route_to:
             raise ValueError(
                 "the tensor-core kernel takes bfloat16 at head dim "
                 f"{TC_HEAD_DIMS}, state {TC_STATES}, chunk {TC_CHUNKS} and "
                 "16-byte aligned addresses and strides")
         chosen = route_to
+    return chosen
+
+
+@torch.library.custom_op(
+    "repro_torch::ssd_scan", mutates_args=(),
+    schema="(Tensor xh, Tensor b_mat, Tensor c_mat, Tensor dt, Tensor a, "
+           "int chunk, Tensor? h0, str? route_to) -> (Tensor, Tensor)")
+def _ssd_scan(xh, b_mat, c_mat, dt, a, chunk, h0, route_to):
+    """K5 as one operator, as the TPU kernel is one custom call in the
+    reference's program: the kernels' launches on a card."""
+    global launches, launches_tc
+    _check(xh, b_mat, c_mat, dt, a, chunk, h0, route_to)
+    chosen = _choose(xh, b_mat, c_mat, chunk, route_to)
+    Bsz, S, H, P = xh.shape
+    N = b_mat.shape[2]
+    Q = min(int(chunk), S)
     y = torch.empty((Bsz, S, H, P), dtype=torch.float32, device=xh.device)
     if not (Bsz and S and H and P):
         h_last = (torch.zeros((Bsz, H, P, N), dtype=torch.float32,
@@ -166,3 +175,31 @@ def ssd_scan_cuda(xh: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
     launches += 1
     launches_tc += chosen == "tensor_cores"
     return y, h_last
+
+
+@_ssd_scan.register_fake
+def _(xh, b_mat, c_mat, dt, a, chunk, h0, route_to):
+    _check(xh, b_mat, c_mat, dt, a, chunk, h0, route_to)
+    Bsz, S, H, P = xh.shape
+    N = b_mat.shape[2]
+    return (xh.new_empty((Bsz, S, H, P), dtype=torch.float32),
+            xh.new_empty((Bsz, H, P, N), dtype=torch.float32))
+
+
+def ssd_scan_cuda(xh: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
+                  dt: torch.Tensor, a: torch.Tensor, chunk: int,
+                  h0: torch.Tensor | None = None, route_to: str | None = None):
+    """``(y (B, S, H, P), h_last (B, H, P, N))`` float32, as
+    ``ref.ssd_chunked_ref``.
+
+    ``xh`` ``(B, S, H, P)`` and ``b_mat``/``c_mat`` ``(B, S, N)``: CUDA
+    tensors of one dtype (float32 or bfloat16), dense past the position
+    axis. ``dt`` ``(B, S, H)``, ``a`` ``(H,)`` and ``h0`` ``(B, H, P, N)``
+    (or None: zeros): contiguous float32. ``min(chunk, S) <= 128``,
+    ``N <= 256``. ``route_to`` names the kernel (:data:`ROUTES`); by
+    default :func:`route` picks it. Asking for the tensor-core kernel on
+    inputs it does not take raises. Runs as the operator
+    ``torch.ops.repro_torch.ssd_scan``: the launches on a card, the
+    outputs' shapes alone on a fake tensor (a dry run).
+    """
+    return _ssd_scan(xh, b_mat, c_mat, dt, a, int(chunk), h0, route_to)

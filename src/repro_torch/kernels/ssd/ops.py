@@ -47,7 +47,8 @@ class SSDScan(torch.autograd.Function):
                 [o for o, _ in outs],
                 [t for t, w in zip(ins, want) if w],
                 [g for _, g in outs], allow_unused=True)
-        it = iter(got)
+        # dense, as a mesh's DTensors take the local gradients to be
+        it = iter(None if g is None else g.contiguous() for g in got)
         grads = [next(it) if w else None for w in want]
         return (*grads[:5], None, grads[5])
 

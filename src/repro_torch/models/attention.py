@@ -31,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import _dtensor
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels.attention import ops as flash_ops
 from repro_torch.models.layers import (
@@ -122,13 +123,13 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, S, H, Dh = q.shape
     Kh = k.shape[2]
     G = H // Kh
-    qg = q.reshape(B, S, Kh, G, Dh)
+    qg = _dtensor.unflatten(q, 2, (Kh, G))
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
     scores = scores * (Dh ** -0.5)
     scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", w, v)
-    return out.reshape(B, S, H * Dh)
+    return _dtensor.merge(out, 2, 3)                      # (B, S, H*Dh)
 
 
 def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -136,9 +137,9 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
     B, S, _ = x.shape
     H, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     dt = x.dtype
-    q = (x @ params["wq"].to(dt)).reshape(B, S, H, Dh)
-    k = (x @ params["wk"].to(dt)).reshape(B, S, K, Dh)
-    v = (x @ params["wv"].to(dt)).reshape(B, S, K, Dh)
+    q = _dtensor.unflatten(x @ params["wq"].to(dt), 2, (H, Dh))
+    k = _dtensor.unflatten(x @ params["wk"].to(dt), 2, (K, Dh))
+    v = _dtensor.unflatten(x @ params["wv"].to(dt), 2, (K, Dh))
     if cfg.qk_norm:
         q = apply_head_norm(params["q_norm"], q)
         k = apply_head_norm(params["k_norm"], k)
@@ -154,7 +155,7 @@ def _attend_full(q, k, v, cfg: ModelConfig, spec: LayerSpec,
     if cfg.attn_impl in ("pallas", "chunked"):
         out = flash_ops.flash_attention(q, k, v, causal=True,
                                         window=spec.window)
-        return out.reshape(out.shape[0], seq, cfg.n_heads * cfg.d_head)
+        return _dtensor.merge(out, 2, 2)                  # (B, S, H*Dh)
     if cfg.attn_impl != "reference":
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     mask = _mask_full(seq, seq, spec.window, device=q.device)
@@ -227,6 +228,6 @@ def attn_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
         v_read = _dequant_rows(cache["v"], cache["v_scale"], x.dtype)
     else:
         k_read, v_read = cache["k"], cache["v"]
-    out = _sdpa(q, k_read.reshape(B, cap, K, Dh),
-                v_read.reshape(B, cap, K, Dh), valid)
+    out = _sdpa(q, _dtensor.unflatten(k_read, 2, (K, Dh)),
+                _dtensor.unflatten(v_read, 2, (K, Dh)), valid)
     return out @ params["wo"].to(x.dtype), dict(cache)

@@ -64,11 +64,11 @@ def _tree_index(tree, u: int):
 
 def _tree_unbind(tree, n: int) -> list:
     """The ``n`` units of a stacked tree, each leaf a view
-    (``torch.unbind``)."""
+    (``torch.unbind``; ``_dtensor.unbind`` on a mesh)."""
     if isinstance(tree, dict):
         parts = {k: _tree_unbind(v, n) for k, v in tree.items()}
         return [{k: parts[k][u] for k in parts} for u in range(n)]
-    return list(torch.unbind(tree))
+    return list(_dtensor.unbind(tree))
 
 
 def _stack_units(make, like, n: int, device):

@@ -91,17 +91,22 @@ def _moe_group(params: dict, xt: torch.Tensor, cfg: ModelConfig,
     probs, gate_idx, gate_val, pos, keep = _route(xt, params["router"],
                                                   e.top_k, capacity)
     slot = torch.where(keep, gate_idx * C + pos, 0)       # (n, k) in E*C
-    expert_in = torch.zeros((E * C, D), dtype=dt, device=xt.device)
-    tokens = torch.arange(n, device=xt.device)[:, None].expand(n, e.top_k)
-    expert_in[slot[keep]] = xt[tokens[keep]]
-    expert_in = expert_in.view(E, C, D)
+    # a dropped choice is written to the spare row E*C, cut off after,
+    # so that no shape depends on the routing
+    dest = torch.where(keep, slot, E * C).reshape(-1)
+    expert_in = xt.new_zeros((E * C + 1, D))    # a DTensor like xt
+    expert_in.index_put_((dest,), xt[:, None].expand(n, e.top_k, D)
+                         .reshape(-1, D))
+    expert_in = expert_in[:E * C].view(E, C, D)
     h = F.silu(torch.bmm(expert_in, params["w_gate"].to(dt))) * torch.bmm(
         expert_in, params["w_up"].to(dt))
     expert_out = torch.bmm(h, params["w_down"].to(dt)).view(E * C, D)
     combine = torch.where(keep, gate_val, 0.0).to(dt)     # (n, k)
     y = (combine.float()[..., None] * expert_out[slot].float()).sum(1)
 
-    frac_tokens = torch.bincount(gate_idx[:, 0], minlength=E).float() / n
+    top1 = gate_idx[:, 0]
+    frac_tokens = top1.new_zeros(E).scatter_add(
+        0, top1, torch.ones_like(top1)).float() / n
     aux = E * torch.sum(frac_tokens * probs.mean(dim=0))
     return y.to(dt), aux * e.load_balance_weight
 

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.models.layers import torch_dtype
-from repro_torch.optim.schedules import libm
+from repro_torch.optim.schedules import host_count, libm
 
 
 @dataclass(frozen=True)
@@ -106,7 +106,7 @@ def apply_updates(params, grads, state: OptState, cfg: OptimizerConfig,
         return new_params, OptState(step, mu, state.nu), gnorm
 
     # adamw; the bias corrections are scalars of the host's step count
-    n = int(step)
+    n = host_count(step)
     dev = step.device
     bc1 = torch.tensor(np.float32(1.0) - _powf(cfg.b1, n),
                        dtype=torch.float32, device=dev)

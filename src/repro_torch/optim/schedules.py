@@ -34,10 +34,19 @@ def libm() -> ctypes.CDLL:
     return lib
 
 
+def host_count(step: torch.Tensor) -> int:
+    """``int(step)``. A fake tensor (a dry run traces a step with shapes
+    alone) holds no count: it reads as 1, which changes no shape and no
+    operation of a step."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    return 1 if is_fake(step) else int(step)
+
+
 def _host_step(step):
     """(step as float32, device of the result)."""
     if isinstance(step, torch.Tensor):
-        return _F32(int(step)), step.device
+        return _F32(host_count(step)), step.device
     return _F32(step), torch.device("cpu")
 
 

@@ -61,7 +61,9 @@ def test_scan_covers_the_port():
                      "checkpoint/checkpoint.py", "checkpoint/manager.py",
                      "launch/train.py", "dist/__init__.py",
                      "dist/sharding.py", "launch/mesh.py",
-                     "launch/specs.py", "_dtensor.py"):
+                     "launch/specs.py", "_dtensor.py",
+                     "launch/dryrun.py", "launch/hlo_analysis.py",
+                     "launch/roofline.py"):
         assert expected in names
 
 
