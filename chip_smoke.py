@@ -859,6 +859,35 @@ def _device_ms(fn, args, reps: int = 16) -> float:
     return statistics.median(times)
 
 
+def phase_lint():
+    """The port's static analysis: its self-test, then its rules over the
+    tree this script runs from (``src/repro_torch`` and this file)
+    against ``analysis-baseline-torch.json``. A finding or a stale
+    baseline entry fails the run."""
+    from repro_torch.analysis.baseline import apply_baseline, load_baseline
+    from repro_torch.analysis.core import load_modules, run_checkers
+    from repro_torch.analysis.selftest import run_self_test
+
+    t0 = time.time()
+    if run_self_test(verbose=False):
+        raise SystemExit("the port's static analysis fails its self-test")
+    modules = load_modules([os.path.join(ROOT, "src", "repro_torch"),
+                            os.path.join(ROOT, "chip_smoke.py")])
+    entries = load_baseline(os.path.join(ROOT,
+                                         "analysis-baseline-torch.json"))
+    new, baselined, stale = apply_baseline(run_checkers(modules), entries)
+    for f in new:
+        print(f"  {f.location()}: {f.code} [{f.symbol}] {f.message}")
+    for e in stale:
+        print(f"  stale baseline entry {e.code} {e.path} [{e.symbol}]")
+    _line("lint", time.time() - t0, files=len(modules), findings=len(new),
+          baselined=len(baselined), stale=len(stale))
+    if new or stale:
+        raise SystemExit(f"the port's static analysis: {len(new)} "
+                         f"finding(s), {len(stale)} stale baseline "
+                         f"entr{'y' if len(stale) == 1 else 'ies'}")
+
+
 def phase_build():
     from repro_torch import _cuda
 
@@ -1721,6 +1750,19 @@ def _tf32_on():
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+@contextlib.contextmanager
+def _matmul_tf32_off():
+    """Float32 products in full float32 inside the block (a decorator of
+    the K4 and K5 phases, whose plain versions multiply in float32); the
+    flag in force before is restored on the way out."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def _cnn_grads(params, batch, precision=None):
     """(loss, gradients) of one batch, in full float32 as a client step
     (or under the ``precision`` context)."""
@@ -1999,11 +2041,11 @@ def _k4_timed(shape, window, seed):
     return err, ms, plain_ms, library_ms, bound, by, n_ops
 
 
+@_matmul_tf32_off()
 def phase_k4():
     from repro_torch.kernels.attention import kernel
 
     t0 = time.time()
-    torch.backends.cuda.matmul.allow_tf32 = False
     grid_err = {"float32": 0.0, "bfloat16": 0.0}
     tc_before = kernel.launches_tc
     for B, S, T, H, K, D, causal, window in K4_GRID:
@@ -4537,11 +4579,11 @@ def _ssd_flops(B, S, H, P, N, chunk) -> int:
     return total
 
 
+@_matmul_tf32_off()
 def phase_k5():
     from repro_torch.kernels.ssd import kernel, ref
 
     t0 = time.time()
-    torch.backends.cuda.matmul.allow_tf32 = False
     grid_err = {"float32": 0.0, "cuda_cores": 0.0, "tensor_cores": 0.0}
     largest_sum = 0.0
     n_checks = n_tc = 0
@@ -6193,6 +6235,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t0 = time.time()
+    phase_lint()
     phase_build()
     # first: its plain runs go on beside every later phase
     wide, wide_hold = phase_wide_pons(hold_later=True)

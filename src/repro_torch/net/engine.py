@@ -793,18 +793,18 @@ def _job_grants_bs(slots: _JobSlots, fl: _FLQueues, ctx, t: float,
 _OBS_ROWS = ("bg_backlog", "fl_backlog", "bg_grants", "fl_grants")
 
 
-def _observe_cycle(obs, cap, ob: dict) -> None:
+def _observe_cycle(obs, cap, cps_want=None, cps_eff=None, **rows) -> None:
     """Hand ``obs`` (a ``PhaseStats``) one cycle: the ``(B, N)`` backlogs
-    and grants in ``ob`` stacked into one fresh tensor (one copy; their
-    row sums are taken when ``obs`` folds) and the ``(B,)`` CPS want/eff,
-    fresh tensors. ``cap`` is never written, so nothing buffered is a
-    tensor the loop later changes."""
-    names = [name for name in _OBS_ROWS if name in ob]
+    and grants in ``rows`` (None where the cycle has none) stacked into
+    one fresh tensor (one copy; their row sums are taken when ``obs``
+    folds) and the ``(B,)`` CPS want/eff, fresh tensors. ``cap`` is never
+    written, so nothing buffered is a tensor the loop later changes."""
+    names = [name for name in _OBS_ROWS if rows.get(name) is not None]
     if names:
-        rows = torch.cat([ob.pop(name) for name in names])
-        obs.cycle_rows(cap, rows, names, **ob)
+        obs.cycle_rows(cap, torch.cat([rows[name] for name in names]),
+                       names, cps_want=cps_want, cps_eff=cps_eff)
     else:
-        obs.cycle(cap, **ob)
+        obs.cycle(cap, cps_want=cps_want, cps_eff=cps_eff)
 
 
 def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
@@ -900,7 +900,8 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
         if use_bg:
             bg.push(k, stream.row(k))
         if obs is not None:
-            ob = {}     # this cycle's observations, at the reference's points
+            # this cycle's observations, at the reference's points
+            ob_bg = ob_fl = ob_bg_g = ob_fl_g = ob_want = ob_eff = None
         if n_wait:
             newly = waiting & (ready_t <= t + cyc)
             n_new = int(np.count_nonzero(newly))
@@ -914,9 +915,9 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
         if n_left > n_wait:
             backlog_onu = fl.backlog_per_onu()
             if obs is not None:
-                ob["fl_backlog"] = backlog_onu
+                ob_fl = backlog_onu
                 if use_bg:
-                    ob["bg_backlog"] = bg.backlog
+                    ob_bg = bg.backlog
             plan = None
             if mode == "fcfs":
                 if cps_cap is None:
@@ -928,10 +929,10 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
                     eff = cps_waterfill(want.reshape(-1, n_pons),
                                         cps_cap).reshape(-1)
                     if obs is not None:
-                        ob["cps_want"], ob["cps_eff"] = want, eff
+                        ob_want, ob_eff = want, eff
                 bg_grants = _waterfill(bg.backlog, bg.hol_key, eff)
                 if obs is not None:
-                    ob["bg_grants"] = bg_grants
+                    ob_bg_g = bg_grants
                 cap_fl = eff - bg_grants.sum(dim=1)
                 if jobs_ctx is None:
                     fl_grants = _waterfill(backlog_onu, fl.hol_per_onu,
@@ -950,14 +951,14 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
                     eff = cps_waterfill(want.reshape(-1, n_pons),
                                         cps_cap).reshape(-1)
                     if obs is not None:
-                        ob["cps_want"], ob["cps_eff"] = want, eff
+                        ob_want, ob_eff = want, eff
                     if bool((eff < want).any()):
                         fl_grants = _slot_grants(slots, backlog_onu, t,
                                                  cyc, eff, N)
             if plan is not None:
                 fl_grants = sum(g for _, g, _ in plan)
             if obs is not None:
-                ob["fl_grants"] = fl_grants
+                ob_fl_g = fl_grants
             if bool((fl_grants > 0.0).any()):
                 prev_qb = fl.qb.clone()
                 if plan is None:
@@ -978,14 +979,16 @@ def _run_phase(cfg, lay: _Layout, rem_init: np.ndarray,
                 eff = cps_waterfill(want.reshape(-1, n_pons),
                                     cps_cap).reshape(-1)
                 if obs is not None:
-                    ob["cps_want"], ob["cps_eff"] = want, eff
+                    ob_want, ob_eff = want, eff
             bg_grants = _waterfill(bg.backlog, bg.hol_key, eff)
             if obs is not None:
-                ob["bg_backlog"], ob["bg_grants"] = bg.backlog, bg_grants
+                ob_bg, ob_bg_g = bg.backlog, bg_grants
             bg.serve(bg_grants, k)
         if obs is not None:
             # every cycle, idle ones included, as the reference records
-            _observe_cycle(obs, cap_cyc, ob)
+            _observe_cycle(obs, cap_cyc, ob_want, ob_eff,
+                           bg_backlog=ob_bg, fl_backlog=ob_fl,
+                           bg_grants=ob_bg_g, fl_grants=ob_fl_g)
         t += cyc
         k += 1
 

@@ -63,7 +63,9 @@ def test_scan_covers_the_port():
                      "dist/sharding.py", "launch/mesh.py",
                      "launch/specs.py", "_dtensor.py",
                      "launch/dryrun.py", "launch/hlo_analysis.py",
-                     "launch/roofline.py"):
+                     "launch/roofline.py", "analysis/core.py",
+                     "analysis/cli.py", "analysis/registry.py",
+                     "analysis/checkers/kernel_triple.py"):
         assert expected in names
 
 
