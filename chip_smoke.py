@@ -74,7 +74,11 @@ plain runs go on beside every later phase:
    limit and ptxas' register counts;
 2. ``k1``: the traffic sampler against its plain PyTorch version on the
    card, bit for bit: the sampler parity shapes, the engine's chunk
-   shapes and two pinned stream fingerprints;
+   shapes, the tiling's edges (n_cycles under a window, spans cut
+   short, lo > 0, a rate-0 row beside draw budgets in the hundreds,
+   thresholds past 48 KB of shared memory) and two pinned stream
+   fingerprints; timed at 8 x 1024 x 128 and 1 x 1024 x 2048, each with
+   its bound and the device operations a call (one, by torch.profiler);
 3. ``k2``: the waterfill grant against its plain version run on CPU
    copies of the same inputs, bit for bit, at the engine's rows (128,
    2048 and 4096 queues), at the widest row held in shared memory
@@ -942,6 +946,37 @@ def _engine_streams(n_onus: int, cases, cfg):
     return np.stack(keys), np.asarray(lams, np.float32)
 
 
+def _k1_timed(kernel, ref, kt, thr, st, ln, n_cycles: int, n_onus: int,
+              pkt: float) -> dict:
+    """K1 at one shape from cycle 0: its device ms, its plain version's,
+    its bound (the output written once and the keys and tables read
+    once over HBM_BYTES_S; a threefry a cell and a live burst over
+    OPS32_S) and the device operations a call (torch.profiler over 3
+    calls; None if the profiler saw no device time)."""
+    args = (kt, 0, thr, st, ln, pkt)
+    kw = dict(n_cycles=n_cycles, n_onus=n_onus)
+
+    def call():
+        return kernel.sample_arrival_bits_cuda(*args, **kw)
+
+    ms = _device_ms(call, [()])
+    plain_ms = _device_ms(lambda: ref.sample_arrival_bits_ref(*args, **kw),
+                          [()], reps=4)
+    dev_ms, events = _profiled_device_ms(
+        lambda: [call() for _ in range(3)], top=8)
+    cells = kt.shape[0] * ref._windows(0, n_cycles)[1] * n_onus
+    bursts = int(ref.window_counts(kt, 0, n_cycles, n_onus, thr).sum())
+    n_bytes = (kt.numel() * 8 + thr.numel() * 4 + st.numel() * 8
+               + kt.shape[0] * n_cycles * n_onus * 8)
+    n_ops = THREEFRY_OPS * (cells + bursts)
+    return {"ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(n_bytes / HBM_BYTES_S, n_ops / OPS32_S) * 1e3,
+            "bound_by": ("bytes" if n_bytes / HBM_BYTES_S >= n_ops / OPS32_S
+                         else "operations"),
+            "device_ops": (None if dev_ms is None
+                           else sum(n for _, n, _ in events) / 3)}
+
+
 def phase_k1():
     from repro_torch.kernels.traffic import kernel, ref
     from repro_torch.kernels.traffic.ops import make_stream_key
@@ -962,6 +997,18 @@ def phase_k1():
     spec = full_width_spec()
     k1, l1 = _engine_streams(2048, spec.cases, spec.pon)
     checks.append((k1, 0, 1024, 2048, l1))
+    # the tiling's edges: n_cycles under a window at 1, 129 and 2048
+    # ONUs; lo > 0 across three windows; a row at rate 0 beside rows
+    # whose draw budget runs to the hundreds (n_draws 543); an even row
+    # cut into odd spans (74 ONUs at 4096 cycles); thresholds past 48 KB
+    # of shared memory (n_draws 12,816: the kernel opts in to more)
+    mixed = np.stack([make_stream_key(s, 1, 0) for s in range(3)])
+    checks += [(key, 0, 50, 1, 0.6), (key, 3, 50, 129, 0.6),
+               (key, 7, 40, 2048, 0.6), (key, 100, 150, 37, 0.6),
+               (k8, 36, 150, N_ONUS + 1, l8),
+               (mixed, 0, 256, N_ONUS + 1, (0.0, 5.0, 3.0)),
+               (k8, 0, 4096, 74, l8),
+               (mixed[:2], 5, 70, 3, (0.0, 180.0))]
     err = 0.0
     for keys, c0, nc, no, lam in checks:
         kt, thr, st, ln = _k1_inputs(keys, lam, dev)
@@ -983,32 +1030,33 @@ def phase_k1():
             raise SystemExit(f"K1 stream fingerprint pon={pon}: "
                              f"{float(got.sum())} != {total}")
 
-    # time at the main path's chunk shape: 8 rows x 1024 cycles x 128
-    kt, thr, st, ln = _k1_inputs(k8, l8, dev)
-    args = (kt, 0, thr, st, ln, pkt)
-    kw = dict(n_cycles=1024, n_onus=N_ONUS)
-    ms = _device_ms(lambda: kernel.sample_arrival_bits_cuda(*args, **kw),
-                    [()])
-    plain_ms = _device_ms(lambda: ref.sample_arrival_bits_ref(*args, **kw),
-                          [()], reps=4)
-    cells = kt.shape[0] * ref._windows(0, 1024)[1] * N_ONUS
-    bursts = int(ref.window_counts(kt, 0, 1024, N_ONUS, thr).sum())
-    n_bytes = (kt.numel() * 8 + thr.numel() * 4 + st.numel() * 8
-               + kt.shape[0] * 1024 * N_ONUS * 8)
-    n_ops = THREEFRY_OPS * (cells + bursts)
-    bound = max(n_bytes / HBM_BYTES_S, n_ops / OPS32_S) * 1e3
+    # timed at the main path's chunk shape (8 rows x 1024 cycles x 128)
+    # and at the 2048-ONU round's (1 row x 1024 x 2048)
+    main = _k1_timed(kernel, ref, *_k1_inputs(k8, l8, dev), 1024, N_ONUS,
+                     pkt)
+    wide = _k1_timed(kernel, ref, *_k1_inputs(k1, l1, dev), 1024, 2048,
+                     pkt)
+    for t in (main, wide):
+        if t["device_ops"] not in (None, 1):
+            raise SystemExit(f"K1: {t['device_ops']} device operations "
+                             "a call, not 1")
     _line("k1", time.time() - t0, checks=len(checks) + 2,
-          bitwise="yes", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-          bound_ms=f"{bound:.5f}")
+          bitwise="yes", ms=f"{main['ms']:.4f}",
+          plain_ms=f"{main['plain_ms']:.4f}",
+          bound_ms=f"{main['bound_ms']:.5f}",
+          wide_ms=f"{wide['ms']:.4f}", wide_bound_ms=f"{wide['bound_ms']:.5f}",
+          device_ops_a_call=("not measured" if main["device_ops"] is None
+                             else f"{main['device_ops']:g}"))
     return {
         "name": "traffic_sampler", "route": "cuda",
         "source": "src/repro_torch/csrc/traffic.cu",
         "replaces": "src/repro/kernels/traffic/kernel.py:164",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound,
-        "bound_by": ("bytes" if n_bytes / HBM_BYTES_S >= n_ops / OPS32_S
-                     else "operations"),
-        "library_ms": None,
+        "max_abs_err": err, "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "device_ops_a_call": main["device_ops"],
+        "wide_ms": wide["ms"], "wide_plain_ms": wide["plain_ms"],
+        "wide_bound_ms": wide["bound_ms"],
     }
 
 

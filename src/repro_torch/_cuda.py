@@ -96,9 +96,10 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.repro_traffic_sample.argtypes = [
-            p, p, p, p, p, i, i, i, ctypes.c_uint, i, i, i, i, p]
+            p, p, p, p, p, ctypes.c_double, i, i, ctypes.c_uint, i, i, i, i,
+            i, i, i, i, q, q, p]
         lib.repro_traffic_sample.restype = i
         lib.repro_waterfill_grants.argtypes = [p, p, p, p, p, i, i, p, p]
         lib.repro_waterfill_grants.restype = i
@@ -117,7 +118,6 @@ def library() -> ctypes.CDLL:
         lib.repro_flash_attn_fwd.argtypes = [
             p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
         lib.repro_flash_attn_fwd.restype = i
-        q = ctypes.c_int64
         lib.repro_ssd_scan_fwd.argtypes = [
             p, p, p, p, p, p, p, p, i, i, i, i, i, i, q, q, q, q, q, q, i, p]
         lib.repro_ssd_scan_fwd.restype = i

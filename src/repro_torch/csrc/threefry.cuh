@@ -60,6 +60,18 @@ __device__ __forceinline__ int burst_count(uint32_t k0, uint32_t k1, uint32_t c0
   return count;
 }
 
+// The same count from draw 0's 24-bit uniform by a binary search, in log2(n_draws) steps
+// whatever the count: the thresholds are non-decreasing, so the first j with u24 <= thr[j]
+// (n_draws if none) is their lower bound (the plain version's searchsorted, side="left").
+__device__ __forceinline__ int burst_count_of(int32_t u24, const int32_t* thr, int n_draws) {
+  int a = 0, z = n_draws;
+  while (a < z) {
+    const int mid = (a + z) >> 1;
+    if (thr[mid] < u24) a = mid + 1; else z = mid;
+  }
+  return a;
+}
+
 // A burst's packet count: the run of the breakpoint table that holds the 24-bit uniform
 // g24, i.e. the largest a with start[a] <= g24.
 __device__ __forceinline__ int32_t burst_length(int32_t g24, const int32_t* start,
@@ -69,6 +81,23 @@ __device__ __forceinline__ int32_t burst_length(int32_t g24, const int32_t* star
     const int mid = (a + z) >> 1;
     if (start[mid] <= g24) a = mid; else z = mid;
   }
+  return len[a];
+}
+
+// The same packet count by a walk from a guessed run: from any a in [0, n_bp) the walk ends
+// on the largest a with start[a] <= g24 (the starts increase, start[0] is 0), so the result
+// is burst_length's whatever the guess. The guess inverts the geometric(1/16) CDF that the
+// repo's one table holds, start[a] ~ 2^24 (1 - (15/16)^a), so the walk is a step or two where
+// a binary search reads the table eight times.
+__device__ __forceinline__ int32_t burst_length_walk(int32_t g24, const int32_t* start,
+                                                     const int32_t* len, int n_bp) {
+  constexpr float kInvLog2Q = -10.740053f;  // 1 / log2(15/16)
+  const float tail = 1.0f - (static_cast<float>(g24) + 0.5f) * (1.0f / 16777216.0f);
+  // clamped as a float: log2(0) is -inf, and fmaxf takes 0 over a NaN
+  int a = static_cast<int>(fminf(fmaxf(__log2f(tail) * kInvLog2Q, 0.0f),
+                                 static_cast<float>(n_bp - 1)));
+  while (a > 0 && start[a] > g24) --a;
+  while (a + 1 < n_bp && start[a + 1] <= g24) ++a;
   return len[a];
 }
 

@@ -81,19 +81,34 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("cycle0,n_cycles,n_onus", [
-    (0, 64, 8), (77, 130, 2), (63, 65, 1), (0, 1024, 128),
-    (5120, 1024, 2048),
-])
-def test_sampler_kernel_matches_plain(cuda, cycle0, n_cycles, n_onus):
+def _k1_args(cuda, lams):
     keys = np.stack([k1_ops.make_stream_key(s, 1, 0, s % 2)
-                     for s in range(4)])
-    lams = np.array([0.12, 0.3, 0.0, 2.5], np.float32)
+                     for s in range(len(lams))])
+    lams = np.asarray(lams, np.float32)
     n_draws = k1_ops._tail_bound(float(lams.max()) * k1_ref.WINDOW)
     thr = torch.as_tensor(k1_ref.poisson_thresholds(
         lams.astype(np.float64) * k1_ref.WINDOW, n_draws), device=cuda)
     kt = torch.as_tensor(keys.astype(np.int64), device=cuda)
     starts, lengths = k1_ops._table(1 / 16, cuda)
+    return kt, thr, starts, lengths
+
+
+# K1's shapes: the engine's chunks; n_cycles under a window at 1, 129 and
+# 2048 ONUs; lo > 0 across three windows; an even row cut into odd spans
+# (74 ONUs at 4096 cycles)
+K1_SHAPES = [
+    (0, 64, 8), (77, 130, 2), (63, 65, 1), (0, 1024, 128),
+    (5120, 1024, 2048), (0, 50, 1), (3, 50, 129), (7, 40, 2048),
+    (100, 150, 37), (36, 150, 129), (0, 4096, 74),
+]
+
+
+@pytest.mark.parametrize("cycle0,n_cycles,n_onus", K1_SHAPES)
+@pytest.mark.parametrize("lams", [(0.12, 0.3, 0.0, 2.5), (0.0, 5.0, 3.0)])
+def test_sampler_kernel_matches_plain(cuda, cycle0, n_cycles, n_onus, lams):
+    """The second batch mixes a row at rate 0 with rows whose draw
+    budget runs to the hundreds (n_draws 543)."""
+    kt, thr, starts, lengths = _k1_args(cuda, lams)
     before = k1.launches
     got = k1.sample_arrival_bits_cuda(
         kt, cycle0, thr, starts, lengths, PKT, n_cycles=n_cycles,
@@ -103,6 +118,39 @@ def test_sampler_kernel_matches_plain(cuda, cycle0, n_cycles, n_onus):
         n_onus=n_onus)
     assert k1.launches == before + 1
     assert torch.equal(got, want)
+
+
+def test_sampler_kernel_past_default_shared_memory(cuda):
+    """A draw budget whose thresholds pass 48 KB of shared memory: the
+    kernel opts in to more."""
+    kt, thr, starts, lengths = _k1_args(cuda, (0.0, 180.0))
+    assert 4 * thr.shape[1] > 48 * 1024
+    got = k1.sample_arrival_bits_cuda(kt, 5, thr, starts, lengths, PKT,
+                                      n_cycles=70, n_onus=3)
+    want = k1_ref.sample_arrival_bits_ref(kt, 5, thr, starts, lengths,
+                                          PKT, n_cycles=70, n_onus=3)
+    assert torch.equal(got, want)
+
+
+def test_sampler_kernel_is_one_device_operation(cuda):
+    """A call launches the kernel and nothing else on the card: no
+    memset, no cast, no multiply."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    kt, thr, starts, lengths = _k1_args(cuda, (0.12, 0.3, 0.0, 2.5))
+    args = (kt, 0, thr, starts, lengths, PKT)
+    k1.sample_arrival_bits_cuda(*args, n_cycles=1024, n_onus=128)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            k1.sample_arrival_bits_cuda(*args, n_cycles=1024, n_onus=128)
+        torch.cuda.synchronize()
+    ops = [(e.key, e.count) for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    assert len(ops) == 1 and ops[0][1] == 3, ops
+    assert "traffic_kernel" in ops[0][0]
 
 
 def test_sampler_ops_equal_across_devices(cuda):
