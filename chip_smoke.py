@@ -344,15 +344,20 @@ plain runs go on beside every later phase:
    float32 parameters, bf16 compute, random weights from a seed), one
    pod, batch 8 x 64 tokens, 2 rounds x 4 AdamW steps, its
    ``--log-jsonl`` read back: every step's loss finite, each round's
-   sync within ``SYNC_TOL`` of ``TRAIN_SYNC_PINS``, K4
-   ``TRAIN_K4_A_STEP`` times a step (the forward and the ``remat``
-   recompute of each layer), all on the tensor-core kernel; prints the
+   sync within ``SYNC_TOL`` of ``TRAIN_SYNC_PINS``, K4 with its
+   log-sum-exp ``TRAIN_K4_A_STEP`` times a step (the forward and the
+   ``remat`` recompute of each layer, ``attn_impl="chunked"``), all on
+   the tensor-core kernel, and the backward from it
+   ``TRAIN_K4_BWD_A_STEP`` times (once a layer,
+   ``K4_BWD_LAUNCHES_A_CALL`` launches each); prints the
    step ms, peak memory, and the device ms of one more step under
    ``torch.profiler`` (its kernels' time, the largest named) over the
    wall of one unprofiled step (the busy share); then one step at
    olmo-1b's published 2048-token context (batch ``TRAIN_LONG[0]``):
-   its loss finite, K4 ``TRAIN_K4_A_STEP`` times on the tensor cores,
-   its ms, peak memory and busy share. (b) One full-width state and batch through one AdamW
+   its loss finite, K4 ``TRAIN_K4_A_STEP`` times on the tensor cores
+   and its backward ``TRAIN_K4_BWD_A_STEP`` times, its ms, peak memory
+   and busy share, and the same of that step through
+   ``attn_impl="pallas"`` (the plain recompute in the backward). (b) One full-width state and batch through one AdamW
    step with K4 in bf16, the plain attention in bf16 and in float32
    compute: the kernel run's loss, gradient norm and parameter change
    no farther from the float32 run than ``TRAIN_F32_RATIO`` times the
@@ -362,7 +367,12 @@ plain runs go on beside every later phase:
    version; K4's,
    K5's and K6's Functions at the serving shapes with S cut to
    ``TRAIN_BWD_S``: every input gradient bit for bit autograd of the
-   plain version on the same inputs; each backward's ms. (d) 2 layers, 3 rounds x 2 steps with a
+   plain version on the same inputs; each backward's ms. The backward
+   from the log-sum-exp at the two S-512 shapes and the long step's:
+   K4's lse within ``XLA_LSE_TOL``, dq, dk, dv within ``XLA_BWD_RTOL``
+   of the plain versions on the same inputs, ``XLA_REPEATS`` calls bit
+   for bit, its ms beside the plain version's, the bound, the recompute
+   Function's backward and SDPA's. (d) 2 layers, 3 rounds x 2 steps with a
    checkpoint a round; only round 2's copied into a fresh directory and
    resumed: the final state (params, moments, step) bit for bit the
    uninterrupted run's; (c) also times SDPA's forward and backward
@@ -374,7 +384,8 @@ plain runs go on beside every later phase:
    pod), 2 rounds x 4 steps, int8 FedAvg rounds, its ``--log-jsonl``
    read back: every loss finite, the mesh event's pod axis, each
    round's sync within ``SYNC_TOL`` of ``FED_SYNC_PINS``, K4 twice a
-   layer a pod a step, all on the tensor-core kernel, K3 and K3' once a
+   layer a pod a step, all on the tensor-core kernel, the backward from
+   its lse once a layer a pod a step, K3 and K3' once a
    stacked leaf a round; a fed step and an int8 round timed, each
    profiled for its busy share; (b) the coupled FedBuff branch
    ("fed_async": 2 s deadline, defer, faults of seed 3, quorum 0.5), 3
@@ -398,7 +409,8 @@ plain runs go on beside every later phase:
    one-rank mesh): every step's loss and gradient norm and every
    parameter and moment bit for bit the same steps through
    ``make_train_step`` on plain tensors with no mesh (deterministic
-   algorithms), K4 the same launches in each, all on the tensor cores;
+   algorithms), K4 and the backward from its lse the same launches in
+   each, K4 all on the tensor cores;
    a mesh step and a no-mesh step timed, each profiled for its busy
    share (DTensor's dispatch is host time). (b) the partition specs of
    all ten configs on the two production meshes
@@ -411,6 +423,8 @@ launches on its path (K4's and K5's ``launches_tc`` of them on the
 tensor-core kernels; ``launches_by_path`` for the kernels several paths
 run; K4's, K5's and K6's ``backward_ms``, ``backward_plain_ms`` and
 ``backward_bound_ms`` from ``train`` (c), K4's ``backward_library_ms``;
+the backward from K4's lse, ``flash_attention_bwd``, at the long train
+step's shape and ``*_by_shape`` at the S-512 ones;
 K3's and K3''s times at the fed leaf from ``fed_train`` (c)), its error
 against the plain version, its time, the plain
 version's time, a library call's time where one computes the same
@@ -663,9 +677,12 @@ TRAIN_RUNS = {"full": (None, 2), "resume": ({"n_layers": 2}, 3)}
 TRAIN_STEPS = {"full": 4, "resume": 2}
 TRAIN_BATCH, TRAIN_SEQ = 8, 64
 # (a) one more step at olmo-1b's published context, 2048 tokens, of the
-# full run's state: (batch, seq), the batch cut from 8 to fit the plain
-# attention's recompute in the backward (B H S^2 float32 scores a layer)
-TRAIN_LONG = (4, 2048)
+# full run's state: (batch, seq) at olmo-1b's batch of 8 (it was cut to
+# 4 for the plain attention's recompute, B H S^2 float32 scores a layer;
+# with the backward from the log-sum-exp an NVIDIA H100 80GB HBM3
+# (700 W) measured a peak of 42.0 GB at 8 x 2048, as at 4 x 2048;
+# train (a) prints it beside the "pallas" route's)
+TRAIN_LONG = (8, 2048)
 # each round's sync (s) of those runs' timelines on the JAX package's
 # engine; tests/test_torch_train.py::test_chip_smoke_train_sync_pins
 # recomputes them
@@ -673,9 +690,14 @@ TRAIN_SYNC_PINS = {"full": (8.665100000000637, 8.665100000000637),
                    "resume": (4.580099999999864, 4.580099999999864,
                               4.580099999999864)}
 # K4 launches a step under remat="full" (olmo-1b's default) at
-# grad_accum 1: each of the 16 layers' forward, then its recompute in the
-# backward; the backward itself recomputes the plain version
+# grad_accum 1, through attn_impl="chunked" (FlashAttentionLSE): each of
+# the 16 layers' forward with its log-sum-exp, then its recompute in the
+# backward; and the backward from the log-sum-exp once a layer (its
+# operator's count in a trace), three launches a call (delta, dK/dV, dQ)
 TRAIN_K4_A_STEP = 32
+TRAIN_K4_BWD_A_STEP = 16
+K4_BWD_LAUNCHES_A_CALL = 3
+TRAIN_K4_BWD_LAUNCHES_A_STEP = TRAIN_K4_BWD_A_STEP * K4_BWD_LAUNCHES_A_CALL
 # (b) one AdamW step (lr 3e-3) of one full-width state on one batch, with
 # K4 in bf16, the plain attention in bf16 and in float32 compute: the
 # kernel run's distance from the float32 run (the loss; the gradient norm
@@ -698,6 +720,17 @@ TRAIN_DELTA_FLOOR = 1e-2
 # gradients must equal autograd of the plain version on the same inputs
 # bit for bit: the backward recomputes the same operations
 TRAIN_BWD_S = 512
+# (c) the backward from the log-sum-exp (csrc/flash_attn_bwd.cu) at the
+# two S-512 shapes and the long step's: K4's lse within XLA_LSE_TOL of
+# the plain version's (float32 results of the same bf16 inputs, summed in
+# another order, K4's tensor-core route in base 2); dq, dk, dv within
+# XLA_BWD_RTOL of the largest magnitude of flash_attention_bwd_ref's on
+# the same (q, k, v, out, lse, g): both compute in float32 from the same
+# bf16 inputs and round each result to bf16 once (one ulp, 2^-8 of a
+# value); XLA_REPEATS calls the same bits
+XLA_LSE_TOL = 2e-5
+XLA_BWD_RTOL = 2.0 ** -7
+XLA_REPEATS = 10
 
 # fed_train phase. train()'s federated branch at olmo-1b's published
 # width (d_model 2048, 16 heads of 128, d_ff 8192, vocab 50304), float32
@@ -5125,13 +5158,14 @@ def _hold_int8_cache(cfg, params, prompts, extra, kernels, run,
 
 def _train_kernels() -> dict:
     """The kernel counts of the training path: K4 (and its tensor-core
-    launches) in the steps, K1, K2 and the phase kernel in the
-    timeline."""
+    launches) and the backward from its log-sum-exp in the steps, K1, K2
+    and the phase kernel in the timeline."""
     from repro_torch.kernels.attention import kernel as k4
     from repro_torch.kernels.ponsim import kernel as k2
     from repro_torch.kernels.traffic import kernel as k1
 
-    return {"k4": k4, "k4_tc": _CountOf(k4), "k1": k1, "k2": k2,
+    return {"k4": k4, "k4_tc": _CountOf(k4),
+            "k4_bwd": _CountOf(k4, "bwd_launches"), "k1": k1, "k2": k2,
             "phase": _CountOf(k2, "phase_launches")}
 
 
@@ -5237,13 +5271,14 @@ def _train_whole_step():
     plain = cfg.replace(attn_impl="reference")
     for name, c in (("kernel", cfg), ("plain", plain),
                     ("f32", plain.replace(dtype="float32"))):
-        k4.launches = k4.launches_tc = 0
+        k4.launches = k4.launches_tc = k4.bwd_launches = 0
         new, m = stepfns.make_train_step(c, opt_cfg)(state, batch)
         delta = torch.cat([(a - b).reshape(-1) for a, b in
                            zip(tree_leaves(new.params), before)])
         runs[name] = {"loss": float(m["loss"]),
                       "grad_norm": float(m["grad_norm"]), "delta": delta,
-                      "k4": k4.launches, "k4_tc": k4.launches_tc}
+                      "k4": k4.launches, "k4_tc": k4.launches_tc,
+                      "k4_bwd": k4.bwd_launches}
         del new, m
     return runs
 
@@ -5294,6 +5329,31 @@ def _bwd_bytes_bound(ins, grads_out) -> float:
     return n / HBM_BYTES_S * 1e3
 
 
+def _host_ms(fn):
+    """``fn()`` once to warm up, then three more calls, each ended by a
+    synchronise: the last call's result and the median host ms."""
+    fn()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return got, statistics.median(times)
+
+
+def _backward_ms(fn, ins, grads_out, n_out=1):
+    """The input gradients of ``fn`` on leaf copies of ``ins`` against
+    ``grads_out`` (of its first ``n_out`` outputs), and the host ms of
+    that backward (``_host_ms``; the graph built once, kept)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+    out = fn(*leaves)
+    outs = out[:n_out] if isinstance(out, tuple) else (out,)
+    return _host_ms(lambda: torch.autograd.grad(outs, leaves, grads_out,
+                                                retain_graph=True))
+
+
 def _bwd_check(what, function, plain, ins, grads_out, n_out=1):
     """(c): ``function`` (an autograd Function's apply, kernel forward)
     and ``plain`` (the plain version) on the same leaf inputs ``ins``
@@ -5301,22 +5361,8 @@ def _bwd_check(what, function, plain, ins, grads_out, n_out=1):
     Returns (largest difference, backward ms of the Function, of the
     plain version, bound ms: the bytes bound; K4's caller takes the
     larger of it and the operations' bound)."""
-    def grads(fn):
-        leaves = [t.detach().clone().requires_grad_(True) for t in ins]
-        out = fn(*leaves)
-        outs = out[:n_out] if isinstance(out, tuple) else (out,)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            got = torch.autograd.grad(outs, leaves, grads_out,
-                                      retain_graph=True)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return got, statistics.median(times)
-
-    got, ms = grads(function)
-    want, plain_ms = grads(plain)
+    got, ms = _backward_ms(function, ins, grads_out, n_out)
+    want, plain_ms = _backward_ms(plain, ins, grads_out, n_out)
     err = max(float((a.float() - b.float()).abs().max())
               for a, b in zip(got, want))
     same = all(torch.equal(a, b) for a, b in zip(got, want))
@@ -5332,7 +5378,7 @@ def _sdpa_backward_ms(ins, gy, group: int, window):
     """``scaled_dot_product_attention`` under autograd on the same
     inputs as a K4 backward check (k/v given to every query head; causal,
     with a boolean mask where the window cuts), a yardstick only: ms of
-    its forward and backward, the median of 3 after a warm-up."""
+    its forward and backward (``_host_ms``)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q, k, v = (t.detach().transpose(1, 2) for t in ins)
     if group > 1:
@@ -5346,18 +5392,99 @@ def _sdpa_backward_ms(ins, gy, group: int, window):
         kw = {"attn_mask": (kj <= qi) & (qi - kj < window)}
     g = gy.transpose(1, 2).contiguous()
 
-    def both():
-        return torch.autograd.grad(sdpa(q, k, v, **kw), (q, k, v), g)
+    return _host_ms(lambda: torch.autograd.grad(sdpa(q, k, v, **kw),
+                                                (q, k, v), g))[1]
 
-    both()
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        both()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+
+def _lse_bwd_ops_s(n_ops: int, dtype) -> float:
+    """Seconds of the backward's five products (``n_ops`` = 10 B H D a
+    live key, 2 B H D each) at the card's peaks for their operands. From
+    bf16 inputs Q K^T and dO V^T take bf16 operands, exact on the tensor
+    cores with fp32 accumulation (``BF16_S``); P^T dO, dS K and dS^T Q
+    take the float32 P or dS, at the rate the repo gives float32-accurate
+    products (``OPS32_S``; TF32 would round them to about three digits).
+    From float32 inputs all five at ``OPS32_S``. The two terms add."""
+    if dtype == torch.bfloat16:
+        return 0.4 * n_ops / BF16_S + 0.6 * n_ops / OPS32_S
+    return n_ops / OPS32_S
+
+
+def _xla_backward(what: str, B, S, H, K, D, window, seed) -> dict:
+    """(c): the backward from the log-sum-exp at (B, S, S, H, K, D) in
+    bf16, causal, with ``window``. K4 with its lse: the output bit for
+    bit K4's without, the lse within ``XLA_LSE_TOL`` of the plain
+    version's; the kernel's dq, dk, dv within ``XLA_BWD_RTOL`` of the
+    largest magnitude of ``flash_attention_bwd_ref``'s on the same (q, k,
+    v, out, lse, g), and ``XLA_REPEATS`` calls the same bits. Then its
+    device ms beside the plain version's and the bound (the bytes read
+    and written once over ``HBM_BYTES_S``, or the five products at their
+    operands' rates, ``_lse_bwd_ops_s``, whichever is larger), and through
+    autograd the new Function's backward beside the recompute Function's
+    (``FlashAttention``) and SDPA's forward and backward."""
+    from repro_torch.kernels.attention import kernel as k4
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention import ref as attn_ref
+
+    q, k, v = _qkv(B, S, S, H, K, D, torch.bfloat16, seed=seed)
+    gy = torch.randn((B, S, H, D), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(
+                         seed + 1)).to(torch.bfloat16)
+    out, lse = k4.flash_attention_lse_cuda(q, k, v, True, window)
+    _, want_lse = attn_ref.flash_attention_lse_ref(q, k, v, True, window)
+    lse_err = float((lse - want_lse).abs().max())
+    if not torch.equal(out, k4.flash_attention_cuda(q, k, v, True, window)) \
+            or not _close(lse, want_lse, XLA_LSE_TOL):
+        raise SystemExit(f"train (c): K4 with lse at {what}: the output is "
+                         f"not K4's or the lse is {lse_err} from the plain "
+                         f"version's")
+    del want_lse
+    got = k4.flash_attention_bwd_cuda(q, k, v, out, lse, gy, True, window)
+    want = attn_ref.flash_attention_bwd_ref(q, k, v, out, lse, gy, True,
+                                            window)
+    err = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        scale = float(b.float().abs().max())
+        e = float((a.float() - b.float()).abs().max())
+        err = max(err, e)
+        if not (bool(torch.isfinite(a).all())
+                and e <= XLA_BWD_RTOL * scale):
+            raise SystemExit(f"train (c): the backward at {what}: {name} "
+                             f"{e} from the plain version's (largest "
+                             f"{scale}, tolerance {XLA_BWD_RTOL} of it)")
+    del want
+    for _ in range(XLA_REPEATS - 1):
+        again = k4.flash_attention_bwd_cuda(q, k, v, out, lse, gy, True,
+                                            window)
+        if not all(torch.equal(a, b) for a, b in zip(again, got)):
+            raise SystemExit(f"train (c): the backward at {what} gave "
+                             f"other bits on a repeat")
+    args = [(q, k, v, out, lse, gy, True, window)]
+    ms = _device_ms(k4.flash_attention_bwd_cuda, args)
+    plain_ms = _device_ms(attn_ref.flash_attention_bwd_ref, args, reps=2)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in (q, k, v, out, lse, gy, *got))
+    n_ops = 10 * B * H * D * _live_keys(S, S, True, window)
+    ops_s = _lse_bwd_ops_s(n_ops, q.dtype)
+    bound = max(n_bytes / HBM_BYTES_S, ops_s) * 1e3
+    by = "bytes" if n_bytes / HBM_BYTES_S >= ops_s else "operations"
+    del got, out, lse
+    _, fn_ms = _backward_ms(
+        lambda *t: attn_ops.FlashAttentionLSE.apply(*t, True, window),
+        (q, k, v), (gy,))
+    _, recompute_ms = _backward_ms(
+        lambda *t: attn_ops.FlashAttention.apply(*t, True, window),
+        (q, k, v), (gy,))
+    library_ms = _sdpa_backward_ms((q, k, v), gy, H // K, window)
+    print(f"  backward from the lse {what} ({B}, {S}, {H}, {K}, {D}): lse "
+          f"max |diff| {lse_err:.3g}, dq/dk/dv max |diff| {err:.3g}, "
+          f"{XLA_REPEATS} repeats bit for bit; kernel {ms:.3f} ms (plain "
+          f"{plain_ms:.3f}, bound {bound:.4f} by {by}, "
+          f"{n_ops / ms / 1e9:.2f} TFLOP/s); through autograd "
+          f"{fn_ms:.3f} ms, the recompute's {recompute_ms:.3f} ms, SDPA "
+          f"forward and backward {library_ms:.3f} ms", flush=True)
+    return {"err": err, "lse_err": lse_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+            "fn_ms": fn_ms, "recompute_ms": recompute_ms, "ops": n_ops}
 
 
 def _train_backwards() -> dict:
@@ -5374,7 +5501,7 @@ def _train_backwards() -> dict:
     from repro_torch.kernels.ssd import ref as ssd_ref
 
     S = TRAIN_BWD_S
-    k4.launches = k5.launches = k6.launches = 0
+    k4.launches = k5.launches = k6.launches = k4.bwd_launches = 0
     k4.launches_tc = k5.launches_tc = 0
     out = {}
     # the Function's forward, which the train steps use, at their shapes:
@@ -5399,6 +5526,7 @@ def _train_backwards() -> dict:
                              f"tensor-core kernel")
         out[f"k4_fwd_{B}x{T}"] = err
         del q, k, v, got, want
+    out["xla"] = {}
     g = torch.Generator(device="cuda").manual_seed(7)
     for name, (B, _, _, H, K, D), window in (
             ("olmo-1b", OLMO_PREFILL, None),
@@ -5417,6 +5545,11 @@ def _train_backwards() -> dict:
         ops_s = 12 * B * H * D * _live_keys(S, S, True, window) / BF16_S
         out[f"k4_{name}"] = (err, ms, plain_ms, max(bytes_ms, ops_s * 1e3))
         out[f"sdpa_{name}"] = _sdpa_backward_ms(ins, gy, H // K, window)
+        out["xla"][f"{name}-s{S}"] = _xla_backward(
+            name, B, S, H, K, D, window, seed=21)
+    B, T = TRAIN_LONG
+    out["xla"][f"olmo-1b-long-{B}x{T}"] = _xla_backward(
+        "olmo-1b long step", B, T, *OLMO_PREFILL[3:], None, seed=23)
     B, _, H, P, N, chunk = MAMBA_PREFILL
     (xh, bm, cm, dt, a), _ = _ssd_inputs(B, S, H, P, N, torch.bfloat16,
                                          seed=5)
@@ -5440,6 +5573,7 @@ def _train_backwards() -> dict:
         f"K6 recurrentgemma-2b ({B}, {S}, {R})", rglru_ops.RGLRUScan.apply,
         rglru_ref.rglru_scan_ref, (a, b, h), (gy,))
     out["launches"] = {"k4": k4.launches, "k4_tc": k4.launches_tc,
+                       "k4_bwd": k4.bwd_launches,
                        "k5": k5.launches, "k5_tc": k5.launches_tc,
                        "k6": k6.launches}
     return out
@@ -5469,11 +5603,16 @@ def phase_train():
     if len(losses) != n_steps or not all(math.isfinite(x) for x in losses):
         raise SystemExit(f"train (a): step losses {losses}")
     want_k4 = n_steps * TRAIN_K4_A_STEP
-    if (launches["k4"], launches["k4_tc"]) != (want_k4, want_k4):
+    want_bwd = n_steps * TRAIN_K4_BWD_LAUNCHES_A_STEP
+    if (launches["k4"], launches["k4_tc"], launches["k4_bwd"]) != (
+            want_k4, want_k4, want_bwd):
         raise SystemExit(f"train (a): K4 ran {launches['k4']} times "
-                         f"({launches['k4_tc']} on the tensor cores), not "
-                         f"{want_k4} ({TRAIN_K4_A_STEP} a step, all on the "
-                         f"tensor cores)")
+                         f"({launches['k4_tc']} on the tensor cores), the "
+                         f"backward {launches['k4_bwd']}, not {want_k4} "
+                         f"({TRAIN_K4_A_STEP} a step, all on the tensor "
+                         f"cores) and {want_bwd} ({TRAIN_K4_BWD_A_STEP} "
+                         f"calls a step, {K4_BWD_LAUNCHES_A_CALL} launches "
+                         f"each)")
     step_ms = [h["wall_s"] * 1e3 / TRAIN_STEPS["full"] for h in history]
     # one more step of the same state, profiled: the device's busy share
     from repro_torch.configs import get_config
@@ -5487,7 +5626,8 @@ def phase_train():
     batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
     step_wall_ms, dev_ms, top = _timed_step(step, state, batch)
     print(f"  (a) losses {[round(x, 4) for x in losses]}; K4 "
-          f"{launches['k4']} ({launches['k4_tc']} tensor cores), K1 "
+          f"{launches['k4']} ({launches['k4_tc']} tensor cores), its "
+          f"backward {launches['k4_bwd']}, K1 "
           f"{launches['k1']}, K2 {launches['k2']}, phase kernel "
           f"{launches['phase']}", flush=True)
     _print_top(f"a step at {TRAIN_BATCH} x {TRAIN_SEQ}", dev_ms,
@@ -5501,30 +5641,50 @@ def phase_train():
     batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k4.launches = k4.launches_tc = 0
+    k4.launches = k4.launches_tc = k4.bwd_launches = 0
     new, m = step(state, batch)
     long_loss = float(m["loss"])
-    long_k4 = (k4.launches, k4.launches_tc)
+    long_k4 = (k4.launches, k4.launches_tc, k4.bwd_launches)
     del new, m
     long_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if not math.isfinite(long_loss) or long_k4 != (TRAIN_K4_A_STEP,
-                                                   TRAIN_K4_A_STEP):
+    if not math.isfinite(long_loss) or long_k4 != (
+            TRAIN_K4_A_STEP, TRAIN_K4_A_STEP, TRAIN_K4_BWD_LAUNCHES_A_STEP):
         raise SystemExit(f"train (a) at {B} x {T}: loss {long_loss}, K4 "
-                         f"{long_k4} (not {TRAIN_K4_A_STEP} a step, all on "
-                         f"the tensor cores)")
+                         f"and its backward {long_k4} (not "
+                         f"{TRAIN_K4_A_STEP} a step, all on the tensor "
+                         f"cores, and {TRAIN_K4_BWD_LAUNCHES_A_STEP})")
     long_wall_ms, long_dev_ms, long_top = _timed_step(step, state, batch)
     _print_top(f"a step at {B} x {T} (loss {long_loss:.6f}, peak "
                f"{long_peak_gb:.3f} GB)", long_dev_ms, long_wall_ms,
                long_top)
+    # the same step through attn_impl="pallas" (K4, then the plain
+    # recompute in the backward): its peak and ms beside the chunked one's
+    pallas = stepfns.make_train_step(cfg.replace(attn_impl="pallas"),
+                                     OptimizerConfig("adamw", lr=3e-3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    new, m = pallas(state, batch)
+    pallas_loss = float(m["loss"])
+    del new, m
+    pallas_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pallas_wall_ms, pallas_dev_ms, pallas_top = _timed_step(pallas, state,
+                                                            batch)
+    _print_top(f"the same step through \"pallas\" (loss {pallas_loss:.6f}, "
+               f"peak {pallas_peak_gb:.3f} GB)", pallas_dev_ms,
+               pallas_wall_ms, pallas_top)
     del state, batch, tok
 
     # (b) the kernel against its plain version through a whole step
     runs = _train_whole_step()
-    if (runs["kernel"]["k4"], runs["kernel"]["k4_tc"]) != (
-            TRAIN_K4_A_STEP, TRAIN_K4_A_STEP) or runs["plain"]["k4"] or \
-            runs["f32"]["k4"]:
+    if (runs["kernel"]["k4"], runs["kernel"]["k4_tc"],
+            runs["kernel"]["k4_bwd"]) != (
+            TRAIN_K4_A_STEP, TRAIN_K4_A_STEP,
+            TRAIN_K4_BWD_LAUNCHES_A_STEP) or \
+            runs["plain"]["k4"] or runs["f32"]["k4"] or \
+            runs["plain"]["k4_bwd"] or runs["f32"]["k4_bwd"]:
         raise SystemExit(f"train (b): K4 launches "
-                         f"{[runs[k]['k4'] for k in runs]}")
+                         f"{[runs[k]['k4'] for k in runs]}, its backward "
+                         f"{[runs[k]['k4_bwd'] for k in runs]}")
     held = _hold_whole_step(runs)
     del runs
 
@@ -5566,12 +5726,18 @@ def phase_train():
           k4_tc=launches["k4_tc"], k1=launches["k1"], k2=launches["k2"],
           phase_launches=launches["phase"], long_batch=B, long_seq=T,
           long_loss=f"{long_loss:.6f}", long_k4=long_k4[0],
+          long_k4_bwd=long_k4[2], k4_bwd=launches["k4_bwd"],
           long_step_ms=f"{long_wall_ms:.3f}",
           long_device_ms=("not measured" if long_dev_ms is None
                           else f"{long_dev_ms:.3f}"),
           long_device_busy=("not measured" if long_dev_ms is None
                             else f"{long_dev_ms / long_wall_ms:.3f}"),
           long_peak_gb=f"{long_peak_gb:.3f}",
+          long_pallas_loss=f"{pallas_loss:.6f}",
+          long_pallas_step_ms=f"{pallas_wall_ms:.3f}",
+          long_pallas_device_ms=("not measured" if pallas_dev_ms is None
+                                 else f"{pallas_dev_ms:.3f}"),
+          long_pallas_peak_gb=f"{pallas_peak_gb:.3f}",
           k4_fwd_err={k: f"{v:.3g}" for k, v in bwd.items()
                       if k.startswith("k4_fwd")},
           syncs_held="yes", **held,
@@ -5580,6 +5746,10 @@ def phase_train():
           bwd_bound_ms={k: f"{v[3]:.5f}" for k, v in checks.items()},
           bwd_library_fwd_bwd_ms={k: f"{v:.3f}" for k, v in bwd.items()
                                   if k.startswith("sdpa_")},
+          **{f"lse_bwd_{key}": {k: f"{v[key]:.5g}" for k, v in
+                                bwd["xla"].items()}
+             for key in ("err", "lse_err", "ms", "plain_ms", "bound_ms",
+                         "fn_ms", "recompute_ms", "library_ms")},
           resume_bitwise="yes", ckpt_gb=f"{ckpt_gb:.3f}",
           resume_full_wall_s=f"{full_wall:.3f}",
           resume_wall_s=f"{resume_wall:.3f}", resume_k4=res_launches["k4"])
@@ -5809,6 +5979,8 @@ def phase_fed_train():
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config("olmo-1b").replace(grad_accum=1, n_layers=FED_LAYERS)
     k4_a_step = 2 * FED_LAYERS * FED_PODS   # forward + recompute, a pod
+    # the backward from the lse, its launches
+    bwd_a_step = FED_LAYERS * FED_PODS * K4_BWD_LAUNCHES_A_CALL
     runs = {}
     # (a) and (b): the branch at olmo-1b's width, events read back
     for name, path_name in (("fed", "olmo-1b-fed"),
@@ -5829,19 +6001,21 @@ def phase_fed_train():
         if events[0]["shape"] != {"pod": FED_PODS, "data": 1, "model": 1}:
             raise SystemExit(f"fed_train {name}: mesh {events[0]}")
         want = {"k4": n_steps * k4_a_step, "k4_tc": n_steps * k4_a_step,
+                "k4_bwd": n_steps * bwd_a_step,
                 "k3": n_leaves * n_rounds, "k3p": n_leaves * n_rounds}
         if any(launches[k] != v for k, v in want.items()):
             raise SystemExit(f"fed_train {name}: launches {launches}, want "
                              f"{want} (K4 {k4_a_step} a step, all on the "
-                             f"tensor cores; K3 and K3' one a stacked leaf "
-                             f"a round)")
+                             f"tensor cores; its backward {bwd_a_step}; K3 "
+                             f"and K3' one a stacked leaf a round)")
         if tuple(state.opt.step.shape) != (FED_PODS,):
             raise SystemExit(f"fed_train {name}: not a pod-stacked state")
         step_ms = [h["wall_s"] * 1e3 / FED_STEPS[name] for h in history]
         print(f"  ({'a' if name == 'fed' else 'b'}) {name}: losses "
               f"{[round(x, 4) for x in losses]}; syncs "
               f"{[h['sync_s'] for h in history]}; K4 {launches['k4']} "
-              f"({launches['k4_tc']} tensor cores), K3 {launches['k3']}, "
+              f"({launches['k4_tc']} tensor cores), its backward "
+              f"{launches['k4_bwd']}, K3 {launches['k3']}, "
               f"K3' {launches['k3p']}, K1 {launches['k1']}, K2 "
               f"{launches['k2']}, phase kernel {launches['phase']}; "
               f"{wall:.3f} s", flush=True)
@@ -5970,7 +6144,8 @@ def _mesh_steps(cfg, opt_cfg, schedule, on_mesh: bool):
     placed by ``launch/specs.py``, the batches by ``shard_batch``, the
     gradients pinned to the parameters' placements) or through
     ``make_train_step`` on plain tensors. Returns (the final state, the
-    last batch, the step, each step's (loss, grad norm), K4 launches)."""
+    last batch, the step, each step's (loss, grad norm), K4 launches, of
+    them on the tensor cores, and its backward's)."""
     from repro_torch import _dtensor
     from repro_torch.data.pipeline import shard_batch
     from repro_torch.dist import sharding as shd
@@ -5993,14 +6168,14 @@ def _mesh_steps(cfg, opt_cfg, schedule, on_mesh: bool):
         step = stepfns.make_train_step(cfg, opt_cfg, schedule)
         batches = [{k: torch.as_tensor(v, device="cuda")
                     for k, v in b.items()} for b in hosts]
-    k4.launches = k4.launches_tc = 0
+    k4.launches = k4.launches_tc = k4.bwd_launches = 0
     metrics = []
     for b in batches:
         state, m = step(state, b)
         metrics.append((_dtensor.full(m["loss"]),
                         _dtensor.full(m["grad_norm"])))
     torch.cuda.synchronize()
-    launches = (k4.launches, k4.launches_tc)
+    launches = (k4.launches, k4.launches_tc, k4.bwd_launches)
     if on_mesh and not _dtensor.is_dtensor(state.opt.step):
         raise SystemExit("mesh (a): the mesh step left the mesh")
     return state, batches[-1], step, metrics, launches
@@ -6109,8 +6284,10 @@ def _dryrun_cell_finish() -> dict:
         rec = json.loads(f.readlines()[-1])
     _dryrun_cell_stop()
     row = roofline.analyze_record(rec)
-    if row is None or rec["kernels"].get("flash_attention", 0) < 1:
-        raise SystemExit(f"mesh (d): not an ok record through K4: {rec}")
+    if row is None or rec["kernels"].get("flash_attention_lse", 0) < 1 or \
+            rec["kernels"].get("flash_attention_bwd", 0) < 1:
+        raise SystemExit(f"mesh (d): not an ok record through K4 and the "
+                         f"backward from its lse: {rec}")
     mem = rec["memory_analysis"]
     print(f"  (d) dry run olmo-1b x train_4k x 16x16 (fake cuda, one rank "
           f"of 256): trace {rec['lower_s']} s, flops {rec['hlo_flops']:.6e}, "
@@ -6128,34 +6305,41 @@ def _dryrun_hold(step, state, batch, step_ms: float) -> dict:
     """(c): one real step of ``step`` on the card under the dry run's op
     counter, and the same step traced on fake tensors of the same shapes
     on a fake ``cuda`` device: every count equal (per operator, dot
-    FLOPs, HBM bytes, products, kernel operators; K4 ``TRAIN_K4_A_STEP``
-    a step), the real step's K4 launches those of its kernel operators.
-    Prints the roofline terms at the H100's peaks beside ``step_ms``."""
+    FLOPs, HBM bytes, products, kernel operators; K4 with its lse
+    ``TRAIN_K4_A_STEP`` a step, the backward from it
+    ``TRAIN_K4_BWD_A_STEP``), the real step's launches those of its
+    kernel operators (``K4_BWD_LAUNCHES_A_CALL`` a backward). Prints the
+    roofline terms at the H100's peaks beside ``step_ms``."""
     from repro_torch.kernels.attention import kernel as k4
     from repro_torch.launch import dryrun, roofline
 
-    before = k4.launches
+    before = (k4.launches, k4.bwd_launches)
     real = dryrun.trace_step(step, (state, batch))
     torch.cuda.synchronize()
-    launched = k4.launches - before
+    launched = (k4.launches - before[0], k4.bwd_launches - before[1])
     mode = dryrun.fake_mode()
     fake_args = dryrun._map(lambda t: mode.from_tensor(t)
                             if isinstance(t, torch.Tensor) else t,
                             (state, batch))
     fake = dryrun.trace_step(step, fake_args)
-    if k4.launches - before != launched:
-        raise SystemExit("mesh (c): the fake trace launched K4")
+    if (k4.launches - before[0], k4.bwd_launches - before[1]) != launched:
+        raise SystemExit("mesh (c): the fake trace launched K4 or its "
+                         "backward")
     keys = ("ops", "hlo_flops", "hlo_hbm_bytes", "hlo_dot_count", "kernels")
     diff = {k: (real[k], fake[k]) for k in keys if real[k] != fake[k]}
     if diff.get("ops"):
         r, f = diff["ops"]
         diff["ops"] = {n: (r.get(n), f.get(n)) for n in set(r) | set(f)
                        if r.get(n) != f.get(n)}
-    if (diff or real["kernels"] != {"flash_attention": TRAIN_K4_A_STEP}
-            or launched != TRAIN_K4_A_STEP):
+    want = {"flash_attention_lse": TRAIN_K4_A_STEP,
+            "flash_attention_bwd": TRAIN_K4_BWD_A_STEP}
+    if (diff or real["kernels"] != want
+            or launched != (TRAIN_K4_A_STEP,
+                            TRAIN_K4_BWD_LAUNCHES_A_STEP)):
         raise SystemExit(f"mesh (c): the fake trace differs from the "
-                         f"card's step: {diff}; kernels {real['kernels']}, "
-                         f"K4 launched {launched}")
+                         f"card's step: {diff}; kernels {real['kernels']} "
+                         f"(want {want}), K4 and its backward launched "
+                         f"{launched}")
     row = roofline.analyze_record(dict(
         real, ok=True, arch="olmo-1b", shape="train", mesh="1",
         kind="train"))
@@ -6200,7 +6384,8 @@ def _mesh_parts(t0: float) -> dict:
     cfg = get_config("olmo-1b").replace(grad_accum=1)
     opt_cfg = OptimizerConfig(name="adamw", lr=3e-3)
     schedule = warmup_cosine(3e-3, 20, MESH_STEPS)
-    k4_want = MESH_STEPS * TRAIN_K4_A_STEP
+    k4_want = (MESH_STEPS * TRAIN_K4_A_STEP, MESH_STEPS * TRAIN_K4_A_STEP,
+               MESH_STEPS * TRAIN_K4_BWD_LAUNCHES_A_STEP)
     with _deterministic():
         plain, plain_batch, plain_step, plain_m, plain_k4 = _mesh_steps(
             cfg, opt_cfg, schedule, on_mesh=False)
@@ -6208,15 +6393,15 @@ def _mesh_parts(t0: float) -> dict:
             cfg, opt_cfg, schedule, on_mesh=True)
         if (not _bitwise(tree_map(_dtensor.full, mesh), plain)
                 or mesh_k4 != plain_k4
-                or plain_k4 != (k4_want, k4_want)
+                or plain_k4 != k4_want
                 or not all(torch.equal(a, b) for x, y in zip(mesh_m, plain_m)
                            for a, b in zip(x, y))):
             raise SystemExit(
                 f"mesh (a): the mesh step differs from the no-mesh step: "
                 f"(loss, grad norm) {[tuple(map(float, m)) for m in mesh_m]}"
-                f" / {[tuple(map(float, m)) for m in plain_m]}, K4 "
-                f"{mesh_k4} / {plain_k4} (want {k4_want} on the tensor "
-                f"cores)")
+                f" / {[tuple(map(float, m)) for m in plain_m]}, K4, of "
+                f"them on the tensor cores, and its backward {mesh_k4} / "
+                f"{plain_k4} (want {k4_want})")
         n_leaves = len(tree_leaves(plain.params))
     # one more step of each final state, timed and profiled (outside
     # deterministic mode, as train() runs)
@@ -6253,6 +6438,7 @@ def _mesh_parts(t0: float) -> dict:
           held_bitwise="the mesh step vs no mesh: losses, grad norms, "
                        "params, moments",
           leaves=n_leaves, k4=mesh_k4[0], k4_tc=mesh_k4[1],
+          k4_bwd=mesh_k4[2],
           losses=",".join(f"{float(m[0]):.6f}" for m in mesh_m),
           mesh_step_ms=f"{mesh_ms:.3f}",
           mesh_step_device_ms=("not measured" if mesh_dev is None
@@ -6264,7 +6450,9 @@ def _mesh_parts(t0: float) -> dict:
           no_mesh_device_busy=busy(plain_dev, plain_ms),
           spec_table_s=f"{split['b']:.3f}",
           dryrun_equal="ops, flops, HBM bytes, products, kernel operators",
-          dryrun_k4_a_step=held["real"]["kernels"]["flash_attention"],
+          dryrun_k4_a_step=held["real"]["kernels"]["flash_attention_lse"],
+          dryrun_k4_bwd_a_step=held["real"]["kernels"][
+              "flash_attention_bwd"],
           dryrun_step_flops=f"{held['real']['hlo_flops']:.6e}",
           dryrun_step_hbm_bytes=f"{held['real']['hlo_hbm_bytes']:.6e}",
           dryrun_compute_ms=f"{held['compute_ms']:.3f}",
@@ -6274,8 +6462,37 @@ def _mesh_parts(t0: float) -> dict:
               f"{cell_rec['collectives']['total_bytes']:.6e}"),
           dryrun_cell_trace_s=cell_rec["lower_s"],
           split_s={k: f"{v:.1f}" for k, v in split.items()})
-    return {"olmo-1b-mesh": {"k4": mesh_k4[0], "k4_tc": mesh_k4[1]},
+    return {"olmo-1b-mesh": {"k4": mesh_k4[0], "k4_tc": mesh_k4[1],
+                             "k4_bwd": mesh_k4[2]},
             "spec_table": table}
+
+
+def _lse_backward_entry(bwd: dict, by_path: dict) -> dict:
+    """The kernels line's entry of the backward from K4's lse: its
+    numbers at the long train step's shape, and by shape at the two
+    S-512 ones, from ``train`` (c); launches on the main paths."""
+    B, T = TRAIN_LONG
+    main_shape = f"olmo-1b-long-{B}x{T}"
+    xla = bwd["xla"]
+    top = xla[main_shape]
+    entry = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "src/repro/models/flash_xla.py:139",
+        "launches": sum(v for k, v in by_path.items()
+                        if k != "train-backward-check"),
+        "launches_by_path": by_path,
+        "launches_a_call": K4_BWD_LAUNCHES_A_CALL,
+        "max_abs_err": max(x["err"] for x in xla.values()),
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        # SDPA's forward and backward under autograd, same inputs
+        "library_ms": top["library_ms"], "shape": main_shape,
+        "lse_max_abs_err": max(x["lse_err"] for x in xla.values())}
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "fn_ms", "recompute_ms"):
+        entry[f"{key}_by_shape"] = {k: x[key] for k, x in xla.items()}
+    return entry
 
 
 def main() -> int:
@@ -6351,6 +6568,17 @@ def main() -> int:
                                    + sum(fed[p]["k4"] for p in fed_paths)
                                    + mesh["k4"])
     launches["rglru_scan"] = rg["k6"]
+    # the backward from K4's lse runs once a layer of every train step:
+    # one pod, federated and on the mesh; held and timed in train (c)
+    launches["flash_attention_bwd"] = (train_counts["k4_bwd"]
+                                       + sum(fed[p]["k4_bwd"]
+                                             for p in fed_paths)
+                                       + mesh["k4_bwd"])
+    kernels.append(_lse_backward_entry(
+        bwd, {"olmo-1b-train": train_counts["k4_bwd"],
+              **{p: fed[p]["k4_bwd"] for p in fed_paths},
+              "olmo-1b-mesh": mesh["k4_bwd"],
+              "train-backward-check": bwd["launches"]["k4_bwd"]}))
     phase_entry.update(_finish_wide_hold(wide_hold))
     phase_entry["max_abs_err"] = max(phase_entry["max_abs_err"],
                                      phase_entry["wide_pons_max_abs_err"])

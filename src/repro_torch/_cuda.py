@@ -25,7 +25,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("traffic.cu", "waterfill.cu", "ponsim_phase.cu", "flash_attn.cu",
-           "ssd_scan.cu", "ssd_scan_tc.cu", "rglru_scan.cu", "quant_int8.cu")
+           "flash_attn_bwd.cu", "ssd_scan.cu", "ssd_scan_tc.cu", "rglru_scan.cu",
+           "quant_int8.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -116,8 +117,12 @@ def library() -> ctypes.CDLL:
         lib.repro_phase_args_bytes.argtypes = []
         lib.repro_phase_args_bytes.restype = ctypes.c_longlong
         lib.repro_flash_attn_fwd.argtypes = [
-            p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
+            p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
         lib.repro_flash_attn_fwd.restype = i
+        lib.repro_flash_attn_bwd.argtypes = [
+            p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+            ctypes.c_float, i, p]
+        lib.repro_flash_attn_bwd.restype = i
         lib.repro_ssd_scan_fwd.argtypes = [
             p, p, p, p, p, p, p, p, i, i, i, i, i, i, q, q, q, q, q, q, i, p]
         lib.repro_ssd_scan_fwd.restype = i

@@ -5,7 +5,10 @@
 //   out[b, s, h] = softmax_t(q[b, s, h] . k[b, t, h / (H/K)] * D^-0.5, masked) . v[b, t, h / (H/K)]
 // with the mask t < T, causal t <= s, window s - t < window, an fp32 softmax and
 // fp32 accumulators, written in q's dtype (float32 or bfloat16). A row with no live
-// key writes 0 (the TPU kernel's `safe` guard). Two kernels, routed by the wrapper
+// key writes 0 (the TPU kernel's `safe` guard). Given an `lse` pointer, both kernels also
+// write each row's log-sum-exp of its masked, scaled scores, (B, H, S) float32 in natural-log
+// units (the reference flash_xla's (B, K, G, S), h = k G + g), which the backward
+// (flash_attn_bwd.cu) reads; with nullptr they write nothing more. Two kernels, routed by the wrapper
 // (kernels/attention/kernel.py::route) on (dtype, head dim):
 //
 // flash_fwd_kernel_tc: bfloat16 at D in {64, 128, 256}, the serving paths. Built for
@@ -87,8 +90,8 @@ constexpr size_t smem_bytes() {
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int S, int n_keys, int H, int KH, int causal, int window,
-                 float scale) {
+                 T* __restrict__ o, float* __restrict__ lse, int S, int n_keys, int H, int KH,
+                 int causal, int window, float scale) {
   constexpr int kDO = D / 16;     // output columns a thread: tx + 16 * jd
   extern __shared__ float smem[];
   float* Qs = smem;                    // [kBQ][D + 1]
@@ -216,12 +219,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int jd = 0; jd < kDO; ++jd)
       store(&ob[qp * q_pos_stride + tx + 16 * jd], li > 0.f ? acc[i][jd] / li : 0.f);
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * S + qp] = m[i] + logf(li);
   }
 }
 
 template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int n_keys,
-           int H, int KH, int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+           int n_keys, int H, int KH, int causal, int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   auto fn = flash_fwd_kernel<D, T>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -230,26 +235,26 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   fn<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, n_keys, H, KH, causal, window, scale);
+      static_cast<T*>(o), lse, S, n_keys, H, KH, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(int D, const void* q, const void* k, const void* v, void* o, int B, int S,
-             int n_keys, int H, int KH, int causal, int window, float scale,
+int dispatch(int D, const void* q, const void* k, const void* v, void* o, float* lse, int B,
+             int S, int n_keys, int H, int KH, int causal, int window, float scale,
              cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<16, T>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, stream);
-    case 32: return launch<32, T>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, stream);
+    case 16: return launch<16, T>(q, k, v, o, lse, B, S, n_keys, H, KH, causal, window, scale, stream);
+    case 32: return launch<32, T>(q, k, v, o, lse, B, S, n_keys, H, KH, causal, window, scale, stream);
   }
   if constexpr (std::is_same<T, float>::value) {  // bf16 at D >= 64: flash_fwd_kernel_tc
     switch (D) {
       case 64:
-        return launch<64, T>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, stream);
+        return launch<64, T>(q, k, v, o, lse, B, S, n_keys, H, KH, causal, window, scale, stream);
       case 128:
-        return launch<128, T>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, stream);
+        return launch<128, T>(q, k, v, o, lse, B, S, n_keys, H, KH, causal, window, scale, stream);
       case 256:
-        return launch<256, T>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, stream);
+        return launch<256, T>(q, k, v, o, lse, B, S, n_keys, H, KH, causal, window, scale, stream);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -287,7 +292,8 @@ template <int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
-                    int S, int n_keys, int H, int KH, int causal, int window, float scale_log2) {
+                    float* __restrict__ lse, int S, int n_keys, int H, int KH, int causal,
+                    int window, float scale_log2) {
   using L = TcLayout<D>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bar_q;
@@ -453,6 +459,11 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q, const __grid_const
   for (int half = 0; half < 2; ++half) {
     l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
     l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+    const int qp = q0 + r0 + 8 * half;
+    // m and l are in base-2 units of the scaled scores: lse = (m + log2 l) ln 2
+    if (lse != nullptr && lane % 4 == 0 && qp < S)
+      lse[(static_cast<int64_t>(b) * H + h) * S + qp] =
+          (m[half] + log2f(l[half])) * 0.6931471805599453f;
     l[half] = l[half] > 0.f ? 1.f / l[half] : 0.f;
   }
   __syncthreads();
@@ -499,8 +510,8 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, in
 }
 
 template <int D>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S, int n_keys, int H,
-              int KH, int causal, int window, float scale, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+              int n_keys, int H, int KH, int causal, int window, float scale, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
@@ -514,19 +525,20 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
   const cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kTcBQ - 1) / kTcBQ, H, B);
-  fn<<<grid, kTcThreads, smem, stream>>>(tm_q, tm_k, tm_v, tm_o, S, n_keys, H, KH, causal, window,
-                                         scale * 1.4426950408889634f);
+  fn<<<grid, kTcThreads, smem, stream>>>(tm_q, tm_k, tm_v, tm_o, lse, S, n_keys, H, KH, causal,
+                                         window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 }  // namespace
 
 // q, o: (B, S, H, D); k, v: (B, T, KH, D); contiguous, all float32 (bf16 = 0) or all
-// bfloat16 (bf16 = 1); H % KH == 0; window <= 0 means none. tensor_cores = 1 launches
+// bfloat16 (bf16 = 1); H % KH == 0; window <= 0 means none. lse: nullptr, or (B, H, S)
+// float32 that gets each row's log-sum-exp (natural log) of its scaled, masked scores. tensor_cores = 1 launches
 // flash_fwd_kernel_tc (bfloat16, D in {64, 128, 256}, T >= 1, 16-byte aligned
 // pointers), 0 flash_fwd_kernel (float32 at D in {16, 32, 64, 128, 256}, bfloat16
 // at D in {16, 32}).
 extern "C" int repro_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                                    int B, int S, int n_keys, int H, int KH, int D,
+                                    float* lse, int B, int S, int n_keys, int H, int KH, int D,
                                     int causal, int window, float scale, int bf16,
                                     int tensor_cores, void* stream) {
   if (KH <= 0 || H % KH != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -534,13 +546,13 @@ extern "C" int repro_flash_attn_fwd(const void* q, const void* k, const void* v,
   if (tensor_cores) {
     if (!bf16 || n_keys < 1) return static_cast<int>(cudaErrorInvalidValue);
     switch (D) {
-      case 64: return launch_tc<64>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, st);
-      case 128: return launch_tc<128>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, st);
-      case 256: return launch_tc<256>(q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, st);
+      case 64: return launch_tc<64>(q, k, v, o, lse, B, S, n_keys, H, KH, causal, window, scale, st);
+      case 128: return launch_tc<128>(q, k, v, o, lse, B, S, n_keys, H, KH, causal, window, scale, st);
+      case 256: return launch_tc<256>(q, k, v, o, lse, B, S, n_keys, H, KH, causal, window, scale, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  return bf16 ? dispatch<__nv_bfloat16>(D, q, k, v, o, B, S, n_keys, H, KH, causal, window,
+  return bf16 ? dispatch<__nv_bfloat16>(D, q, k, v, o, lse, B, S, n_keys, H, KH, causal, window,
                                         scale, st)
-              : dispatch<float>(D, q, k, v, o, B, S, n_keys, H, KH, causal, window, scale, st);
+              : dispatch<float>(D, q, k, v, o, lse, B, S, n_keys, H, KH, causal, window, scale, st);
 }

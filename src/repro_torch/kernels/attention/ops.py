@@ -1,13 +1,23 @@
-"""Flash-attention dispatch: the Hopper kernel K4 for CUDA tensors, the
-plain version for CPU tensors.
+"""Flash-attention dispatch: the Hopper kernels for CUDA tensors, the
+plain versions for CPU tensors.
 
-On a card the forward is always the kernel. Where an input needs a
-gradient it runs inside :class:`FlashAttention`, the counterpart of the
-reference package's ``custom_vjp``: the kernel forward saves q, k and v,
-and the backward recomputes ``ref.attention_ref`` under autograd and
-returns its gradients, as the reference's ``_bwd`` takes ``jax.vjp`` of
-its oracle. On the CPU autograd differentiates the plain version
-directly.
+Two routes, the reference package's two:
+
+* :func:`flash_attention`, its ``"pallas"`` route. On a card the forward
+  is always K4. Where an input needs a gradient it runs inside
+  :class:`FlashAttention`, the counterpart of the reference's
+  ``kernels/attention`` ``custom_vjp``: the kernel forward saves q, k and
+  v, and the backward recomputes ``ref.attention_ref`` under autograd and
+  returns its gradients, as the reference's ``_bwd`` takes ``jax.vjp`` of
+  its oracle. On the CPU autograd differentiates the plain version
+  directly.
+* :class:`FlashAttentionLSE`, the training half of its ``"chunked"``
+  route (``models/flash_xla.py``, the reference's memory-linear
+  ``custom_vjp``): the forward :func:`flash_attention_lse` (K4 writing
+  each row's log-sum-exp) saves (q, k, v, out, lse), and the backward
+  :func:`flash_attention_bwd` computes dq, dk and dv from them in one
+  call of the hand-written backward, with no S x T matrix in device
+  memory. On the CPU the same Function runs the plain versions of both.
 
 On DTensors (training on a mesh) the dispatch runs on each rank's
 local part: the batch and the heads may stay split (column-parallel
@@ -24,7 +34,7 @@ from repro_torch.kernels.attention import ref as _ref
 
 
 # the dims of q, k, v and the output a rank may hold a part of
-_SPLIT = {0: "batch", 2: "head"}
+SPLIT = {0: "batch", 2: "head"}
 
 
 class FlashAttention(torch.autograd.Function):
@@ -51,6 +61,63 @@ class FlashAttention(torch.autograd.Function):
         return (*(next(it) if w else None for w in want), None, None)
 
 
+class FlashAttentionLSE(torch.autograd.Function):
+    """K4 forward with its log-sum-exp; backward from it by the
+    hand-written kernel (plain versions of both on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_lse(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = flash_attention_bwd(q, k, v, out, lse, g.contiguous(),
+                                    ctx.causal, ctx.window)
+        want = ctx.needs_input_grad[:3]
+        return (*(d if w else None for d, w in zip(grads, want)), None,
+                None)
+
+
+def check_live_rows(S: int, T: int, window) -> None:
+    """Raise where a query row keeps no live key, which has no
+    log-sum-exp: with no key at all, or with a window and ``S >= T +
+    window`` (causal or not, row ``i`` sees keys from ``i - window +
+    1``)."""
+    if T == 0 or (window is not None and S >= T + int(window)):
+        raise ValueError(f"a query row keeps no live key (S {S}, T {T}, "
+                         f"window {window}): it has no log-sum-exp")
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window=None):
+    """(out, lse): attention ``(B, S, H, D)`` in q's dtype and each query
+    row's log-sum-exp ``(B, H, S)`` float32. On a CUDA tensor one launch
+    of K4 or a raise; on a CPU tensor ``ref.flash_attention_lse_ref``.
+    Raises on shapes where a query row keeps no live key
+    (:func:`check_live_rows`), on either device."""
+    check_live_rows(q.shape[1], k.shape[1], window)
+    if q.is_cuda:
+        return _kernel.flash_attention_lse_cuda(q, k, v, causal, window)
+    return _ref.flash_attention_lse_ref(q, k, v, causal, window)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        g: torch.Tensor, causal: bool = True, window=None):
+    """(dq, dk, dv) from :func:`flash_attention_lse`'s ``out`` and ``lse``
+    and the upstream gradient ``g``. On a CUDA tensor one call of the
+    hand-written backward or a raise; on a CPU tensor
+    ``ref.flash_attention_bwd_ref``."""
+    if q.is_cuda:
+        return _kernel.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal,
+                                                window)
+    return _ref.flash_attention_bwd_ref(q, k, v, out, lse, g, causal, window)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window=None) -> torch.Tensor:
     """q: (B,S,H,D); k,v: (B,T,K,D), H % K == 0 -> (B,S,H,D) in q's dtype.
@@ -62,7 +129,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _dtensor.is_dtensor(q):
         return _dtensor.local_kernel(
             lambda q, k, v: flash_attention(q, k, v, causal, window),
-            (q, k, v), (_SPLIT,) * 3, _SPLIT)
+            (q, k, v), (SPLIT,) * 3, SPLIT)
     if q.is_cuda:
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v)):

@@ -17,8 +17,9 @@ output's metadata, are not counted.
 * ``flops``: 2 x prod(result) x prod(contracting dims) for each ``mm``,
   ``bmm``, ``addmm``, ``baddbmm``, ``mv``, ``dot`` and convolution; a
   kernel operator counts the work of its bound: K4 4·B·H·D·Σ(live
-  keys), K5 the products of its chunked scan, K6, K3 and K3' no dot
-  FLOPs.
+  keys) (with its log-sum-exp too), the backward from it the
+  reference's five products, 10·B·H·D·Σ(live keys), K5 the products of
+  its chunked scan, K6, K3 and K3' no dot FLOPs.
 * ``hbm_bytes``: the bytes of every tensor an operator reads and of
   every tensor it writes, each once. Eager PyTorch fuses nothing, so
   each operator is an HBM boundary, as each fusion is in the reference's
@@ -108,6 +109,11 @@ def _flash_attention_flops(q, k, v, causal, window) -> int:
     return 4 * B * H * D * live_keys(S, k.shape[1], causal, window)
 
 
+def _flash_attention_bwd_flops(q, k, v, out, lse, g, causal, window) -> int:
+    B, S, H, D = q.shape
+    return 10 * B * H * D * live_keys(S, k.shape[1], causal, window)
+
+
 def _ssd_scan_flops(xh, b_mat, c_mat, dt, a, chunk, h0=None,
                     route_to=None) -> int:
     B, S, H, P = xh.shape
@@ -116,6 +122,8 @@ def _ssd_scan_flops(xh, b_mat, c_mat, dt, a, chunk, h0=None,
 
 KERNEL_FLOPS: Dict[str, Callable] = {
     "flash_attention": _flash_attention_flops,
+    "flash_attention_lse": _flash_attention_flops,
+    "flash_attention_bwd": _flash_attention_bwd_flops,
     "ssd_scan": _ssd_scan_flops,
     "rglru_scan": lambda *a: 0,
     "quantize_int8": lambda *a: 0,

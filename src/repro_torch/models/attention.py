@@ -7,14 +7,17 @@ windowed layers (slot = position % cap).
 Full-sequence attention (training forward, prefill) dispatches on
 ``cfg.attn_impl``:
 
-* ``"pallas"`` and ``"chunked"`` both go to
-  ``kernels.attention.ops.flash_attention``: on a card the hand-written
-  flash kernel K4, on the CPU its plain version. The reference package
-  runs the Pallas kernel for ``"pallas"`` and its XLA flash scan
-  (``flash_xla``) for ``"chunked"``; both are the same tiled
-  online-softmax forward of one function, which the Hopper kernel is
-  here. So olmo-1b's own config (``attn_impl="chunked"``) runs the
-  kernel.
+* ``"pallas"`` goes to ``kernels.attention.ops.flash_attention``, as the
+  reference sends it to its Pallas kernel: on a card the hand-written
+  flash kernel K4, whose backward (training) recomputes the plain
+  attention under autograd, the reference's ``pallas`` backward; on the
+  CPU the plain version.
+* ``"chunked"``, every config's own, goes to
+  ``models.flash_xla.flash_attention_xla``, as the reference sends it to
+  its memory-linear XLA flash scan: in training K4 writing each row's
+  log-sum-exp and the hand-written backward from it (their plain
+  versions on the CPU); with no gradient (prefill) K4 alone, as
+  ``"pallas"`` runs it.
 * ``"reference"`` goes to the plain ``_sdpa`` with an explicit mask.
 
 Decode (one query against the cache) always runs ``_sdpa``: a plain
@@ -34,6 +37,7 @@ import torch
 from repro_torch import _dtensor
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels.attention import ops as flash_ops
+from repro_torch.models import flash_xla
 from repro_torch.models.layers import (
     apply_head_norm,
     apply_rope,
@@ -152,10 +156,14 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
 def _attend_full(q, k, v, cfg: ModelConfig, spec: LayerSpec,
                  seq: int) -> torch.Tensor:
     """Dispatch full-sequence attention by ``cfg.attn_impl``."""
-    if cfg.attn_impl in ("pallas", "chunked"):
+    if cfg.attn_impl == "pallas":
         out = flash_ops.flash_attention(q, k, v, causal=True,
                                         window=spec.window)
         return _dtensor.merge(out, 2, 2)                  # (B, S, H*Dh)
+    if cfg.attn_impl == "chunked":
+        out = flash_xla.flash_attention_xla(q, k, v, causal=True,
+                                            window=spec.window)
+        return _dtensor.merge(out, 2, 2)
     if cfg.attn_impl != "reference":
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     mask = _mask_full(seq, seq, spec.window, device=q.device)

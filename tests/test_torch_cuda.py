@@ -13,7 +13,12 @@ The fused phase kernel is held to ``run_phase_ref`` on CPU copies of the
 same inputs: ``done_t`` bit for bit, ``rem`` within 1e-9, the same exact
 flag. K4 (flash attention) within 2e-5 in float32 (the same function summed in
 another order; the plain version's products run in full float32, TF32
-off) and 2e-2 in bfloat16 (both outputs rounded to bf16). K5 (the SSD
+off) and 2e-2 in bfloat16 (both outputs rounded to bf16). K4 with its
+log-sum-exp gives K4's output bit for bit and the plain lse within
+2e-5; the backward from it (``csrc/flash_attn_bwd.cu``) gives dq, dk, dv
+within 2e-5 (float32) or 2^-7 (bfloat16) of the largest magnitude of
+``flash_attention_bwd_ref``'s on the same inputs, the same bits over
+ten calls. K5 (the SSD
 scan) computes in float32 from inputs of either type, like its plain
 version: y and the final state within 1e-4 of the plain version's
 largest value (the reference package's own kernel test measure), on
@@ -577,6 +582,110 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     assert k4.launches == before + 1
     assert all(torch.equal(a, b) for a, b in
                zip(got, _grads(k4_ref.attention_ref, (q, k, v))))
+
+
+# the backward from the log-sum-exp (csrc/flash_attn_bwd.cu) and K4's lse:
+# (B, S, T, H, K, D, causal, window) at every head dim, GQA and MQA,
+# windows 1, 5 and S, T != S without a window, tiles ragged both ways;
+# every row keeps a live key
+BWD_GRID = [
+    (2, 19, 19, 4, 4, 16, True, None),
+    (1, 21, 21, 4, 2, 64, True, 5),
+    (2, 20, 20, 4, 2, 16, True, 1),
+    (1, 130, 130, 8, 2, 128, False, None),
+    (1, 70, 70, 10, 1, 256, True, 70),
+    (1, 100, 100, 4, 4, 64, False, 5),
+    (1, 70, 90, 4, 1, 32, True, None),
+    (1, 90, 70, 2, 2, 16, False, None),
+    (2, 200, 200, 10, 1, 256, True, 37),
+    (1, 129, 129, 16, 16, 128, True, None),
+]
+# float32: the same float32 function summed in another order; bfloat16:
+# the kernel and the plain version both compute in float32 from the same
+# bf16 inputs, each result rounded to bf16 once (one ulp, 2^-8 of a value)
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def _rel_close(got, want, tol, what):
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    assert bool(torch.isfinite(got).all()), what
+    assert err <= tol * max(scale, 1e-30), f"{what}: {err} of {scale}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window", BWD_GRID)
+def test_flash_lse_and_backward_match_plain(cuda_fp32, B, S, T, H, K, D,
+                                            causal, window, dtype):
+    """K4's output with lse is K4's output bit for bit, its lse within
+    2e-5 of the plain version's; the backward's dq, dk, dv from it against
+    ``flash_attention_bwd_ref`` on the same (q, k, v, out, lse, g)."""
+    q, k, v = _qkv(B, S, T, H, K, D, dtype, cuda_fp32, seed=S + D)
+    g = torch.randn((B, S, H, D), generator=torch.Generator(
+        device=cuda_fp32).manual_seed(1), device=cuda_fp32).to(dtype)
+    before = (k4.launches, k4.bwd_launches)
+    out, lse = k4.flash_attention_lse_cuda(q, k, v, causal, window)
+    assert torch.equal(out, k4.flash_attention_cuda(q, k, v, causal, window))
+    _, want_lse = k4_ref.flash_attention_lse_ref(q, k, v, causal, window)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
+    got = k4.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal, window)
+    want = k4_ref.flash_attention_bwd_ref(q, k, v, out, lse, g, causal,
+                                          window)
+    torch.cuda.synchronize()
+    assert (k4.launches, k4.bwd_launches) == (
+        before[0] + 2, before[1] + k4.BWD_LAUNCHES_A_CALL)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _rel_close(a, b, BWD_TOL[dtype], name)
+
+
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window", [
+    (1, 130, 130, 10, 1, 256, True, 40),
+    (4, 512, 512, 16, 16, 128, True, None),
+    (4, 512, 512, 10, 1, 256, True, 2048),
+])
+def test_flash_backward_repeats_exactly(cuda, B, S, T, H, K, D, causal,
+                                        window):
+    """Ten calls on the same inputs give the same bits: no atomics, each
+    output element written once, every sum in a fixed order."""
+    q, k, v = _qkv(B, S, T, H, K, D, torch.bfloat16, cuda)
+    g = torch.randn((B, S, H, D), device=cuda).to(torch.bfloat16)
+    out, lse = k4.flash_attention_lse_cuda(q, k, v, causal, window)
+    first = k4.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal, window)
+    for _ in range(9):
+        again = k4.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal,
+                                            window)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+def test_chunked_trains_through_the_kernels_and_pallas_recomputes(cuda):
+    """On a card ``attn_impl="chunked"`` with a gradient launches the lse
+    forward and the backward kernel (``FlashAttentionLSE``); ``"pallas"``
+    keeps ``FlashAttention`` (K4, then the plain recompute); the
+    refusals hold on the card too."""
+    from repro_torch.configs.base import LayerSpec
+    from repro_torch.models import attention as tattn
+
+    q, k, v = _qkv(2, 64, 64, 4, 2, 64, torch.bfloat16, cuda)
+    q.requires_grad_(True)
+    for impl, name, bwd in (("chunked", "FlashAttentionLSEBackward",
+                             k4.BWD_LAUNCHES_A_CALL),
+                            ("pallas", "FlashAttentionBackward", 0)):
+        cfg = get_config("olmo-1b", smoke=True).replace(attn_impl=impl)
+        before = (k4.launches, k4.bwd_launches)
+        out = tattn._attend_full(q, k, v, cfg, LayerSpec(window=16), 64)
+        assert out.grad_fn.next_functions[0][0].name() == name
+        out.float().sum().backward()
+        torch.cuda.synchronize()
+        assert (k4.launches - before[0], k4.bwd_launches - before[1]) == (
+            1, bwd)
+    with pytest.raises(ValueError, match="no live key"):
+        k4_ops.flash_attention_lse(q.detach(), k[:, :8], v[:, :8], True, 8)
+    out, lse = k4.flash_attention_lse_cuda(q.detach(), k, v)
+    with pytest.raises(ValueError, match="lse must be"):
+        k4.flash_attention_bwd_cuda(q.detach(), k, v, out, lse.double(),
+                                    out)
 
 
 def _grads(fn, ins, n_out=1):

@@ -78,12 +78,14 @@ def test_cli_traces_the_training_cells(cli_runs, name):
     assert rec["fed"] == (name == "fed")
     assert rec["chips"] == (512 if name == "fed" else 256)
     cfg = get_config("olmo-1b", smoke=True)
-    # K4 forward twice a layer a microbatch: the forward and its
-    # recomputation under remat="full" (the backward recomputes the plain
-    # version); the federated step runs this rank's one pod
+    # attn_impl="chunked": K4 with its log-sum-exp twice a layer a
+    # microbatch (the forward and its recomputation under remat="full")
+    # and the backward from it once; the federated step runs this rank's
+    # one pod
     assert cfg.remat == "full"
-    assert rec["kernels"] == {"flash_attention":
-                              2 * cfg.n_layers * cfg.grad_accum}
+    assert rec["kernels"] == {
+        "flash_attention_lse": 2 * cfg.n_layers * cfg.grad_accum,
+        "flash_attention_bwd": cfg.n_layers * cfg.grad_accum}
     assert rec["hlo_flops"] > 0 and rec["hlo_dot_count"] > 0
     assert rec["collectives"]["total_bytes"] > 0
     mem = rec["memory_analysis"]

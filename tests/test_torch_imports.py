@@ -65,7 +65,8 @@ def test_scan_covers_the_port():
                      "launch/dryrun.py", "launch/hlo_analysis.py",
                      "launch/roofline.py", "analysis/core.py",
                      "analysis/cli.py", "analysis/registry.py",
-                     "analysis/checkers/kernel_triple.py"):
+                     "analysis/checkers/kernel_triple.py",
+                     "models/flash_xla.py"):
         assert expected in names
 
 

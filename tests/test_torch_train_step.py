@@ -20,8 +20,10 @@
   oracles; the reference's SSD oracle takes no ``h0``, so the SSD
   Function's ``h0`` and ``h_last`` gradients are held against autograd
   of the port's own token-by-token oracle.
-* Under ``remat="full"`` a step runs the attention forward twice a layer
-  (the forward and the recompute), counted through the K4 Function.
+* Under ``remat="full"`` a step of ``attn_impl="chunked"`` runs the
+  lse forward twice a layer (the forward and the recompute) and the
+  backward from the log-sum-exp once, counted through
+  ``FlashAttentionLSE``'s dispatches.
 """
 import dataclasses
 
@@ -267,25 +269,31 @@ def test_rglru_function_gradients(monkeypatch, with_h0):
 
 
 def test_remat_full_runs_attention_twice_a_layer(monkeypatch):
-    """The forward and the recompute: 2 x n_layers attention forwards a
-    step, none in the backward (it recomputes the plain version)."""
-    calls = []
+    """``attn_impl="chunked"`` trains through ``FlashAttentionLSE``: a
+    step runs 2 x n_layers lse forwards under ``remat="full"`` (the
+    forward and the recompute; n_layers without remat) and n_layers
+    backwards from the log-sum-exp."""
+    calls = {"lse": 0, "bwd": 0}
+    real_lse, real_bwd = attn_ops.flash_attention_lse, \
+        attn_ops.flash_attention_bwd
 
-    def counted(q, k, v, causal, window):
-        calls.append(q.shape)
-        return tattn_ref.attention_ref(q, k, v, causal, window)
+    def lse(*args):
+        calls["lse"] += 1
+        return real_lse(*args)
 
-    monkeypatch.setattr(k4, "flash_attention_cuda", counted)
-    monkeypatch.setattr(tattn.flash_ops, "flash_attention",
-                        lambda q, k, v, causal, window:
-                        attn_ops.FlashAttention.apply(q, k, v, causal,
-                                                      window))
+    def bwd(*args):
+        calls["bwd"] += 1
+        return real_bwd(*args)
+
+    monkeypatch.setattr(attn_ops, "flash_attention_lse", lse)
+    monkeypatch.setattr(attn_ops, "flash_attention_bwd", bwd)
     cfg = tcfgs.get_config("olmo-1b", smoke=True).replace(
         attn_impl="chunked")
     params = tlm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     batch = _torch_batch(_batch(cfg.vocab_size))
-    want = {"full": 2 * cfg.n_layers, "none": cfg.n_layers}
+    want = {"full": (2 * cfg.n_layers, cfg.n_layers),
+            "none": (cfg.n_layers, cfg.n_layers)}
     for remat, n in want.items():
-        calls.clear()
+        calls.update(lse=0, bwd=0)
         tstep._value_and_grad(params, cfg.replace(remat=remat), batch)
-        assert len(calls) == n, remat
+        assert (calls["lse"], calls["bwd"]) == n, remat
